@@ -1,0 +1,25 @@
+"""lqrrt_tpu_torch — the lqrrt_tpu planner in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+The JAX package ``lqrrt_tpu`` is the reference; this package keeps its
+module names so each counterpart is easy to find, and it never imports
+``jax`` or ``lqrrt_tpu``.
+
+Callback convention: BATCH-LEADING.  User callbacks take tensors with any
+number of leading batch axes and broadcast over them, so no vmap is needed:
+
+    dynamics(x[..., n], u[..., m], dt) -> x_next[..., n]
+    erf(xgoal[..., n], x[..., n])      -> e[..., n]
+    is_feasible(x[..., n], u[..., m])  -> bool[...]
+    lqr(x[..., n], u[..., m])          -> (S[..., n, n], K[..., m, n])
+    saturate(u[..., m])                -> u[..., m]
+
+The device is explicit: ``Planner(..., device="cuda")`` is the default and
+raises when CUDA is absent; pass ``device="cpu"`` to run the plain PyTorch
+versions of the kernels.
+"""
+from .constraints import Constraints
+from .planner import Planner
+
+__all__ = ["Planner", "Constraints"]
+__version__ = "0.1.0"

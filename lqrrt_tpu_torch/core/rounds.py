@@ -1,0 +1,131 @@
+"""One expansion round: sample -> nearest -> steer -> commit (port of
+lqrrt_tpu/core/rounds.py ``RoundSpec``, ``Candidates``, ``make_expand``,
+``commit_candidates`` and ``make_round``; the dense commit-all branch
+only).
+
+``make_expand`` is the per-candidate compute: nearest under the LQR metric,
+gather the parent's state and gain, steer with the first-entry goal stop,
+the endpoint LQR, wrapping of the angle dims, and the goal cost-to-go.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from .commit import commit_batch_dense_all
+from .nearest import make_nearest
+from .sampling import sample_batch
+from .steer import make_steer
+from .tree import TreeArrays
+
+
+class RoundSpec(NamedTuple):
+    """Static configuration of an expansion round.  The JAX spec's
+    ``commit_all`` and ``lane_block`` have no counterpart: the dense
+    commit-all is the only commit here, and its block-column kernel takes
+    any offset."""
+    nstates: int
+    ncontrols: int
+    batch: int              # candidates per round
+    horizon_steps: int      # steer rollout cap H
+    capacity: int           # logical tree capacity
+    dt: float
+    nn_block: int = 1024
+    slack: int = 0          # spare rows past capacity; must be >= batch
+
+
+class Candidates(NamedTuple):
+    """Per-candidate results; edge rollouts time-major (H, ., B)."""
+    pids: torch.Tensor      # (B,) int32
+    length: torch.Tensor    # (B,) int32
+    x_seq: torch.Tensor     # (H, n, B)
+    u_seq: torch.Tensor     # (H, m, B)
+    xnew: torch.Tensor      # (B, n)
+    S_new: torch.Tensor     # (B, n, n)
+    K_new: torch.Tensor     # (B, m, n)
+    in_goal: torch.Tensor   # (B,) bool
+    gcost: torch.Tensor     # (B,) f32
+
+
+def make_expand(spec: RoundSpec, dynamics: Callable, lqr: Callable,
+                erf: Callable, is_feasible: Callable, error_tol,
+                goal_buffer, wrap_mask=None,
+                saturate: Callable | None = None,
+                nearest_fn: Callable | None = None) -> Callable:
+    """Build expand(tree, xrand, goal) -> Candidates.  ``nearest_fn``
+    replaces the plain blocked scan (e.g. with the nn_const kernel)."""
+    nearest = nearest_fn if nearest_fn is not None else make_nearest(
+        erf, block=min(spec.nn_block, spec.capacity))
+    steer = make_steer(dynamics, erf, is_feasible, spec.horizon_steps,
+                       spec.dt, error_tol, saturate=saturate,
+                       goal_buffer=goal_buffer)
+    wrap_dims = ([] if wrap_mask is None
+                 else [int(d) for d in np.flatnonzero(wrap_mask)])
+
+    def expand(tree: TreeArrays, xrand, goal) -> Candidates:
+        from ..ops.angles import wrap_angle
+
+        pids, _ = nearest(tree.state, tree.S, tree.size, xrand)
+        pl = pids.long()
+        x0 = tree.state[pl]
+        K0 = tree.K[pl]
+        res = steer(x0, K0, xrand, goal)
+        length = res.length
+        # effort of the last committed step (step 0 for an empty rollout)
+        last = torch.clamp(length - 1, min=0).long()
+        u_last = res.u_seq.gather(
+            0, last[None, None, :].expand(1, res.u_seq.shape[1], -1))[0].T
+        S_new, K_new = lqr(res.xnew, u_last)
+        xnew, x_seq = res.xnew, res.x_seq
+        if wrap_dims:
+            # wrap both the endpoint and the stored edge states
+            xnew = xnew.clone()
+            for d in wrap_dims:
+                xnew[:, d] = wrap_angle(xnew[:, d])
+                x_seq[:, d, :] = wrap_angle(x_seq[:, d, :])
+        e_goal = erf(goal, xnew)
+        gcost = torch.einsum("bi,bij,bj->b", e_goal, S_new, e_goal)
+        return Candidates(pids=pids, length=length, x_seq=x_seq,
+                          u_seq=res.u_seq, xnew=xnew,
+                          S_new=S_new.contiguous(), K_new=K_new.contiguous(),
+                          in_goal=res.in_goal, gcost=gcost)
+
+    return expand
+
+
+def commit_candidates(spec: RoundSpec, tree: TreeArrays,
+                      c: Candidates) -> TreeArrays:
+    """Commit a round's candidates (dense commit-all; in place)."""
+    if spec.slack < c.pids.shape[0]:
+        raise NotImplementedError(
+            "only the dense commit-all path is ported (slack >= batch); the "
+            "scatter and sorted commits are ROADMAP queue 1, item 12")
+    return commit_batch_dense_all(
+        tree, spec.dt, spec.capacity, c.pids, c.length, c.x_seq, c.u_seq,
+        c.xnew, c.S_new, c.K_new, c.in_goal, c.gcost)
+
+
+def make_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
+               erf: Callable, is_feasible: Callable, error_tol,
+               goal_buffer, wrap_mask=None,
+               xrand_gen: Callable | None = None,
+               saturate: Callable | None = None,
+               nearest_fn: Callable | None = None) -> Callable:
+    """Build round(tree, gen, goal, sample_space, goal_bias, bias_target)
+    -> tree (updated in place).  ``xrand_gen(gen, batch)`` replaces the
+    default sampler."""
+    expand = make_expand(spec, dynamics, lqr, erf, is_feasible, error_tol,
+                         goal_buffer, wrap_mask=wrap_mask, saturate=saturate,
+                         nearest_fn=nearest_fn)
+
+    def round_fn(tree, gen, goal, sample_space, goal_bias, bias_target):
+        if xrand_gen is None:
+            xrand = sample_batch(gen, spec.batch, sample_space, goal_bias,
+                                 bias_target)
+        else:
+            xrand = xrand_gen(gen, spec.batch)
+        return commit_candidates(spec, tree, expand(tree, xrand, goal))
+
+    return round_fn

@@ -1,0 +1,30 @@
+"""Batched state sampling with per-dimension goal bias (port of
+lqrrt_tpu/core/sampling.py), driven by an explicit ``torch.Generator`` on
+the planner's device."""
+from __future__ import annotations
+
+import torch
+
+
+def sample_batch(gen: torch.Generator, batch: int, sample_space, goal_bias,
+                 bias_target) -> torch.Tensor:
+    """Draw (batch, n) candidates: uniform in sample_space (n, 2), and per
+    dim i the bias target's value with probability goal_bias[i]."""
+    n = sample_space.shape[0]
+    dev = sample_space.device
+    lo, hi = sample_space[:, 0], sample_space[:, 1]
+    xr = torch.rand((batch, n), generator=gen, device=dev) * (hi - lo) + lo
+    take_goal = torch.rand((batch, n), generator=gen, device=dev) < goal_bias
+    return torch.where(take_goal, bias_target, xr)
+
+
+def normalize_goal_bias(goal_bias, nstates: int,
+                        device="cpu") -> torch.Tensor:
+    """Accept a scalar or per-dim goal_bias; return (n,) f32 on device."""
+    gb = torch.as_tensor(goal_bias, dtype=torch.float32)
+    if gb.ndim == 0:
+        gb = gb.expand(nstates)
+    if gb.shape != (nstates,):
+        raise ValueError(
+            f"goal_bias must be scalar or ({nstates},), got {tuple(gb.shape)}")
+    return gb.to(device).contiguous()

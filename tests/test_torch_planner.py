@@ -1,0 +1,211 @@
+"""The port's restart-path planner as a whole, on the CPU: the boat at
+B=512, capacity=4096 (512 root-pad rows, as at full width), mirroring the
+JAX end-to-end checks (tests/test_planner_e2e.py)."""
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import lqrrt_tpu
+import lqrrt_tpu_torch
+from lqrrt_tpu.models import boat as jboat
+from lqrrt_tpu_torch import Constraints
+from lqrrt_tpu_torch.models import boat
+from lqrrt_tpu_torch.ops.angles import make_erf
+
+torch.set_num_threads(2)
+
+BIAS = [0.3, 0.3, 0, 0, 0, 0]
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _planner(prob, **kw):
+    args = dict(horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
+                erf=prob["erf"], printing=False, batch_size=512,
+                capacity=4096, wrap_dims=prob["wrap_dims"],
+                saturate=prob["saturate"], device="cpu", seed=0)
+    args.update(kw)
+    return lqrrt_tpu_torch.Planner(prob["dynamics"], prob["lqr"],
+                                   prob["constraints"], **args)
+
+
+@pytest.fixture(scope="module")
+def planned():
+    prob = boat.default_problem()
+    planner = _planner(prob, nn_impl="nn_const")
+    reached = planner.update_plan(prob["x0"], prob["sample_space"],
+                                  goal_bias=BIAS, specific_time=2.0)
+    return prob, planner, reached
+
+
+def test_reaches_goal(planned):
+    _, planner, reached = planned
+    assert reached, planner.stats
+    assert planner.plan_reached_goal and planner.nn_selected == "nn_const"
+    assert planner.root_pad == 512 and planner._restart_chunk_shape == (1, 7)
+
+
+def test_stats_keys_match_jax(planned):
+    _, planner, _ = planned
+    assert set(planner.stats) == {
+        "nodes", "tree_rows", "rounds", "restarts", "elapsed_s",
+        "expansions", "expansions_per_s", "goal_found", "plan_steps",
+        "plan_duration_s", "overhead_extract_s", "overhead_prune_s",
+        "overhead_finish_s", "overhead_total_s", "total_s"}
+    st = planner.stats
+    assert st["rounds"] % 7 == 0 and st["expansions"] == st["rounds"] * 512
+    assert st["plan_steps"] == len(planner.x_seq)
+    assert st["plan_duration_s"] == pytest.approx(planner.T)
+
+
+def test_plan_shape_and_start(planned):
+    prob, planner, _ = planned
+    assert planner.x_seq.shape[1] == 6 and len(planner.x_seq) > 1
+    assert len(planner.u_seq) == len(planner.x_seq) - 1
+    assert np.all(np.isfinite(planner.x_seq))
+    np.testing.assert_allclose(planner.x_seq[0], prob["x0"], atol=1e-5)
+
+
+def test_plan_feasible_and_ends_in_goal(planned):
+    prob, planner, _ = planned
+    feas = prob["constraints"].is_feasible(torch.from_numpy(planner.x_seq[1:]),
+                                           torch.from_numpy(planner.u_seq))
+    assert feas.all()
+    e = np.abs(prob["goal"] - planner.x_seq[-1])
+    assert np.all(e <= prob["constraints"].goal_buffer + 0.1), e
+
+
+def test_plan_dynamically_consistent(planned):
+    prob, planner, _ = planned
+    x, u = planner.x_seq, planner.u_seq
+    xn = prob["dynamics"](torch.from_numpy(x[:-1]), torch.from_numpy(u),
+                          prob["dt"]).numpy()
+    d = xn - x[1:]
+    d[:, 2] = (d[:, 2] + np.pi) % (2 * np.pi) - np.pi    # stored psi wraps
+    err = np.abs(d).max(1)
+    assert np.median(err) < 1e-3 and err.max() < 0.2, err.max()
+
+
+def test_get_state_and_effort_match_jax_across_the_seam():
+    prob = boat.default_problem()
+    tp = _planner(prob)
+    jprob = jboat.default_problem()
+    jp = lqrrt_tpu.Planner(jprob["dynamics"], jprob["lqr"],
+                           jprob["constraints"], horizon=5.0, dt=0.05,
+                           goal0=jprob["goal"], printing=False,
+                           wrap_dims=(2,))
+    x = np.zeros((4, 6), np.float32)
+    x[:, 0] = [0.0, 0.1, 0.2, 0.3]
+    x[:, 2] = [3.10, 3.13, -3.13, -3.10]
+    u = np.arange(9, dtype=np.float32).reshape(3, 3)
+    plan = (x, u, 0.05 * 3)
+    tp._plan = jp._plan = plan
+    for t in (-1.0, 0.0, 0.025, 0.06, 0.075, 0.11, 0.15, 9.0):
+        np.testing.assert_allclose(tp.get_state(t), jp.get_state(t),
+                                   atol=1e-6)
+        np.testing.assert_allclose(tp.get_effort(t), jp.get_effort(t),
+                                   atol=1e-6)
+    mid = tp.get_state(0.075)            # between 3.13 and -3.13
+    assert abs(abs(mid[2]) - np.pi) < 0.02
+
+
+def test_no_plan_before_update():
+    tp = _planner(boat.default_problem())
+    with pytest.raises(RuntimeError):
+        tp.get_state(0.0)
+    assert tp.x_seq is None and tp.T == 0.0
+
+
+def test_kill_update_preempts():
+    prob = boat.default_problem()
+    calls = []
+    planner = _planner(prob, max_time=60.0, min_time=60.0)
+
+    def clock():
+        calls.append(1)
+        if len(calls) == 3:              # after the first chunk's dispatch
+            planner.kill_update()
+        return time.time()
+
+    planner.sys_time = clock
+    t0 = time.time()
+    planner.update_plan(prob["x0"], prob["sample_space"], goal_bias=BIAS,
+                        pruning=False)
+    assert time.time() - t0 < 30.0
+    assert planner.stats["rounds"] == 7          # exactly one chunk
+    assert planner.x_seq is not None
+    planner.unkill()
+    assert not planner._killed
+
+
+@pytest.mark.parametrize("kw", [
+    dict(refine=False), dict(refine_mode="leaf_rewire"),
+    dict(max_nodes=1000), dict(mesh=object()),
+    dict(feasibility_grid=object())])
+def test_off_restart_path_raises(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _planner(boat.default_problem(), **kw)
+
+
+def test_feasibility_data_raises():
+    prob = boat.default_problem()
+    prob["constraints"] = Constraints(
+        6, 3, goal_buffer=np.ones(6), feasibility_data=np.zeros(3),
+        is_feasible=lambda x, u, d: x[..., 0] > d[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _planner(prob)
+
+
+def test_nn_selection():
+    prob = boat.default_problem()
+    p = _planner(prob)
+    assert p._nearest_override() is None and p.nn_selected == "plain"
+    p = _planner(prob, nn_impl="nn_const")
+    assert p._nearest_override() is not None and p.nn_selected == "nn_const"
+    assert p._lqr_is_constant()
+    # a state-dependent lqr needs the general NN kernel
+    S0, K0 = prob["lqr"](torch.zeros(6), torch.zeros(3))
+
+    def lqr(x, u):
+        s = 1.0 + x[..., :1, None] ** 2
+        return S0 * s, K0.expand(x.shape[:-1] + K0.shape)
+    p = lqrrt_tpu_torch.Planner(
+        prob["dynamics"], lqr, prob["constraints"], horizon=5.0,
+        goal0=prob["goal"], erf=prob["erf"], batch_size=512, capacity=4096,
+        device="cpu", nn_impl="nn_const", printing=False)
+    assert not p._lqr_is_constant()
+    with pytest.raises(NotImplementedError, match="kernel C"):
+        p._nearest_override()
+    # two wrapped angle dims are not affine for the const kernel either
+    p = _planner(prob, nn_impl="nn_const", erf=make_erf(6, (1, 2)))
+    with pytest.raises(NotImplementedError):
+        p._nearest_override()
+
+
+def test_device_is_explicit():
+    with pytest.raises(ValueError):
+        _planner(boat.default_problem(), nn_impl="pallas")
+    if torch.cuda.is_available():
+        return                           # the card exists: cuda is valid
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _planner(boat.default_problem(), device="cuda")
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, pkgutil, importlib, lqrrt_tpu_torch\n"
+        "for m in pkgutil.walk_packages(lqrrt_tpu_torch.__path__, "
+        "'lqrrt_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'lqrrt_tpu' or k.startswith('lqrrt_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr
