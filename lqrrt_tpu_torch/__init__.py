@@ -17,6 +17,9 @@ number of leading batch axes and broadcast over them, so no vmap is needed:
 The device is explicit: ``Planner(..., device="cuda")`` is the default and
 raises when CUDA is absent; pass ``device="cpu"`` to run the plain PyTorch
 versions of the kernels.
+
+Models: ``models.boat`` (a constant LQR), ``models.car`` and
+``models.quadrotor`` (an LQR re-linearized and re-solved at every node).
 """
 from .constraints import Constraints
 from .planner import Planner

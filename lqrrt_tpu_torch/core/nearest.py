@@ -4,7 +4,8 @@ lqrrt_tpu/core/nearest.py ``make_nearest``).
 The blocked scan with a running (min, argmin) merge: peak memory stays
 O(batch x block x n) whatever the tree's capacity.  It serves any erf and a
 per-node S, and it is the planner's NN on the CPU.  Strict '<' across
-blocks and the first minimum inside one keep the lowest index on ties.
+blocks and the first minimum inside one keep the lowest index on ties; a
+non-finite cost never wins.
 """
 from __future__ import annotations
 
@@ -32,7 +33,10 @@ def make_nearest(erf: Callable, block: int = 1024) -> Callable:
             q = torch.einsum("jik,bjk->bji", S[j0:j1], e)
             cost = (e * q).sum(-1)                               # (B, blk)
             idx = torch.arange(j0, j1, device=dev)
-            cost = torch.where(idx[None, :] < size, cost, math.inf)
+            # a non-finite cost (a NaN S row) drops only its own row; the
+            # JAX scan's jnp.min would carry the NaN and drop the block
+            cost = torch.where(torch.isfinite(cost) & (idx[None, :] < size),
+                               cost, math.inf)
             bc, bi = cost.min(dim=1)
             take = bc < best
             best = torch.where(take, bc, best)

@@ -4,7 +4,9 @@
 a dict with the same field names) into this package's
 ``TreeArrays`` on a device; ``tree_to_numpy`` goes back to a dict of numpy
 arrays with the JAX dtypes, from which ``lqrrt_tpu.core.tree.TreeArrays(**d)``
-rebuilds the JAX tree.  ``lqr_from_numpy`` serves a JAX ``(S, K)`` as this
+rebuilds the JAX tree.  Every field is carried row for row, so a tree with
+a per-node metric (the car's and the quadrotor's re-linearized S and K)
+comes over whole.  ``lqr_from_numpy`` serves a JAX ``(S, K)`` as this
 package's constant ``lqr``.  With these, both packages compute on the same
 trees and metrics.  This module imports no JAX.
 """

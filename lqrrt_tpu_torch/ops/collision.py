@@ -1,6 +1,6 @@
-"""Feasibility predicates (port of ``all_of`` and ``circles_free`` from
-lqrrt_tpu/ops/collision.py).  Predicates are batch-leading:
-``(x[..., n], u[..., m]) -> bool[...]``."""
+"""Feasibility predicates (port of ``all_of``, ``circles_free`` and
+``control_limits`` from lqrrt_tpu/ops/collision.py).  Predicates are
+batch-leading: ``(x[..., n], u[..., m]) -> bool[...]``."""
 from __future__ import annotations
 
 from typing import Callable, Sequence
@@ -38,5 +38,17 @@ def circles_free(centers, radii, pos_dims: Sequence[int] = (0, 1),
         p = torch.stack([x[..., d] for d in dims], dim=-1)     # (..., 2)
         d2 = ((centers.like(x) - p[..., None, :]) ** 2).sum(-1)  # (..., K)
         return (d2 > r2.like(x)).all(-1)
+
+    return is_feasible
+
+
+def control_limits(umin, umax) -> Callable:
+    """Feasible iff u is inside the box [umin, umax] (actuation limits)."""
+    lo = Const(np.asarray(umin, np.float32))
+    hi = Const(np.asarray(umax, np.float32))
+
+    def is_feasible(x, u):
+        del x
+        return ((u >= lo.like(u)) & (u <= hi.like(u))).all(-1)
 
     return is_feasible

@@ -1,22 +1,26 @@
-"""Constant-metric LQR nearest neighbour (port of lqrrt_tpu/ops/pallas/
-nn_kernel.py ``nearest_const_pallas``).
+"""LQR-metric nearest-neighbour kernels (port of lqrrt_tpu/ops/pallas/
+nn_kernel.py): ``nn_const`` for one shared S (``nearest_const_pallas``,
+kernel A) and ``nn_general`` for a per-node S (``nearest_pallas``, kernel C).
 
-For each candidate r_b: the argmin over live rows j < size of
-(x_j - r_b)' S (x_j - r_b) for ONE shared S (the tree's S[0]), with the
-closed-form wrap of one angle dim, lowest index winning ties.  Returns
-``(ids int32, cost f32)`` with the true metric value, as the JAX kernel does.
+For each candidate r_b both return the argmin over live rows j < size of
+(x_j - r_b)' S (x_j - r_b), with the wrap of at most one angle dim, the
+lowest index winning ties and a non-finite cost never winning.  They return
+``(ids int32, cost f32)`` with the true metric value, as the JAX kernels do.
 
-The prep stays in PyTorch, as JAX keeps it outside the ``pallas_call``:
-``L = cholesky(S + 1e-9 I)``, centring on the candidate mean (the wrap dim
-left uncentred), ``z = statesc @ L`` and ``w = xrandc @ L``.  The distance
-and the argmin are the kernel (``csrc/nn_const.cu``, whose header says what
-bounds it on the H100 and what its design does about that):
+``nn_const``: the prep stays in PyTorch, as JAX keeps it outside the
+``pallas_call``: ``L = cholesky(S + 1e-9 I)``, centring on the candidate mean
+(the wrap dim left uncentred), ``z = statesc @ L`` and ``w = xrandc @ L``.
+The distance and the argmin are the kernel (``csrc/nn_const.cu``):
 ``cost = |z_j - w_b - k c|^2`` with ``k = rint((x_a - r_a) / 2pi)`` and
 ``c = 2pi L[a, :]``.
 
-``nn_const`` takes the plain PyTorch version for CPU tensors and the kernel
-for CUDA tensors; there is no other path.  ``nn_const.launches`` counts
-kernel launches.
+``nn_general``: no prep; the kernel (``csrc/nn_general.cu``) evaluates
+e' S_j e with e = x_j - r_b and e_a -= 2pi rint(e_a / 2pi) directly.
+
+Each wrapper takes its plain PyTorch version for CPU tensors and its kernel
+for CUDA tensors; there is no other path.  Each header says what bounds the
+kernel on the H100 and what its design does about it.  ``nn_const.launches``
+and ``nn_general.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 
 _TWO_PI = 2.0 * math.pi
 _PLAIN_BLOCK = 1024   # node rows per step of the plain version's scan
-_MAX_STATES = 16      # kMaxStates in csrc/nn_const.cu
+_MAX_STATES = 16      # kMaxStates in csrc/nn_const.cu and nn_general.cu
 
 
 def nn_const_prep(states, S, xrand, wrap_dim: Optional[int]):
@@ -69,74 +73,119 @@ def nn_const_dist(z, w, xa, ra, c, wrapped: bool):
     return (d * d).sum(-1)
 
 
-def nn_const_plain(states, S, size, xrand, wrap_dim: Optional[int] = None,
-                   block: int = _PLAIN_BLOCK):
-    """The plain version: a blocked scan with a running (min, argmin);
-    strict '<' across blocks and the first minimum inside one, so the
-    lowest index wins ties."""
-    N = states.shape[0]
-    B = xrand.shape[0]
-    z, w, xa, ra, c = nn_const_prep(states, S, xrand, wrap_dim)
-    best = torch.full((B,), math.inf, dtype=torch.float32,
-                      device=states.device)
-    best_id = torch.zeros((B,), dtype=torch.int32, device=states.device)
+def _mask(cost, j0: int, j1: int, size):
+    """Dead rows (j >= size) and non-finite costs become +inf, so neither
+    can win."""
+    idx = torch.arange(j0, j1, device=cost.device)
+    return torch.where(torch.isfinite(cost) & (idx[None, :] < size), cost,
+                       math.inf)
+
+
+def _blocked_argmin(dist, N: int, B: int, device, block: int):
+    """Running (min, argmin) over row blocks; ``dist(j0, j1)`` gives the
+    (B, j1 - j0) costs.  Strict '<' across blocks and the first minimum
+    inside one, so the lowest index wins ties."""
+    best = torch.full((B,), math.inf, dtype=torch.float32, device=device)
+    best_id = torch.zeros((B,), dtype=torch.int32, device=device)
     for j0 in range(0, N, block):
         j1 = min(j0 + block, N)
-        cost = nn_const_dist(z[j0:j1], w, xa[j0:j1], ra, c,
-                             wrap_dim is not None)
-        idx = torch.arange(j0, j1, device=states.device)
-        cost = torch.where(idx[None, :] < size, cost, math.inf)
-        bc, bi = cost.min(dim=1)
+        bc, bi = dist(j0, j1).min(dim=1)
         take = bc < best
         best = torch.where(take, bc, best)
         best_id = torch.where(take, (bi + j0).to(torch.int32), best_id)
     return best_id, best
 
 
-def _check(states, S, size, xrand):
-    for name, t in (("states", states), ("S", S), ("xrand", xrand)):
+def nn_const_plain(states, S, size, xrand, wrap_dim: Optional[int] = None,
+                   block: int = _PLAIN_BLOCK):
+    """The plain version of ``nn_const``: a blocked scan of the whitened
+    distance."""
+    z, w, xa, ra, c = nn_const_prep(states, S, xrand, wrap_dim)
+
+    def dist(j0, j1):
+        cost = nn_const_dist(z[j0:j1], w, xa[j0:j1], ra, c,
+                             wrap_dim is not None)
+        return _mask(cost, j0, j1, size)
+
+    return _blocked_argmin(dist, states.shape[0], xrand.shape[0],
+                           states.device, block)
+
+
+def nn_general_dist(states, S, xrand, wrap_dim: Optional[int]):
+    """(B, R) costs e' S_j e of candidates xrand (B, n) against node rows
+    states (R, n) with per-node S (R, n, n): the kernel's arithmetic in
+    plain PyTorch, fp32.  e = x_j - r_b, and the wrap dim a is shifted by
+    -2pi rint(e_a / 2pi)."""
+    e = states[None, :, :] - xrand[:, None, :]              # (B, R, n)
+    if wrap_dim is not None:
+        a = e[..., wrap_dim]
+        a -= torch.round(a * (1.0 / _TWO_PI)) * _TWO_PI     # in place in e
+    q = torch.einsum("rik,brk->bri", S, e)                  # S_j e
+    return (e * q).sum(-1)
+
+
+def nn_general_plain(states, S, size, xrand, wrap_dim: Optional[int] = None,
+                     block: int = _PLAIN_BLOCK):
+    """The plain version of ``nn_general``: a blocked scan of e' S_j e."""
+    def dist(j0, j1):
+        cost = nn_general_dist(states[j0:j1], S[j0:j1], xrand, wrap_dim)
+        return _mask(cost, j0, j1, size)
+
+    return _blocked_argmin(dist, states.shape[0], xrand.shape[0],
+                           states.device, block)
+
+
+def _check(name, states, S, size, xrand):
+    for what, t in (("states", states), ("S", S), ("xrand", xrand)):
         if t.dtype != torch.float32:
-            raise TypeError(f"nn_const: {name} must be float32")
+            raise TypeError(f"{name}: {what} must be float32")
         if t.device != states.device:
-            raise ValueError("nn_const: all inputs must share a device")
+            raise ValueError(f"{name}: all inputs must share a device")
     if states.dim() != 2 or xrand.dim() != 2 or xrand.shape[1] != \
             states.shape[1]:
-        raise ValueError(f"nn_const: states (N, n) and xrand (B, n), got "
+        raise ValueError(f"{name}: states (N, n) and xrand (B, n), got "
                          f"{tuple(states.shape)} and {tuple(xrand.shape)}")
     if size.dtype != torch.int32 or size.numel() != 1 or \
             size.device != states.device:
-        raise TypeError("nn_const: size must be one int32 element on the "
+        raise TypeError(f"{name}: size must be one int32 element on the "
                         "inputs' device")
+    if states.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {states.device}")
+    if states.device.type == "cuda" and states.shape[1] > _MAX_STATES:
+        raise ValueError(f"{name}: the kernel takes n <= {_MAX_STATES} "
+                         f"states, got {states.shape[1]}")
+
+
+def _launch(fn, *args):
+    """Call the C entry point ``fn`` on the current stream of the first
+    tensor's device and raise if the launch failed."""
+    from . import _build
+
+    dev = args[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(_build.lib(), fn)(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args], stream)
+    _build.check(err, fn)
 
 
 def nn_const(states, S, size, xrand, wrap_dim: Optional[int] = None):
     """(ids, cost) of each candidate's nearest live node under one shared
     S.  states (N, n), S (n, n) or (N, n, n) (row 0 used), size 0-d int32
     on the same device, xrand (B, n)."""
-    _check(states, S, size, xrand)
+    _check("nn_const", states, S, size, xrand)
     if states.device.type == "cpu":
         return nn_const_plain(states, S, size, xrand, wrap_dim)
-    if states.device.type != "cuda":
-        raise ValueError(f"nn_const: unsupported device {states.device}")
-    from . import _build
-
     N, n = states.shape
     B = xrand.shape[0]
-    if n > _MAX_STATES:
-        raise ValueError(f"nn_const: the kernel takes n <= {_MAX_STATES} "
-                         f"states, got {n}")
     z, w, xa, ra, c = nn_const_prep(states, S, xrand, wrap_dim)
     ids = torch.empty((B,), dtype=torch.int32, device=states.device)
     cost = torch.empty((B,), dtype=torch.float32, device=states.device)
     if B == 0:
         return ids, cost
-    stream = torch.cuda.current_stream(states.device).cuda_stream
-    with torch.cuda.device(states.device):
-        err = _build.lib().lqrrt_nn_const(
-            z.data_ptr(), xa.data_ptr(), w.data_ptr(), ra.data_ptr(),
-            c.data_ptr(), size.data_ptr(), ids.data_ptr(), cost.data_ptr(),
-            N, B, n, int(wrap_dim is not None), stream)
-    _build.check(err, "nn_const")
+    _launch("lqrrt_nn_const", z, xa, w, ra, c, size, ids, cost, N, B, n,
+            int(wrap_dim is not None))
     nn_const.launches += 1
     return ids, cost
 
@@ -144,8 +193,41 @@ def nn_const(states, S, size, xrand, wrap_dim: Optional[int] = None):
 nn_const.launches = 0
 
 
+def nn_general(states, S, size, xrand, wrap_dim: Optional[int] = None):
+    """(ids, cost) of each candidate's nearest live node under its per-node
+    S.  states (N, n), S (N, n, n), size 0-d int32 on the same device,
+    xrand (B, n)."""
+    _check("nn_general", states, S, size, xrand)
+    N, n = states.shape
+    if S.shape != (N, n, n):
+        raise ValueError(f"nn_general: S must be (N, n, n) = {(N, n, n)}, "
+                         f"got {tuple(S.shape)}")
+    if states.device.type == "cpu":
+        return nn_general_plain(states, S, size, xrand, wrap_dim)
+    B = xrand.shape[0]
+    ids = torch.empty((B,), dtype=torch.int32, device=states.device)
+    cost = torch.empty((B,), dtype=torch.float32, device=states.device)
+    if B == 0:
+        return ids, cost
+    _launch("lqrrt_nn_general", states.contiguous(), S.contiguous(),
+            xrand.contiguous(), size, ids, cost, N, B, n,
+            -1 if wrap_dim is None else int(wrap_dim))
+    nn_general.launches += 1
+    return ids, cost
+
+
+nn_general.launches = 0
+
+
 def make_nearest_const(wrap_dim: Optional[int] = None):
     """Adapter with core.nearest.make_nearest's signature."""
     def nearest(states, S, size, xrand):
         return nn_const(states, S, size, xrand, wrap_dim=wrap_dim)
+    return nearest
+
+
+def make_nearest_general(wrap_dim: Optional[int] = None):
+    """Adapter with core.nearest.make_nearest's signature."""
+    def nearest(states, S, size, xrand):
+        return nn_general(states, S, size, xrand, wrap_dim=wrap_dim)
     return nearest

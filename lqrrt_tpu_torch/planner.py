@@ -12,8 +12,12 @@ Only the restart path is ported.  A configuration that would leave it
 raises ``NotImplementedError`` naming its ROADMAP item: ``mesh``,
 ``feasibility_grid``, ``refine=False``, ``refine_mode="leaf_rewire"``,
 ``max_nodes`` below the capacity, ``slack < batch``, ``feasibility_data``,
-and on CUDA a non-constant ``lqr`` or an erf other than subtract with at
-most one wrapped angle (both need the general NN kernel).
+and on CUDA an erf other than subtract with at most one wrapped angle (the
+NN kernels take no other).
+
+The NN on CUDA is a hand-written kernel: ``nn_const`` when the ``lqr`` is
+constant (the boat), ``nn_general`` for a per-node ``lqr`` (the car and the
+quadrotor re-linearize at every node); ``nn_selected`` says which.
 
 Callbacks are batch-leading (see the package docstring).  The device is
 explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
@@ -93,7 +97,7 @@ class Planner:
                  feasibility_grid=None, device="cuda"):
         if horizon <= 0 or dt <= 0:
             raise ValueError("horizon and dt must be positive")
-        if nn_impl not in ("auto", "nn_const"):
+        if nn_impl not in ("auto", "nn_const", "nn_general"):
             raise ValueError(f"unknown nn_impl {nn_impl!r}")
         if refine_mode not in ("restart", "leaf_rewire"):
             raise ValueError(f"unknown refine_mode {refine_mode!r}")
@@ -236,28 +240,37 @@ class Planner:
         return self._lqr_const
 
     def _nearest_override(self):
-        """The NN for the chunk.  On CUDA: the nn_const kernel, which needs
-        a constant lqr and an affine erf (subtract, at most one wrapped
-        angle dim, tagged by make_erf).  On the CPU: the plain blocked scan,
-        unless nn_impl="nn_const" asks for the kernel's wrapper (which runs
-        its plain version on CPU tensors)."""
-        from .ops.kernels.nn_kernel import make_nearest_const
+        """The NN for the chunk.  "auto" on CUDA: the nn_const kernel for a
+        constant lqr, else the nn_general kernel; both need an affine erf
+        (subtract, or at most one wrapped angle dim tagged by make_erf).
+        "auto" on the CPU: the plain blocked scan.  "nn_const" and
+        "nn_general" force that kernel's wrapper (which runs its plain
+        version on CPU tensors)."""
+        from .ops.kernels.nn_kernel import (make_nearest_const,
+                                            make_nearest_general)
 
         dims = getattr(self.erf, "angle_dims", None)
         if self.erf is torch.subtract:
             dims = ()
-        usable = (dims is not None and len(dims) <= 1
-                  and self._lqr_is_constant())
         if self.device.type == "cpu" and self.nn_impl == "auto":
             self.nn_selected = "plain"
             return None
-        if not usable:
+        if dims is None or len(dims) > 1:
             raise NotImplementedError(
-                "the nn_const kernel needs a constant lqr and an affine erf "
-                "with at most one wrapped angle dim; anything else needs the "
-                "general NN kernel (ROADMAP queue 2, kernel C)")
-        self.nn_selected = "nn_const"
-        return make_nearest_const(wrap_dim=dims[0] if dims else None)
+                "the NN kernels need an affine erf with at most one wrapped "
+                "angle dim (subtract, or ops.angles.make_erf); any other erf "
+                "runs only on the CPU's plain scan")
+        wrap_dim = dims[0] if dims else None
+        const = self._lqr_is_constant()
+        if self.nn_impl == "nn_const" and not const:
+            raise ValueError("nn_impl='nn_const' needs a constant lqr (one S "
+                             "for the whole tree); this lqr varies with the "
+                             "state: use 'nn_general'")
+        if self.nn_impl == "nn_const" or (self.nn_impl == "auto" and const):
+            self.nn_selected = "nn_const"
+            return make_nearest_const(wrap_dim)
+        self.nn_selected = "nn_general"
+        return make_nearest_general(wrap_dim)
 
     def _seed(self, x0, goal):
         """(S0, K0, in_goal0, goal_cost0) at x0, all on the device."""

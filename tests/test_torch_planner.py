@@ -1,6 +1,7 @@
 """The port's restart-path planner as a whole, on the CPU: the boat at
-B=512, capacity=4096 (512 root-pad rows, as at full width), mirroring the
-JAX end-to-end checks (tests/test_planner_e2e.py)."""
+B=512, capacity=4096 (512 root-pad rows, as at full width), and the car
+(a per-node lqr) at B=64, capacity=512, mirroring the JAX end-to-end checks
+(tests/test_planner_e2e.py, tests/test_models.py)."""
 import subprocess
 import sys
 import time
@@ -14,7 +15,7 @@ import lqrrt_tpu
 import lqrrt_tpu_torch
 from lqrrt_tpu.models import boat as jboat
 from lqrrt_tpu_torch import Constraints
-from lqrrt_tpu_torch.models import boat
+from lqrrt_tpu_torch.models import boat, car, quadrotor
 from lqrrt_tpu_torch.ops.angles import make_erf
 
 torch.set_num_threads(2)
@@ -167,23 +168,94 @@ def test_nn_selection():
     p = _planner(prob, nn_impl="nn_const")
     assert p._nearest_override() is not None and p.nn_selected == "nn_const"
     assert p._lqr_is_constant()
-    # a state-dependent lqr needs the general NN kernel
+    # a state-dependent lqr takes the general NN kernel (kernel C) ...
     S0, K0 = prob["lqr"](torch.zeros(6), torch.zeros(3))
 
     def lqr(x, u):
         s = 1.0 + x[..., :1, None] ** 2
         return S0 * s, K0.expand(x.shape[:-1] + K0.shape)
-    p = lqrrt_tpu_torch.Planner(
-        prob["dynamics"], lqr, prob["constraints"], horizon=5.0,
-        goal0=prob["goal"], erf=prob["erf"], batch_size=512, capacity=4096,
-        device="cpu", nn_impl="nn_const", printing=False)
+    for nn_impl in ("nn_general", "nn_const"):
+        p = lqrrt_tpu_torch.Planner(
+            prob["dynamics"], lqr, prob["constraints"], horizon=5.0,
+            goal0=prob["goal"], erf=prob["erf"], batch_size=512,
+            capacity=4096, device="cpu", nn_impl=nn_impl, printing=False)
+        assert not p._lqr_is_constant()
+        if nn_impl == "nn_general":
+            assert p._nearest_override() is not None
+            assert p.nn_selected == "nn_general"
+        else:      # ... and cannot take the constant-metric one
+            with pytest.raises(ValueError, match="nn_general"):
+                p._nearest_override()
+    # two wrapped angle dims are not affine for either kernel
+    for nn_impl in ("nn_const", "nn_general"):
+        p = _planner(prob, nn_impl=nn_impl, erf=make_erf(6, (1, 2)))
+        with pytest.raises(NotImplementedError):
+            p._nearest_override()
+
+
+@pytest.mark.parametrize("model", [car, quadrotor])
+def test_relinearized_models_select_nn_general(model):
+    """The car's and the quadrotor's per-node lqr is not constant: "auto"
+    takes nn_general wherever it takes a kernel (the JAX planner's
+    "pallas" choice, tests/test_pallas_nn.py)."""
+    prob = model.default_problem()
+    p = _planner(prob, batch_size=8, capacity=128, nn_impl="nn_general")
     assert not p._lqr_is_constant()
-    with pytest.raises(NotImplementedError, match="kernel C"):
-        p._nearest_override()
-    # two wrapped angle dims are not affine for the const kernel either
-    p = _planner(prob, nn_impl="nn_const", erf=make_erf(6, (1, 2)))
-    with pytest.raises(NotImplementedError):
-        p._nearest_override()
+    p._nearest_override()
+    assert p.nn_selected == "nn_general"
+    with pytest.raises(ValueError):
+        _planner(prob, batch_size=8, capacity=128,
+                 nn_impl="nn_const")._nearest_override()
+
+
+@pytest.fixture(scope="module")
+def car_planned():
+    prob = car.default_problem()
+    planner = _planner(prob, batch_size=64, capacity=512,
+                       nn_impl="nn_general")
+    reached = planner.update_plan(prob["x0"], prob["sample_space"],
+                                  goal_bias=[0.3, 0.3, 0, 0],
+                                  specific_time=3.0)
+    return prob, planner, reached
+
+
+def test_car_plan_reaches_goal_feasible_and_consistent(car_planned):
+    prob, planner, reached = car_planned
+    assert reached and planner.nn_selected == "nn_general", planner.stats
+    x, u = planner.x_seq, planner.u_seq
+    assert x.shape[1] == 4 and u.shape == (len(x) - 1, 2)
+    np.testing.assert_allclose(x[0], prob["x0"], atol=1e-5)
+    feas = prob["constraints"].is_feasible(torch.from_numpy(x[1:]),
+                                           torch.from_numpy(u))
+    assert feas.all()
+    e = prob["goal"] - x[-1]
+    e[2] = (e[2] + np.pi) % (2 * np.pi) - np.pi
+    assert np.all(np.abs(e) <= prob["constraints"].goal_buffer + 0.1), e
+    xn = prob["dynamics"](torch.from_numpy(x[:-1]), torch.from_numpy(u),
+                          prob["dt"]).numpy()
+    d = xn - x[1:]
+    d[:, 2] = (d[:, 2] + np.pi) % (2 * np.pi) - np.pi    # stored theta wraps
+    err = np.abs(d).max(1)
+    assert np.median(err) < 1e-3 and err.max() < 0.2, err.max()
+
+
+def test_car_tree_holds_per_node_metric(car_planned):
+    """The best tree's rows carry their own (S, K), re-solved at each row's
+    state: a row mix-up in commit, reseed or extract would show here."""
+    prob, planner, _ = car_planned
+    t = planner._device_tree
+    size = int(t.size)
+    rows = torch.arange(0, size, max(size // 16, 1))
+    S, K = prob["lqr"](t.state[rows], torch.zeros(len(rows), 2))
+    np.testing.assert_allclose(t.S[rows].numpy(), S.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(t.K[rows].numpy(), K.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    assert not np.allclose(t.S[rows[0]].numpy(), t.S[rows[-1]].numpy())
+    # the extracted chain's gains are its nodes' own
+    chain = planner._last_chain
+    gains = planner._last_edges[1]
+    np.testing.assert_array_equal(gains, t.K[chain].numpy())
 
 
 def test_device_is_explicit():
