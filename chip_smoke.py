@@ -9,11 +9,21 @@ exits non-zero:
 2. build: compile the CUDA kernels from ``lqrrt_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ``ptxas``'s resource lines;
 3. kernel A (nn_const) vs its plain PyTorch version at bench shapes, with an
-   fp64 brute-force anchor, and both times;
+   fp64 brute-force anchor, and both times (the plain version's at size
+   32768 only, as for kernel C);
 4. kernel B (block_write) vs its plain version, bit for bit, and both times;
 5. kernel C (nn_general) vs its plain version at N = 40960, B = 8192 for
    n = 4 (wrap dim 2) and n = 12 (wrap dim 5) with random SPD per-node S,
    with an fp64 brute-force anchor, and both times;
+5b. kernel E (nn_expand) in each cross-term mode (fma, bf16, bf16x3) vs
+   its plain version at N = 40960, B = 8192, boat S and boat-scale data,
+   sizes 512 / 8704 / 32768, wrap dim 2 and unwrapped: id match, fp64
+   excess and an fp64 brute-force anchor against the mode's error bound,
+   cost agreement, and the times of the kernel, the wrapper (prep
+   included) and the plain version; kernel A's launch alone on the same
+   inputs; then kernel E's main path, the experiment's entry point
+   ``lqrrt_tpu_torch.tools.exp_nn_hybrid.main`` at full width, with the
+   launch counts set to 0 just before and read just after;
 6. batched CARE on the card for 8192 car and 8192 quadrotor linearizations
    against scipy's float64 CARE on a subsample;
 7. round parity, boat and car: one expansion round on the card against the
@@ -48,8 +58,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 TOL_EXCESS = 1e-4      # fp64 relative cost excess allowed for NN picks
 TOL_CARE = 2e-3        # max |S - S_scipy| / max |S_scipy| (the CPU tests')
+# kernel E vs its plain version: the same rounded operands summed in
+# another order (8 or 16 terms, fp32 or tensor-core accumulators), as a
+# share of M_b
+TOL_SUM = 2.0 ** -16
 N_BENCH, B_BENCH, NS, WRAP = 40960, 8192, 6, 2
 SIZES = (512, 8704, 32768)
+# H100 SXM peaks (NVIDIA's data sheet, dense): flop/s by type, HBM bytes/s
+PEAKS = {"fp32": 67e12, "bf16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -81,12 +98,14 @@ def smi_line() -> str:
 
 def wrapped_cost64(xr, st, S64, wrap=WRAP):
     """fp64 metric between candidates xr and nodes st under S64, one shared
-    (n, n) or one per node (..., n, n)."""
+    (n, n) or one per node (..., n, n), with ``wrap`` the wrapped dim or
+    None."""
     e = xr - st
-    e[..., wrap] = torch.remainder(e[..., wrap] + math.pi,
-                                   2 * math.pi) - math.pi
+    if wrap is not None:
+        e[..., wrap] = torch.remainder(e[..., wrap] + math.pi,
+                                       2 * math.pi) - math.pi
     if S64.dim() == 2:
-        return torch.einsum("...i,ij,...j->...", e, S64, e)
+        return ((e @ S64) * e).sum(-1)
     return torch.einsum("...i,...ij,...j->...", e, S64, e)
 
 
@@ -101,9 +120,11 @@ def ptxas_summary(build_log: str):
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
+            k = re.search(r"\d+([a-z_]+_(?:kernel|merge))"
+                          r"(?:I((?:L[a-z]\d+E)+)E)?", m.group(1))
+            args = re.findall(r"L[a-z](\d+)E", k.group(2) or "") if k else []
             name = (m.group(1) if k is None else
-                    k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""))
+                    k.group(1) + (f"<{','.join(args)}>" if args else ""))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -149,13 +170,16 @@ def phase_kernel_a():
                     / c_star.abs().clamp(min=1e-6)).max().item()
         max_err = (ck - cp).abs().max().item()
         ms = cuda_ms(lambda: nn_const(states, S, sz, xr, wrap_dim=WRAP))
+        # the plain version is timed at the top size only (script time)
         plain_ms = cuda_ms(
-            lambda: nn_const_plain(states, S, sz, xr, wrap_dim=WRAP))
+            lambda: nn_const_plain(states, S, sz, xr, wrap_dim=WRAP),
+            reps=5) if size == SIZES[-1] else None
         live_ids_ok = bool((ik < size).all().item())
         log(f"kernel A nn_const size={size}: id_match={id_match:.6f} "
             f"fp64_excess={excess:.3e} anchor_kernel={anchor_k:.3e} "
             f"anchor_plain={anchor_p:.3e} max_abs_cost_err={max_err:.3e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            f"kernel_ms={ms:.4f}"
+            + (f" plain_ms={plain_ms:.4f}" if plain_ms is not None else ""))
         if not (live_ids_ok and excess <= TOL_EXCESS
                 and anchor_k <= TOL_EXCESS and anchor_p <= TOL_EXCESS):
             raise AssertionError(f"kernel A disagrees at size={size}")
@@ -192,10 +216,15 @@ def phase_kernel_b():
         a = dst0.clone()
         ms = cuda_ms(lambda: block_write(a, src, s))
         plain_ms = cuda_ms(lambda: block_write_plain(a, src, s))
+        # the library call: the same slice assignment at a host-side start
+        library_ms = cuda_ms(
+            lambda: a[..., 512 + 8192:512 + 8192 + B_BENCH].copy_(src))
         log(f"kernel B block_write (100,{C},{N_BENCH}) B={B_BENCH}: "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        timing[C] = (ms, plain_ms)
-    return dict(max_abs_err=max_err, ms=timing[6][0], plain_ms=timing[6][1])
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (slice copy_)")
+        timing[C] = (ms, plain_ms, library_ms)
+    return dict(max_abs_err=max_err, ms=timing[6][0], plain_ms=timing[6][1],
+                library_ms=timing[6][2])
 
 
 def phase_kernel_c():
@@ -237,16 +266,18 @@ def phase_kernel_c():
             max_err = (ck - cp).abs().max().item()
             max_rel = ((ck - cp).abs() / cp.abs().clamp(min=1e-6)).max().item()
             ms = cuda_ms(lambda: nn_general(states, S, sz, xr, wrap_dim=wrap))
+            # the plain version is timed at the top size only (script time)
             plain_ms = cuda_ms(
                 lambda: nn_general_plain(states, S, sz, xr, wrap_dim=wrap),
-                reps=5)
+                reps=5) if size == SIZES[-1] else None
             live_ids_ok = bool((ik < size).all().item())
             log(f"kernel C nn_general n={n} wrap={wrap} size={size}: "
                 f"id_match={id_match:.6f} fp64_excess={excess:.3e} "
                 f"anchor_kernel={anchor_k:.3e} anchor_plain={anchor_p:.3e} "
                 f"max_abs_cost_err={max_err:.3e} "
-                f"max_rel_cost_err={max_rel:.3e} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                f"max_rel_cost_err={max_rel:.3e} kernel_ms={ms:.4f}"
+                + (f" plain_ms={plain_ms:.4f}" if plain_ms is not None
+                   else ""))
             if not (live_ids_ok and excess <= TOL_EXCESS
                     and anchor_k <= TOL_EXCESS and anchor_p <= TOL_EXCESS):
                 raise AssertionError(f"kernel C disagrees at n={n}, "
@@ -254,6 +285,136 @@ def phase_kernel_c():
             out[(n, size)] = dict(max_abs_err=max_err, ms=ms,
                                   plain_ms=plain_ms)
     return out
+
+
+def phase_kernel_e():
+    """Kernel E (nn_expand) in each mode against its plain version at
+    N = 40960, B = 8192, boat S and boat-scale data, wrap dim 2 and
+    unwrapped.  The expanded cost cancels, so errors are held as shares of
+    M_b (``error_scale``): a pick may exceed the true nearest by twice its
+    mode's error (``ERROR``), and the kernel and the plain version, which
+    round the same operands and differ only in the fp32 summation order,
+    agree within TOL_SUM M_b in cost; picks that differ are equivalent
+    when their costs under the mode's operands, in fp64, are that close."""
+    from lqrrt_tpu_torch.ops.kernels.nn_hybrid import (
+        ERROR, MODES, error_scale, expand_prep, launch_expand, nn_exp,
+        nn_expand_plain, nn_hybrid, nn_split3, pick_cost64)
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import _launch, nn_const_prep
+    from lqrrt_tpu_torch.tools.exp_nn_hybrid import problem
+
+    wrappers = {"fma": nn_exp, "bf16x3": nn_split3,
+                "bf16": lambda *a, **k: nn_hybrid(*a, prec="default", **k)}
+    states, S, _, xr = problem("cuda", N_BENCH, B_BENCH, 0, 17)
+    st64, xr64, S64 = states.double(), xr.double(), S[0].double()
+    out = {}
+    for wrap in (WRAP, None):
+        p = expand_prep(states, S, xr, wrap)
+        for size in SIZES:
+            sz = torch.tensor(size, dtype=torch.int32, device="cuda")
+            M = error_scale(p, sz).double()
+            anchor = torch.arange(0, B_BENCH, B_BENCH // 256,
+                                  device="cuda")[:256]
+            c_star = wrapped_cost64(xr64[anchor, None, :],
+                                    st64[None, :size, :], S64,
+                                    wrap).min(1).values
+            for mode in MODES:
+                t_cfg = time.perf_counter()
+
+                def kernel():
+                    return wrappers[mode](states, S, sz, xr, wrap_dim=wrap)
+
+                def plain():
+                    return nn_expand_plain(states, S, sz, xr, wrap, mode)
+
+                ik, ck = kernel()
+                ip, cp = plain()
+                torch.cuda.synchronize()
+                wrapped = wrap is not None
+                gap = (pick_cost64(p, ik, mode, wrapped)
+                       - pick_cost64(p, ip, mode, wrapped)).abs()
+                id_match = ((ik == ip) | (gap <= 2 * TOL_SUM * M)) \
+                    .double().mean().item()
+                bound = 2 * ERROR[mode] * M
+                t_k = wrapped_cost64(xr64, st64[ik.long()], S64, wrap)
+                t_p = wrapped_cost64(xr64, st64[ip.long()], S64, wrap)
+                excess = ((t_k - t_p) / bound).max().item()
+                anchor_k = ((t_k[anchor] - c_star)
+                            / bound[anchor]).max().item()
+                anchor_p = ((t_p[anchor] - c_star)
+                            / bound[anchor]).max().item()
+                err = (ck - cp).abs()
+                cost_err = (err / M).max().item()
+                max_err = err.max().item()
+                live_ok = bool((ik < size).all().item())
+                # the kernel alone, on prepared features, and the wrapper
+                # (prep and launch)
+                ms = cuda_ms(lambda: launch_expand(p, sz, mode, wrapped),
+                             reps=50)
+                wrapper_ms = cuda_ms(kernel)
+                top = wrap is not None and size == SIZES[-1]
+                plain_ms = cuda_ms(plain, reps=3 if top else 1)
+                log(f"kernel E nn_expand[{mode}] wrap={wrap} size={size}: "
+                    f"id_match={id_match:.6f} (equal, or equivalent within "
+                    f"2*2^-16 M_b) exact_id_match="
+                    f"{(ik == ip).double().mean().item():.6f} "
+                    f"fp64_excess/bound={excess:.3e} "
+                    f"anchor_kernel/bound={anchor_k:.3e} "
+                    f"anchor_plain/bound={anchor_p:.3e} "
+                    f"max_abs_cost_err={max_err:.3e} "
+                    f"cost_err/M={cost_err:.3e} kernel_ms={ms:.4f} "
+                    f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
+                    "(no single PyTorch call computes this function) "
+                    f"t={time.perf_counter() - t_cfg:.2f} s")
+                if not (live_ok and id_match >= 0.999 and excess <= 1.0
+                        and anchor_k <= 1.0 and anchor_p <= 1.0
+                        and cost_err <= TOL_SUM):
+                    raise AssertionError(f"kernel E disagrees in mode {mode} "
+                                         f"at wrap={wrap}, size={size}")
+                out[(mode, wrap, size)] = dict(max_abs_err=max_err, ms=ms,
+                                               plain_ms=plain_ms)
+    # kernel A's launch alone on the same inputs, for the like-for-like
+    # comparison
+    sz = torch.tensor(SIZES[-1], dtype=torch.int32, device="cuda")
+    z, w, xa, ra, c = nn_const_prep(states, S, xr, WRAP)
+    ids = torch.empty(B_BENCH, dtype=torch.int32, device="cuda")
+    cost = torch.empty(B_BENCH, dtype=torch.float32, device="cuda")
+    a_ms = cuda_ms(lambda: _launch("lqrrt_nn_const", z, xa, w, ra, c, sz, ids,
+                                   cost, N_BENCH, B_BENCH, NS, 1))
+    log(f"kernel A nn_const launch alone, same inputs, wrap={WRAP} "
+        f"size={SIZES[-1]}: kernel_ms={a_ms:.4f}")
+    return out
+
+
+def phase_exp_nn_hybrid(smi):
+    """The experiment's entry point at full width, with the launch counts
+    set to 0 just before and read just after."""
+    from lqrrt_tpu_torch.ops.kernels import nn_hybrid as E
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const
+    from lqrrt_tpu_torch.tools import exp_nn_hybrid
+
+    nn_const.launches = 0
+    for mode in E.MODES:
+        E.LAUNCHES[mode] = 0
+    res = exp_nn_hybrid.main(device="cuda")
+    launches = dict(E.LAUNCHES)
+    log(f"exp_nn_hybrid main [{smi}]: nn_expand launches by mode "
+        f"{launches}, nn_const {nn_const.launches}")
+    for label, c in res["checks"].items():
+        if not (c["live"] and c["excess_over_bound"] <= 1.0):
+            raise AssertionError(f"exp_nn_hybrid: {label} fails: {c}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"exp_nn_hybrid: a mode was not launched: "
+                             f"{launches}")
+    return res, launches
+
+
+def bound(flops=None, nbytes=0.0):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and each type's operations over its peak (PEAKS)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max([f / PEAKS[k] * 1e3 for k, f in (flops or {}).items()],
+                default=0.0)
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def phase_care(models):
@@ -529,6 +690,8 @@ def main() -> int:
     a = timed("kernel A", phase_kernel_a)
     b = timed("kernel B", phase_kernel_b)
     c = timed("kernel C", phase_kernel_c)
+    e = timed("kernel E", phase_kernel_e)
+    _, e_launches = timed("exp_nn_hybrid main", phase_exp_nn_hybrid, smi)
     timed("batched CARE", phase_care, [("car", car), ("quadrotor", quadrotor)])
     boat_p, car_p, quad_p = (boat.default_problem(), car.default_problem(),
                              quadrotor.default_problem())
@@ -543,6 +706,35 @@ def main() -> int:
                   [0.3, 0.3, 0, 0], 2.0, "nn_general")
     l_quad = timed("quadrotor main path", phase_main_path, "quadrotor",
                    quad_p, smi, [0.3] * 3 + [0.0] * 9, 3.0, "nn_general")
+    # bounds of the timed calls, from this run's shapes (size 32768 live
+    # rows of N, B candidates): flops a live pair by type, and the inputs
+    # read once plus the (ids, cost) written once
+    size, pairs = SIZES[-1], SIZES[-1] * B_BENCH
+
+    def nn_bytes(row_floats, n):
+        return 4 * (size * row_floats + B_BENCH * n) + 8 * B_BENCH
+
+    # A: per dim, d = z - w - k c (sub, fma) and acc += d^2 (fma); the
+    # turn count k (sub, mul, rint)
+    a_bound = bound({"fp32": pairs * (NS * 5 + 3)}, nn_bytes(NS, NS))
+    # B: src read and dst columns written, (100, 6, B) f32 each
+    b_bound = bound(None, 2 * 100 * 6 * B_BENCH * 4)
+    # C at n = 12: e (n sub), the wrap (mul, rint, fma), and the quadratic
+    # form through the symmetric part of S_j (built once a node, outside
+    # the pair loop): t = U e (n(n+1)/2 fma), then e . t (n fma)
+    nc = 12
+    c_bound = bound({"fp32": pairs * (nc + 4 + nc * (nc + 1) + 2 * nc)},
+                    nn_bytes(nc * nc + nc, nc))
+    # E: the epilogue (sub, mul, rint, add, fma, mul, fma: 9 flops) and the
+    # cross term: n multiply-adds onto |z_j|^2 (psi's leading 1 and the
+    # zero pad are layout, not work), in fp32, or in bf16 a pass (3 passes,
+    # and one fp32 add, in bf16x3)
+    e_flops = {"fma": {"fp32": 9 + 2 * NS},
+               "bf16": {"fp32": 9, "bf16": 2 * NS},
+               "bf16x3": {"fp32": 10, "bf16": 3 * 2 * NS}}
+    e_replaces = {"fma": "tools/exp_nn_hybrid_v5.py:214",
+                  "bf16": "tools/exp_nn_hybrid_v5.py:82",
+                  "bf16x3": "tools/exp_nn_hybrid_v5.py:341"}
     cq = c[(12, 32768)]
     kernels = [
         dict(name="nn_const", route="cuda",
@@ -550,20 +742,35 @@ def main() -> int:
              replaces="lqrrt_tpu/ops/pallas/nn_kernel.py:415",
              launches=l_boat["nn_const"],
              max_abs_err=a[32768]["max_abs_err"],
-             ms=a[32768]["ms"], plain_ms=a[32768]["plain_ms"]),
+             ms=a[32768]["ms"], plain_ms=a[32768]["plain_ms"],
+             bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=None),
         dict(name="block_write", route="cuda",
              source="lqrrt_tpu_torch/csrc/block_write.cu",
              replaces="lqrrt_tpu/ops/pallas/write_kernel.py:26",
              launches=sum(l["block_write"] for l in (l_boat, l_car, l_quad)),
              max_abs_err=b["max_abs_err"], ms=b["ms"],
-             plain_ms=b["plain_ms"]),
+             plain_ms=b["plain_ms"], bound_ms=b_bound[0],
+             bound_by=b_bound[1], library_ms=b["library_ms"]),
         dict(name="nn_general", route="cuda",
              source="lqrrt_tpu_torch/csrc/nn_general.cu",
              replaces="lqrrt_tpu/ops/pallas/nn_kernel.py:177",
              launches=l_car["nn_general"] + l_quad["nn_general"],
              max_abs_err=max(v["max_abs_err"] for v in c.values()),
-             ms=cq["ms"], plain_ms=cq["plain_ms"]),
+             ms=cq["ms"], plain_ms=cq["plain_ms"], bound_ms=c_bound[0],
+             bound_by=c_bound[1], library_ms=None),
     ]
+    for mode, flops in e_flops.items():
+        eb = bound({k: pairs * f for k, f in flops.items()},
+                   nn_bytes(NS, NS))
+        top = e[(mode, WRAP, size)]
+        kernels.append(dict(
+            name=f"nn_expand[{mode}]", route="cuda",
+            source="lqrrt_tpu_torch/csrc/nn_expand.cu",
+            replaces=e_replaces[mode], launches=e_launches[mode],
+            max_abs_err=max(v["max_abs_err"] for k, v in e.items()
+                            if k[0] == mode),
+            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=eb[0],
+            bound_by=eb[1], library_ms=None))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

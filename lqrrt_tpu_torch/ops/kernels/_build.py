@@ -36,6 +36,7 @@ _SIGNATURES = {
     "lqrrt_nn_const": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lqrrt_nn_general": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lqrrt_block_write": [_P, _P, _P, _I, _I, _I, _P],
+    "lqrrt_nn_expand": [_P] * 11 + [_I, _I, _I, _I, _P],
 }
 
 _lib = None
