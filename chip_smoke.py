@@ -24,6 +24,16 @@ exits non-zero:
    inputs; then kernel E's main path, the experiment's entry point
    ``lqrrt_tpu_torch.tools.exp_nn_hybrid.main`` at full width, with the
    launch counts set to 0 just before and read just after;
+5c. kernel D (steer_rollout), flat and tree-gather, vs its plain version
+   (``core.steer.make_steer``, after the index gather for the tree) at
+   B = 8192, H = 100 on the boat, on a batch that reaches every branch of
+   the step (goal stop, infeasible stop, length 0, the psi wrap, saturated
+   efforts): agreement of length, in_goal and reached, max |dx| and |du|
+   where lengths agree, the branch counts, and both times; then kernel D's
+   main path, the experiment's entry point
+   ``lqrrt_tpu_torch.tools.exp_steer_kernel.main`` at full width (B = 8192,
+   a tree of N = 40960 rows), with the launch counts set to 0 just before
+   and read just after;
 6. batched CARE on the card for 8192 car and 8192 quadrotor linearizations
    against scipy's float64 CARE on a subsample;
 7. round parity, boat and car: one expansion round on the card against the
@@ -64,6 +74,8 @@ TOL_CARE = 2e-3        # max |S - S_scipy| / max |S_scipy| (the CPU tests')
 TOL_SUM = 2.0 ** -16
 N_BENCH, B_BENCH, NS, WRAP = 40960, 8192, 6, 2
 SIZES = (512, 8704, 32768)
+TOL_STEER = 1e-3       # |dx|, |du| of a rollout where lengths agree (the
+                       # CPU tests'); lengths, in_goal, reached: >= 0.999
 # H100 SXM peaks (NVIDIA's data sheet, dense): flop/s by type, HBM bytes/s
 PEAKS = {"fp32": 67e12, "bf16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -408,6 +420,143 @@ def phase_exp_nn_hybrid(smi):
     return res, launches
 
 
+def phase_kernel_d():
+    """Kernel D (steer_rollout), flat and tree-gather, against its plain
+    version at B = 8192, H = 100 on the boat's operating point, on
+    ``branch_batch`` (every branch of the step reached).  The tree holds
+    N_BENCH rows, with the batch's x0 at distinct random rows and a gain of
+    its own in each row (the boat's K scaled by 0.5-1.5), so that the
+    in-kernel gather of K is checked too.  Returns per variant the numbers
+    of the kernels line."""
+    from lqrrt_tpu_torch.core.steer import make_steer
+    from lqrrt_tpu_torch.models import boat
+    from lqrrt_tpu_torch.ops.kernels.steer_kernel import (
+        make_steer_kernel, make_steer_kernel_tree)
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement, boat_K,
+                                                        branch_batch,
+                                                        branch_counts,
+                                                        steer_args)
+
+    dev = "cuda"
+    prob = boat.default_problem()
+    args, kw = steer_args(prob)
+    x0_np, xtar_np, _ = branch_batch(B_BENCH, 19, prob)
+    rng = np.random.default_rng(23)
+    states_np = rng.uniform(-1.0, 1.0, (N_BENCH, NS)).astype(np.float32)
+    pids_np = rng.permutation(N_BENCH)[:B_BENCH].astype(np.int32)
+    states_np[pids_np] = x0_np
+    x0, xtar, states, pids = (torch.as_tensor(a, device=dev) for a in
+                              (x0_np, xtar_np, states_np, pids_np))
+    K = torch.as_tensor(boat_K(prob), device=dev)
+    KB = K.expand(B_BENCH, 3, NS).contiguous()
+    KN = torch.as_tensor((boat_K(prob) * rng.uniform(
+        0.5, 1.5, (N_BENCH, 1, 1))).astype(np.float32), device=dev)
+    goal = torch.as_tensor(prob["goal"], device=dev)
+    ncirc = len(prob["constraints"].is_feasible.circles[1])
+    plain = make_steer(*args, **kw)
+    flat = make_steer_kernel(*args, **kw)
+    tree = make_steer_kernel_tree(*args, **kw)
+    idx = pids.long()
+    cases = {
+        "flat": (lambda: flat(x0, KB, xtar, goal),
+                 lambda: plain(x0, KB, xtar, goal)),
+        "tree": (lambda: tree(states, KN, pids, xtar, goal),
+                 lambda: plain(states[idx], KN[idx], xtar, goal)),
+    }
+    # the kernel sums 6 terms in the order of PyTorch's CUDA reduction
+    # (sum6 in csrc/steer_rollout.cu): the share of rows where it is
+    # torch.sum's order, printed since bit-for-bit agreement rests on it
+    a = torch.randn((65536, 6), generator=torch.Generator(device=dev)
+                    .manual_seed(29), device=dev) * 100.0
+    sum6 = ((a[:, 0] + a[:, 4]) + a[:, 2]) + ((a[:, 1] + a[:, 5]) + a[:, 3])
+    log(f"kernel D: torch.sum of 6 in sum6's order on "
+        f"{(sum6 == a.sum(-1)).double().mean().item():.6f} of rows")
+    out = {}
+    for variant, (kernel, plain_fn) in cases.items():
+        res, ref = kernel(), plain_fn()
+        torch.cuda.synchronize()
+        a = agreement(res, ref)
+        counts = branch_counts(res, x0_np, xtar_np)
+        counts_plain = branch_counts(ref, x0_np, xtar_np)
+        finite = bool(torch.isfinite(res.x_seq).all()
+                      and torch.isfinite(res.u_seq).all())
+        ms = cuda_ms(kernel)
+        # the plain steer is a Python loop of ~100 small ops a step: few
+        # repetitions (script time)
+        plain_ms = cuda_ms(plain_fn, reps=3)
+        rows_read = (int(torch.unique(pids).numel()) if variant == "tree"
+                     else B_BENCH)
+        bound_ms, bound_by, flops, nbytes = steer_bound(
+            res, rows_read, ncirc, variant == "tree")
+        log(f"kernel D steer_rollout[{variant}] B={B_BENCH} "
+            f"H={res.x_seq.shape[0]}: "
+            f"len_eq={a['len_eq']:.6f} in_goal_eq={a['in_goal_eq']:.6f} "
+            f"reached_eq={a['reached_eq']:.6f} max_abs_dx={a['max_dx']:.3e} "
+            f"max_abs_du={a['max_du']:.3e} max_abs_dxnew={a['max_dxnew']:.3e} "
+            f"(where lengths agree) branches={counts} "
+            f"plain_branches={counts_plain} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}; "
+            f"{flops:.4g} fp32 flops, {nbytes:.4g} bytes) "
+            "(no PyTorch call computes a closed-loop rollout)")
+        if not (finite and min(a["len_eq"], a["in_goal_eq"],
+                               a["reached_eq"]) >= 0.999
+                and max(a["max_dx"], a["max_du"], a["max_dxnew"])
+                <= TOL_STEER and min(counts.values()) > 0):
+            raise AssertionError(f"kernel D [{variant}] disagrees with its "
+                                 "plain version or misses a branch")
+        out[variant] = dict(max_abs_err=max(a["max_dx"], a["max_du"]),
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+    return out
+
+
+def phase_exp_steer_kernel(smi):
+    """Kernel D's main path: the experiment's entry point at full width,
+    with the launch counts set to 0 just before and read just after."""
+    from lqrrt_tpu_torch.ops.kernels import steer_kernel as D
+    from lqrrt_tpu_torch.tools import exp_steer_kernel
+
+    for v in D.VARIANTS:
+        D.LAUNCHES[v] = 0
+    res = exp_steer_kernel.main(device="cuda")
+    launches = dict(D.LAUNCHES)
+    log(f"exp_steer_kernel main [{smi}]: steer_rollout launches by variant "
+        f"{launches}")
+    for label, c in [(f"block={k}", v) for k, v in res["kernel"].items()] \
+            + [("tree", res["tree"])]:
+        if not (c["len_eq"] >= 0.999 and c["max_dx"] <= TOL_STEER):
+            raise AssertionError(f"exp_steer_kernel: {label} fails: {c}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"exp_steer_kernel: a variant was not "
+                             f"launched: {launches}")
+    return res, launches
+
+
+def steer_bound(res, rows_read, ncirc, tree):
+    """(ms, what bounds it, flops, bytes) of one steer_rollout call, from
+    its inputs and its outputs (the work depends on the data: a rollout
+    runs the RK4 only until it is done).  Flops as the kernel does them:
+    every step the erf
+    (6 sub, the wrap: add, fmod, sub), the converged test (6 mul, 5 add,
+    sqrt, compare) and u = K e clamped (3 x (6 mul, 5 add, 2 clamp)): 61;
+    an active step adds the RK4 (4 f of 39: sin, cos, 6 for pdot, 7 for the
+    Coriolis terms, 15 for drag, 9 for nudot; 36 for the stage states, 42
+    for the sum) and 6 a circle; a committed step 21 for the goal test; 22
+    at the end.  Bytes: xtar, the start rows read (x0 and K, or the
+    distinct parents' rows and pids) and the small constants read once;
+    xs, us, length, xnew, reached and in_goal written once."""
+    H, n, B = res.x_seq.shape
+    m = res.u_seq.shape[1]
+    length = res.length.long()
+    active = torch.where(res.in_goal, length, (length + 1).clamp(max=H))
+    flops = (B * H * 61 + int(active.sum()) * (234 + 6 * ncirc)
+             + int(length.sum()) * 21 + B * 22)
+    nbytes = (4 * B * n + 4 * rows_read * (n + m * n) + (4 * B if tree else 0)
+              + 4 * (3 * n + 14 + 3 * ncirc)
+              + 4 * H * (n + m) * B + B * (4 + 4 * n + 2))
+    return (*bound({"fp32": flops}, nbytes), flops, nbytes)
+
+
 def bound(flops=None, nbytes=0.0):
     """(ms, what bounds it): the larger of the bytes over the memory rate
     and each type's operations over its peak (PEAKS)."""
@@ -692,6 +841,9 @@ def main() -> int:
     c = timed("kernel C", phase_kernel_c)
     e = timed("kernel E", phase_kernel_e)
     _, e_launches = timed("exp_nn_hybrid main", phase_exp_nn_hybrid, smi)
+    d = timed("kernel D", phase_kernel_d)
+    _, d_launches = timed("exp_steer_kernel main", phase_exp_steer_kernel,
+                          smi)
     timed("batched CARE", phase_care, [("car", car), ("quadrotor", quadrotor)])
     boat_p, car_p, quad_p = (boat.default_problem(), car.default_problem(),
                              quadrotor.default_problem())
@@ -771,6 +923,14 @@ def main() -> int:
                             if k[0] == mode),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=eb[0],
             bound_by=eb[1], library_ms=None))
+    d_replaces = {"flat": "tools/steer_kernel_experimental.py:72",
+                  "tree": "tools/steer_kernel_experimental.py:340"}
+    for variant, replaces in d_replaces.items():
+        kernels.append(dict(
+            name="steer_rollout" + ("_tree" if variant == "tree" else ""),
+            route="cuda", source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
+            replaces=replaces, launches=d_launches[variant],
+            **d[variant], library_ms=None))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

@@ -17,6 +17,10 @@ def _all_true(x, u):
     return torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
 
 
+# the tag of ``ops.collision.circles_free``: no circles
+_all_true.circles = (np.zeros((0, 2), np.float32), np.zeros((0,), np.float32))
+
+
 class Constraints:
     def __init__(self, nstates: int, ncontrols: int, goal_buffer,
                  search_buffer=None, is_feasible: Callable = None,

@@ -28,7 +28,10 @@ def circles_free(centers, radii, pos_dims: Sequence[int] = (0, 1),
                  margin: float = 0.0) -> Callable:
     """Feasible iff the position is outside every circular obstacle.
 
-    centers: (K, 2), radii: (K,)."""
+    centers: (K, 2), radii: (K,).  The predicate is tagged with what it
+    tests, ``is_feasible.circles = (centers (K, 2), (radii + margin)^2
+    (K,))`` as numpy, and ``is_feasible.pos_dims``: the steer kernel
+    (``ops/kernels/steer_kernel.py``) reads the tags."""
     centers = Const(np.asarray(centers, np.float32).reshape(-1, 2))
     r2 = Const((np.asarray(radii, np.float32).reshape(-1) + margin) ** 2)
     dims = tuple(int(d) for d in pos_dims)
@@ -39,6 +42,8 @@ def circles_free(centers, radii, pos_dims: Sequence[int] = (0, 1),
         d2 = ((centers.like(x) - p[..., None, :]) ** 2).sum(-1)  # (..., K)
         return (d2 > r2.like(x)).all(-1)
 
+    is_feasible.circles = (centers.value, r2.value)
+    is_feasible.pos_dims = dims
     return is_feasible
 
 

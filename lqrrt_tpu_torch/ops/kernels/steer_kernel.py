@@ -1,0 +1,230 @@
+"""The fused closed-loop steer rollout, kernel D (port of
+tools/steer_kernel_experimental.py: ``make_steer_pallas`` and
+``make_steer_pallas_tree``).
+
+Both factories build a steer that computes ``core.steer.make_steer``'s
+function and returns its ``SteerResult``, time-major: x_seq (H, n, B),
+u_seq (H, m, B), mask (H, B), and per candidate length, xnew, reached and
+in_goal.  Commits are a prefix, so mask is ``arange(H)[:, None] <
+length``.
+
+- ``make_steer_kernel(...)`` -> ``steer(x0 (B, n), K (B, m, n), xtar (B, n)
+  [, goal (n,)])``;
+- ``make_steer_kernel_tree(...)`` -> ``steer(states (N, n), K (N, m, n),
+  pids (B,) int32, xtar (B, n)[, goal])``, which starts candidate b from
+  tree row pids[b]: x0 = states[pids], K0 = K[pids]
+  (``steer.takes_tree = True``).
+
+A CUDA kernel cannot trace Python callbacks, so the kernel
+(``csrc/steer_rollout.cu``) carries the model's callbacks written out as
+device functions, and ``_MODELS`` maps a ``dynamics`` object to them and to
+its numbers.  Only the boat has them.  The factories check the erf (the
+model's wrapped dims, ``angle_dims``), the saturation (the model's own) and
+the predicate (a ``circles`` tag: ``collision.circles_free`` or the
+all-true default) and raise ``NotImplementedError`` on anything else,
+whatever the device: nothing drops back to the Python loop on the card.
+
+Each steer takes the plain version (``core.steer.make_steer``; for the tree
+variant after the index gather) for CPU tensors and launches the kernel for
+CUDA tensors; there is no other path.  ``LAUNCHES`` counts the kernel's
+launches by variant ("flat", "tree"), where they happen.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..._const import Const
+from ...core.steer import SteerResult, make_steer
+from ...models import boat
+from .nn_kernel import _launch
+
+VARIANTS = ("flat", "tree")
+LAUNCHES = dict.fromkeys(VARIANTS, 0)
+MAX_CIRCLES = 64          # kMaxCircles in csrc/steer_rollout.cu
+
+
+def boat_params() -> np.ndarray:
+    """The boat's numbers in the kernel's order (the enum in
+    ``csrc/steer_rollout.cu``): M_MASS, M_SWAY, 1 / (M_MASS, M_SWAY,
+    I_YAW) as float32 (as ``boat.f`` uses them), D_LIN, D_QUAD,
+    WRENCH_MAX."""
+    minv = np.array([1.0 / boat.M_MASS, 1.0 / boat.M_SWAY, 1.0 / boat.I_YAW],
+                    np.float32)
+    return np.concatenate([[boat.M_MASS, boat.M_SWAY], minv, boat.D_LIN,
+                           boat.D_QUAD, boat.WRENCH_MAX]).astype(np.float32)
+
+
+# dynamics -> its numbers, (n, m), the erf's wrapped dims and the
+# saturation the kernel's device functions compute
+_MODELS = {
+    boat.dynamics: dict(params=boat_params, nm=(6, 3), angle_dims=(2,),
+                        saturate=boat.saturate),
+}
+
+
+class _Spec:
+    """What the kernel needs of one problem, checked once at build time,
+    and the plain version; the device copies are made on first use
+    (``Const``)."""
+
+    def __init__(self, dynamics, erf, is_feasible, horizon_steps, dt,
+                 error_tol, saturate, goal_buffer, block):
+        model = _MODELS.get(dynamics)
+        if model is None:
+            raise NotImplementedError(
+                "steer kernel: this dynamics has no device functions; only "
+                "the boat's (models/boat.py) do. The car's and the "
+                "quadrotor's are later work (ROADMAP queue 1)")
+        if tuple(getattr(erf, "angle_dims", ())) != model["angle_dims"]:
+            raise NotImplementedError(
+                f"steer kernel: the erf must wrap dims {model['angle_dims']}"
+                " (make_erf's angle_dims tag); other erfs have no device "
+                "form")
+        if saturate is not model["saturate"]:
+            raise NotImplementedError(
+                "steer kernel: saturate must be the model's own "
+                "(boat.saturate); other saturations have no device form")
+        circles = getattr(is_feasible, "circles", None)
+        if circles is None:
+            raise NotImplementedError(
+                "steer kernel: the predicate has no circles tag; only "
+                "collision.circles_free and the all-true default have a "
+                "device form (all_of, control_limits and other predicates "
+                "do not)")
+        centers, r2 = circles
+        if tuple(getattr(is_feasible, "pos_dims", (0, 1))) != (0, 1):
+            raise NotImplementedError(
+                "steer kernel: the circles must test dims (0, 1)")
+        if len(r2) > MAX_CIRCLES:
+            raise NotImplementedError(
+                f"steer kernel: at most {MAX_CIRCLES} circles, got "
+                f"{len(r2)}")
+        self.n, self.m = model["nm"]
+        tol = np.asarray(error_tol, np.float32)
+        self.per_dim = tol.ndim > 0
+        if self.per_dim and tol.shape != (self.n,):
+            raise ValueError(f"steer kernel: error_tol must be a scalar or "
+                             f"({self.n},), got {tol.shape}")
+        self.has_goal = goal_buffer is not None
+        if self.has_goal and np.shape(goal_buffer) != (self.n,):
+            raise ValueError(f"steer kernel: goal_buffer must be "
+                             f"({self.n},), got {np.shape(goal_buffer)}")
+        if not (32 <= block <= 1024 and block % 32 == 0):
+            raise ValueError(f"steer kernel: block must be a multiple of 32 "
+                             f"in [32, 1024], got {block}")
+        self.block, self.ncirc = block, len(r2)
+        self.H = int(horizon_steps)
+        # rk4_step's step sizes, each rounded once to float32 as the plain
+        # version's Python floats are
+        self.steps = (0.5 * dt, float(dt), dt / 6.0)
+        self.params = Const(model["params"]())
+        self.tol = Const(tol.reshape(-1))
+        self.gbuf = Const(np.asarray(goal_buffer if self.has_goal
+                                     else np.zeros(self.n), np.float32))
+        self.circles = Const(np.concatenate(
+            [np.asarray(centers, np.float32).reshape(-1, 2),
+             np.asarray(r2, np.float32).reshape(-1, 1)], 1))
+        self.plain = make_steer(dynamics, erf, is_feasible, horizon_steps,
+                                dt, error_tol, saturate, goal_buffer)
+
+    def launch(self, rows, gains, pids, xtar, goal, variant):
+        """Launch ``lqrrt_steer_rollout`` on CUDA tensors; returns the
+        SteerResult."""
+        B, (n, m), H = xtar.shape[0], (self.n, self.m), self.H
+        dev = xtar.device
+        xs = torch.empty((H, n, B), dtype=torch.float32, device=dev)
+        us = torch.empty((H, m, B), dtype=torch.float32, device=dev)
+        length = torch.empty((B,), dtype=torch.int32, device=dev)
+        xnew = torch.empty((B, n), dtype=torch.float32, device=dev)
+        reached = torch.empty((B,), dtype=torch.bool, device=dev)
+        in_goal = torch.empty((B,), dtype=torch.bool, device=dev)
+        if B:
+            _launch("lqrrt_steer_rollout", rows, gains, pids, rows.shape[0],
+                    xtar, goal if self.has_goal else None,
+                    self.params.like(xtar), self.tol.like(xtar),
+                    self.gbuf.like(xtar) if self.has_goal else None,
+                    self.circles.like(xtar), self.ncirc, xs, us, length,
+                    xnew, reached, in_goal, B, H, int(self.per_dim),
+                    *self.steps, self.block)
+            LAUNCHES[variant] += 1
+        mask = torch.arange(H, device=dev)[:, None] < length[None, :]
+        return SteerResult(xs, us, mask, length, xnew, reached, in_goal)
+
+    def check(self, name, rows, gains, xtar, goal, pids=None):
+        """dtype, device, shape and contiguity of a call's inputs."""
+        n, m = self.n, self.m
+        ins = [("x0/states", rows), ("K", gains), ("xtar", xtar)]
+        if self.has_goal:
+            if goal is None:
+                raise ValueError(f"{name}: goal is required with a "
+                                 "goal_buffer")
+            ins.append(("goal", goal))
+        for what, t in ins:
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name}: {what} must be float32")
+            if t.device != xtar.device:
+                raise ValueError(f"{name}: all inputs must share a device")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: {what} must be contiguous")
+        if xtar.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: unsupported device {xtar.device}")
+        if pids is not None and (
+                pids.dtype != torch.int32 or pids.dim() != 1
+                or pids.device != xtar.device or not pids.is_contiguous()):
+            raise TypeError(f"{name}: pids must be a contiguous (B,) int32 "
+                            "tensor on the inputs' device")
+        R = rows.shape[0] if rows.dim() == 2 else -1
+        B = xtar.shape[0] if pids is None else pids.shape[0]
+        if (rows.shape != (R, n) or gains.shape != (R, m, n)
+                or xtar.shape != (B, n)
+                or (goal is not None and self.has_goal
+                    and goal.shape != (n,))):
+            raise ValueError(
+                f"{name}: x0/states (R, {n}), K (R, {m}, {n}), xtar (B, {n})"
+                f" and goal ({n},), got {tuple(rows.shape)}, "
+                f"{tuple(gains.shape)}, {tuple(xtar.shape)} and "
+                f"{None if goal is None else tuple(goal.shape)}")
+        if pids is None and R != B:
+            raise ValueError(f"{name}: x0 and xtar must have the same "
+                             f"batch, got {R} and {B}")
+
+
+def make_steer_kernel(dynamics, erf, is_feasible, horizon_steps: int,
+                      dt: float, error_tol, saturate=None, goal_buffer=None,
+                      block: int = 64):
+    """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal (n,)]).
+
+    ``block``: candidates (threads) a block of the kernel, a multiple of 32
+    (the counterpart of the Pallas kernel's ``batch_tile``)."""
+    spec = _Spec(dynamics, erf, is_feasible, horizon_steps, dt, error_tol,
+                 saturate, goal_buffer, block)
+
+    def steer(x0, K, xtar, goal=None):
+        spec.check("steer_rollout", x0, K, xtar, goal)
+        if xtar.device.type == "cpu":
+            return spec.plain(x0, K, xtar, goal)
+        return spec.launch(x0, K, None, xtar, goal, "flat")
+
+    return steer
+
+
+def make_steer_kernel_tree(dynamics, erf, is_feasible, horizon_steps: int,
+                           dt: float, error_tol, saturate=None,
+                           goal_buffer=None, block: int = 64):
+    """Build steer(states (N, n), K (N, m, n), pids (B,) int32, xtar (B, n)
+    [, goal (n,)]): the rollout of ``make_steer_kernel`` from the parents'
+    rows, gathered inside the kernel.  pids outside [0, N) give an empty,
+    unreached rollout of NaN on the card (the plain version raises)."""
+    spec = _Spec(dynamics, erf, is_feasible, horizon_steps, dt, error_tol,
+                 saturate, goal_buffer, block)
+
+    def steer(states, K, pids, xtar, goal=None):
+        spec.check("steer_rollout_tree", states, K, xtar, goal, pids)
+        if xtar.device.type == "cpu":
+            idx = pids.long()
+            return spec.plain(states[idx], K[idx], xtar, goal)
+        return spec.launch(states, K, pids, xtar, goal, "tree")
+
+    steer.takes_tree = True
+    return steer

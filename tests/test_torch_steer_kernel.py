@@ -1,0 +1,358 @@
+"""Kernel D's plain versions against the JAX steer and the JAX kernels (CPU).
+
+The port's steer (``lqrrt_tpu_torch/core/steer.py`` ``make_steer``) is
+kernel D's plain version, and the wrappers ``make_steer_kernel`` and
+``make_steer_kernel_tree`` (``ops/kernels/steer_kernel.py``) take it for
+CPU tensors.  On the same numpy inputs -- ``boat.default_problem()`` at
+H = 100, B = 96 candidates from ``branch_batch``, which reaches every branch
+of the step (goal stop, infeasible stop, length 0, the psi wrap, saturated
+efforts) -- they are held against the JAX scan
+(``lqrrt_tpu.core.steer.make_steer(layout="tm")``) and against
+``make_steer_pallas`` and ``make_steer_pallas_tree`` (a tree of N = 1024
+rows, ``node_block=512``) of ``tools/steer_kernel_experimental.py`` in
+interpret mode.  Both sides take the port's boat K.
+
+length, in_goal and reached must be equal, and so x_seq, u_seq and xnew are
+compared everywhere: x_seq and xnew within atol 1e-3 (as
+tests/test_torch_round.py: fp32 over 100 RK4 steps).  u at step h is
+K e(x_h) of the state the step starts from, so it carries that state's
+difference times the gain: one ulp of a 40 m position is 3.8e-6, and the
+boat's |K| rows sum to at most ~780: ~3e-3.  u_seq is held to 1e-3 plus that
+carried difference, step by step (``_u_tol``).  The
+Pallas kernels test sum(e * e) <= tol^2 where the scan tests the norm
+(ROADMAP section 3); the data keep clear of the threshold.  The CUDA kernel
+itself runs only on the card (``chip_smoke.py``)."""
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from lqrrt_tpu.core.steer import make_steer as jmake_steer
+from lqrrt_tpu.models import boat as jboat
+from lqrrt_tpu_torch.constraints import _all_true
+from lqrrt_tpu_torch.core.steer import make_steer
+from lqrrt_tpu_torch.models import boat, car, quadrotor
+from lqrrt_tpu_torch.ops import collision
+from lqrrt_tpu_torch.ops.angles import make_erf
+from lqrrt_tpu_torch.ops.kernels import steer_kernel
+from lqrrt_tpu_torch.ops.kernels.steer_kernel import (MAX_CIRCLES,
+                                                      boat_params,
+                                                      make_steer_kernel,
+                                                      make_steer_kernel_tree)
+from lqrrt_tpu_torch.tools import exp_steer_kernel
+from lqrrt_tpu_torch.tools.exp_steer_kernel import (DT, GROUPS, H, TOL,
+                                                    boat_K, branch_batch,
+                                                    branch_counts,
+                                                    steer_args)
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+ATOL = 1e-3
+B, N, NODE_BLOCK = 96, 1024, 512
+
+
+def _load_kernel_tool():
+    """tools/steer_kernel_experimental.py as a module.  It cannot be
+    imported as it stands: its docstring is followed by a second string
+    literal, so ``from __future__ import annotations`` (:53) is not at the
+    top of the file and Python refuses it with a SyntaxError.  The source is
+    read, that one line dropped (the module needs no postponed
+    annotations), and the rest run in a fresh module whose ``__file__`` is
+    the original path.  The module puts the repo root on ``sys.path``;
+    ``sys.path`` and JAX's config are put back afterwards."""
+    path = REPO / "tools" / "steer_kernel_experimental.py"
+    source = path.read_text().replace(
+        "from __future__ import annotations\n", "", 1)
+    mod = types.ModuleType("steer_kernel_experimental")
+    mod.__file__ = str(path)
+    saved_path, saved_cfg = list(sys.path), dict(jax.config.values)
+    exec(compile(source, str(path), "exec"), mod.__dict__)
+    sys.path[:] = saved_path
+    for k, v in saved_cfg.items():
+        if jax.config.values.get(k) != v:
+            jax.config.update(k, v)
+    return mod
+
+
+tool = _load_kernel_tool()
+PROB = boat.default_problem()
+JPROB = jboat.default_problem()
+GOAL = PROB["goal"]
+
+
+def _inputs(seed=0):
+    """numpy x0, K (B, 3, 6), xtar, and a tree (N rows) holding x0 at
+    distinct random rows pids, each row with its own gain (the boat's K
+    scaled by 0.5-1.5), so that a wrong row of K shows."""
+    x0, xtar, _ = branch_batch(B, seed, PROB)
+    K = np.broadcast_to(boat_K(PROB), (B, 3, 6)).copy()
+    rng = np.random.default_rng(seed + 1)
+    states = rng.uniform(-1.0, 1.0, (N, 6)).astype(np.float32)
+    pids = rng.permutation(N)[:B].astype(np.int32)
+    states[pids] = x0
+    KN = (boat_K(PROB) * rng.uniform(0.5, 1.5, (N, 1, 1))).astype(np.float32)
+    return x0, K, xtar, states, KN, pids
+
+
+def _jargs(tol=TOL):
+    return ((JPROB["dynamics"], JPROB["erf"],
+             JPROB["constraints"].is_feasible, H, DT, tol),
+            dict(saturate=JPROB["saturate"]))
+
+
+def _port_args(tol=TOL):
+    args, kw = steer_args(PROB)
+    return args[:5] + (tol,), kw
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _u_tol(x0, K, port, jres):
+    """(H, 1, B) tolerance of u_seq: ATOL plus |K|'s largest row sum times
+    the largest difference of the state each step starts from."""
+    start_p = np.concatenate([x0.T[None], port.x_seq.numpy()[:-1]])
+    start_j = np.concatenate([x0.T[None], np.asarray(jres.x_seq)[:-1]])
+    dx = np.abs(start_p - start_j).max(axis=1, keepdims=True)
+    return ATOL + np.abs(K).sum(-1).max() * dx
+
+
+def _assert_same(port, jres, x0, K):
+    """length, in_goal, reached and the mask equal; x_seq and xnew within
+    ATOL, u_seq within ``_u_tol`` (every length agrees, so everywhere)."""
+    for field in ("length", "in_goal", "reached", "mask"):
+        np.testing.assert_array_equal(getattr(port, field).numpy(),
+                                      np.asarray(getattr(jres, field)),
+                                      err_msg=field)
+    for field in ("x_seq", "xnew"):
+        np.testing.assert_allclose(getattr(port, field).numpy(),
+                                   np.asarray(getattr(jres, field)),
+                                   rtol=0, atol=ATOL, err_msg=field)
+    du = np.abs(port.u_seq.numpy() - np.asarray(jres.u_seq))
+    assert (du <= _u_tol(x0, K, port, jres)).all(), du.max()
+
+
+def test_kernel_tool_cannot_be_imported_as_is():
+    """Why the loader edits the source: the misplaced __future__ import."""
+    path = REPO / "tools" / "steer_kernel_experimental.py"
+    with pytest.raises(SyntaxError, match="__future__"):
+        compile(path.read_text(), str(path), "exec")
+    assert callable(tool.make_steer_pallas)
+    assert callable(tool.make_steer_pallas_tree)
+
+
+@pytest.mark.parametrize("goal_box,per_dim", [(True, False), (True, True),
+                                              (False, False)],
+                         ids=["goal-norm", "goal-per-dim", "no-goal-norm"])
+def test_plain_steer_matches_jax_scan(goal_box, per_dim):
+    """The port's steer (kernel D's plain version) against the JAX scan,
+    layout "tm": length, xnew, in_goal, reached and x_seq at H = 100."""
+    tol = np.full(6, TOL, np.float32) if per_dim else TOL
+    x0, K, xtar, *_ = _inputs(1 + per_dim)
+    gb = PROB["constraints"].goal_buffer if goal_box else None
+    args, kw = _port_args(tol)
+    port = make_steer(*args, saturate=kw["saturate"], goal_buffer=gb)(
+        *_t(x0, K, xtar), *(_t(GOAL) if goal_box else []))
+    jargs, jkw = _jargs(tol)
+    jsteer = jax.jit(jmake_steer(*jargs, goal_buffer=gb, layout="tm",
+                                 **jkw))
+    jres = jsteer(x0, K, xtar, *([GOAL] if goal_box else []))
+    _assert_same(port, jres, x0, K)
+    counts = branch_counts(port, x0, xtar)
+    assert counts["infeasible stop"] and counts["length 0"] \
+        and counts["saturated"] and counts["psi wrapped"]
+    assert bool(counts["goal stop"]) == goal_box
+
+
+def test_flat_wrapper_matches_pallas_interpret():
+    """make_steer_kernel on CPU tensors against make_steer_pallas in
+    interpret mode (the tool's configuration: goal box, scalar tol)."""
+    x0, K, xtar, *_ = _inputs(0)
+    args, kw = _port_args()
+    launches = dict(steer_kernel.LAUNCHES)
+    port = make_steer_kernel(*args, **kw)(*_t(x0, K, xtar, GOAL))
+    assert steer_kernel.LAUNCHES == launches      # the CPU launches nothing
+    jargs, jkw = _jargs()
+    jres = tool.make_steer_pallas(
+        *jargs, goal_buffer=JPROB["constraints"].goal_buffer,
+        interpret=True, **jkw)(jnp.asarray(x0), jnp.asarray(K),
+                               jnp.asarray(xtar), jnp.asarray(GOAL))
+    _assert_same(port, jres, x0, K)
+
+
+def test_tree_wrapper_matches_pallas_tree_interpret():
+    """make_steer_kernel_tree on CPU tensors (the index gather, then the
+    plain steer) against make_steer_pallas_tree in interpret mode, from a
+    tree of N = 1024 rows."""
+    x0, _, xtar, states, KN, pids = _inputs(0)
+    args, kw = _port_args()
+    steer = make_steer_kernel_tree(*args, **kw)
+    assert steer.takes_tree
+    port = steer(*_t(states, KN, pids, xtar, GOAL))
+    jargs, jkw = _jargs()
+    jres = tool.make_steer_pallas_tree(
+        *jargs, goal_buffer=JPROB["constraints"].goal_buffer,
+        node_block=NODE_BLOCK, interpret=True, **jkw)(
+            jnp.asarray(states), jnp.asarray(KN), jnp.asarray(pids),
+            jnp.asarray(xtar), jnp.asarray(GOAL))
+    _assert_same(port, jres, x0, KN[pids])
+    flat = make_steer_kernel(*args, **kw)(*_t(x0, KN[pids], xtar, GOAL))
+    for a, b in zip(port, flat):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_branch_batch_reaches_every_branch(seed):
+    """Every group of branch_batch shows its branch in the plain steer."""
+    x0, xtar, group = branch_batch(4 * len(GROUPS), seed, PROB)
+    args, kw = steer_args(PROB)
+    res = make_steer(*args, **kw)(*_t(x0, np.broadcast_to(
+        boat_K(PROB), (len(x0), 3, 6)), xtar, GOAL))
+    counts = branch_counts(res, x0, xtar)
+    assert min(counts.values()) > 0, counts
+    length = res.length.numpy()
+    name = np.array(GROUPS)[group]
+    assert (length[name == "near"] == 0).all()
+    assert res.in_goal.numpy()[name == "goal"].any()
+    buoy = name == "buoy"
+    assert ((length[buoy] < H) & ~res.reached.numpy()[buoy]).any()
+    assert (np.abs(xtar[name == "wrap", 2] - x0[name == "wrap", 2])
+            > np.pi).all()
+
+
+def test_mask_is_the_commit_prefix():
+    """Commits are a prefix, so the kernel's wrapper derives mask from
+    length: the plain steer's per-step commits say the same."""
+    x0, K, xtar, *_ = _inputs(3)
+    args, kw = steer_args(PROB)
+    res = make_steer(*args, **kw)(*_t(x0, K, xtar, GOAL))
+    prefix = torch.arange(H)[:, None] < res.length[None, :]
+    assert torch.equal(res.mask, prefix)
+
+
+@pytest.mark.parametrize("model", [car, quadrotor], ids=["car", "quadrotor"])
+def test_factory_refuses_models_without_device_functions(model):
+    prob = model.default_problem()
+    args = (prob["dynamics"], prob["erf"], prob["constraints"].is_feasible,
+            10, prob["dt"], 0.05)
+    for factory in (make_steer_kernel, make_steer_kernel_tree):
+        with pytest.raises(NotImplementedError, match="device functions"):
+            factory(*args, saturate=prob["saturate"],
+                    goal_buffer=prob["constraints"].goal_buffer)
+
+
+@pytest.mark.parametrize("pred", [
+    collision.all_of(collision.circles_free([[1.0, 2.0]], [0.5])),
+    collision.control_limits(-boat.WRENCH_MAX, boat.WRENCH_MAX),
+    lambda x, u: x[..., 0] < 50.0,
+], ids=["all_of", "control_limits", "lambda"])
+def test_factory_refuses_untagged_predicates(pred):
+    args, kw = steer_args(PROB)
+    for factory in (make_steer_kernel, make_steer_kernel_tree):
+        with pytest.raises(NotImplementedError, match="circles tag"):
+            factory(*args[:2], pred, *args[3:], **kw)
+
+
+@pytest.mark.parametrize("change", ["erf", "saturate-none",
+                                    "saturate-other", "pos-dims",
+                                    "circles"])
+def test_factory_refuses_what_the_kernel_does_not_compute(change):
+    args, kw = steer_args(PROB)
+    args, kw = list(args), dict(kw)
+    if change == "erf":
+        args[1] = make_erf(6)                       # psi not wrapped
+    elif change == "saturate-none":
+        kw["saturate"] = None
+    elif change == "saturate-other":
+        kw["saturate"] = lambda u: u.clamp(-100.0, 100.0)
+    elif change == "pos-dims":
+        args[2] = collision.circles_free([[1.0, 2.0]], [0.5],
+                                         pos_dims=(1, 0))
+    else:
+        n = MAX_CIRCLES + 1
+        args[2] = collision.circles_free(np.zeros((n, 2)), np.ones(n))
+    with pytest.raises(NotImplementedError):
+        make_steer_kernel(*args, **kw)
+
+
+def test_circles_tag_carries_the_margin():
+    centers = np.array([[1.0, 2.0], [3.0, -4.0]], np.float32)
+    radii = np.array([0.5, 2.0], np.float32)
+    pred = collision.circles_free(centers, radii, margin=1.0)
+    tag_centers, tag_r2 = pred.circles
+    np.testing.assert_array_equal(tag_centers, centers)
+    np.testing.assert_allclose(tag_r2, (radii + 1.0) ** 2)
+    assert pred.pos_dims == (0, 1)
+    # the boat problem's predicate: its buoys, radii + 1 m
+    c, r = PROB["obstacles"]
+    pc, pr2 = PROB["constraints"].is_feasible.circles
+    np.testing.assert_array_equal(pc, c)
+    np.testing.assert_allclose(pr2, (r + 1.0) ** 2)
+    # the all-true default counts as zero circles, and the kernel takes it
+    assert _all_true.circles[0].shape == (0, 2)
+    args, kw = steer_args(PROB)
+    x0, K, xtar, *_ = _inputs(4)
+    free = make_steer_kernel(*args[:2], _all_true, *args[3:], **kw)(
+        *_t(x0, K, xtar, GOAL))
+    ref = make_steer(*args[:2], _all_true, *args[3:], **kw)(
+        *_t(x0, K, xtar, GOAL))
+    assert torch.equal(free.x_seq, ref.x_seq)
+    assert not branch_counts(free, x0, xtar)["infeasible stop"]
+
+
+def test_boat_params_are_the_model_constants():
+    p = boat_params()
+    assert p.dtype == np.float32 and p.shape == (14,)
+    assert (p[0], p[1]) == (boat.M_MASS, boat.M_SWAY)
+    np.testing.assert_array_equal(p[2:5], boat._Minv)
+    np.testing.assert_array_equal(p[5:8], boat.D_LIN)
+    np.testing.assert_array_equal(p[8:11], boat.D_QUAD)
+    np.testing.assert_array_equal(p[11:14], boat.WRENCH_MAX)
+
+
+@pytest.mark.parametrize("bad", ["float64", "non-contiguous", "shape",
+                                 "no-goal", "pids-int64", "block"])
+def test_wrappers_check_their_inputs(bad):
+    x0, K, xtar, states, KN, pids = _t(*_inputs(5))
+    goal = torch.from_numpy(GOAL)
+    args, kw = steer_args(PROB)
+    flat = make_steer_kernel(*args, **kw)
+    tree = make_steer_kernel_tree(*args, **kw)
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "float64":
+            flat(x0.double(), K, xtar, goal)
+        elif bad == "non-contiguous":
+            flat(x0, K.transpose(1, 2).contiguous().transpose(1, 2), xtar,
+                 goal)
+        elif bad == "shape":
+            flat(x0[:-1], K, xtar, goal)
+        elif bad == "no-goal":
+            flat(x0, K, xtar)
+        elif bad == "pids-int64":
+            tree(states, KN, pids.long(), xtar, goal)
+        else:
+            make_steer_kernel(*args, block=48, **kw)
+
+
+def test_entry_point_main_on_cpu(monkeypatch, capsys):
+    """The experiment end to end at a small size on the CPU, where every
+    block size and the tree cell take the plain version."""
+    monkeypatch.setattr(exp_steer_kernel, "REPS", 1)
+    monkeypatch.setattr(exp_steer_kernel, "PLAIN_REPS", 1)
+    out = exp_steer_kernel.main(device="cpu", B=64, N=1024)
+    printed = capsys.readouterr().out
+    assert printed.count("len_eq 1.0") == len(exp_steer_kernel.BLOCKS) + 1
+    assert out["device"] == "cpu" and out["plain_ms"] > 0
+    assert sorted(out["kernel"]) == sorted(exp_steer_kernel.BLOCKS)
+    for c in list(out["kernel"].values()) + [out["tree"]]:
+        assert c["len_eq"] == 1.0 and c["max_dx"] == 0.0 and c["ms"] > 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        exp_steer_kernel.main(device="cuda", B=64, N=1024)
