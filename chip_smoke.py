@@ -34,6 +34,21 @@ exits non-zero:
    ``lqrrt_tpu_torch.tools.exp_steer_kernel.main`` at full width (B = 8192,
    a tree of N = 40960 rows), with the launch counts set to 0 just before
    and read just after;
+5d. kernel D's repairs: parents outside [0, N), a NaN tree row and NaN x0
+   rows give the same NaN rows on the card as in the plain version, bit for
+   bit against the plain version on the card (the tree call under
+   ``torch.cuda.set_sync_debug_mode("error")``), NaN for NaN against the
+   CPU;
+5e. kernel F: F1 (``make_steer_kernel_dv``, D's kernel in the double-vmap
+   layout, batch_tile 512 and 1024) vs the plain steer as in 5c, then its
+   entry point ``exp_steer_dv.main``; F2, every configuration of the stage
+   scaffold (``steer_stages.build``) vs its plain version at B = 8192,
+   H = 100, bit for bit, then its entry point ``exp_steer_stages.main``
+   (where kernel D's time goes); F3 and F4, the entry points
+   ``dbg_steer_kernel.main`` and ``dbg_steer_scaffold.main`` (every stage
+   and probe built, launched and equal to its plain version), then their
+   times; each main path with its launch counts set to 0 just before and
+   read just after;
 6. batched CARE on the card for 8192 car and 8192 quadrotor linearizations
    against scipy's float64 CARE on a subsample;
 7. round parity, boat and car: one expansion round on the card against the
@@ -47,7 +62,12 @@ exits non-zero:
    ``torch.cuda.set_sync_debug_mode("error")``.
 
 The last two lines are a JSON object with the kernels' checks and times and
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
+``{"ok": true, "device": {...}}``.  In the kernels line every ``ms``,
+``plain_ms`` and ``library_ms`` is one clock: CUDA events around one call
+of the wrapper, the host's dispatch included (``cuda_ms``); kernels D and F
+add ``device_ms`` (and F's dicts ``*_device_ms``), the kernel alone
+(``exp_steer_kernel.device_ms``: the stream spins while the host dispatches
+the call).  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -76,6 +96,7 @@ N_BENCH, B_BENCH, NS, WRAP = 40960, 8192, 6, 2
 SIZES = (512, 8704, 32768)
 TOL_STEER = 1e-3       # |dx|, |du| of a rollout where lengths agree (the
                        # CPU tests'); lengths, in_goal, reached: >= 0.999
+B_REPAIR = 2048        # candidates of kernel D's repair phase (a CPU run)
 # H100 SXM peaks (NVIDIA's data sheet, dense): flop/s by type, HBM bytes/s
 PEAKS = {"fp32": 67e12, "bf16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -125,9 +146,11 @@ def rel_excess(c, c_ref):
     return ((c - c_ref) / c_ref.abs().clamp(min=1e-6)).max().item()
 
 
-def ptxas_summary(build_log: str):
+def ptxas_summary(build_log: str, bodies=()):
     """One line per kernel instance from ``ptxas -v``: registers, shared
-    memory and spills, with the kernel's name and state dimension."""
+    memory and spills, with the kernel's name and template arguments (the
+    state dimension; for ``stage_kernel`` the step body, named from
+    ``bodies``, and whether it stores every step)."""
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -135,6 +158,8 @@ def ptxas_summary(build_log: str):
             k = re.search(r"\d+([a-z_]+_(?:kernel|merge))"
                           r"(?:I((?:L[a-z]\d+E)+)E)?", m.group(1))
             args = re.findall(r"L[a-z](\d+)E", k.group(2) or "") if k else []
+            if k is not None and k.group(1) == "stage_kernel" and bodies:
+                args = [bodies[int(args[0])], f"store={args[1]}"]
             name = (m.group(1) if k is None else
                     k.group(1) + (f"<{','.join(args)}>" if args else ""))
             continue
@@ -435,6 +460,7 @@ def phase_kernel_d():
     from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement, boat_K,
                                                         branch_batch,
                                                         branch_counts,
+                                                        device_ms,
                                                         steer_args)
 
     dev = "cuda"
@@ -481,6 +507,7 @@ def phase_kernel_d():
         finite = bool(torch.isfinite(res.x_seq).all()
                       and torch.isfinite(res.u_seq).all())
         ms = cuda_ms(kernel)
+        alone_ms = device_ms(kernel, 20)
         # the plain steer is a Python loop of ~100 small ops a step: few
         # repetitions (script time)
         plain_ms = cuda_ms(plain_fn, reps=3)
@@ -495,6 +522,7 @@ def phase_kernel_d():
             f"max_abs_du={a['max_du']:.3e} max_abs_dxnew={a['max_dxnew']:.3e} "
             f"(where lengths agree) branches={counts} "
             f"plain_branches={counts_plain} kernel_ms={ms:.4f} "
+            f"device_ms={alone_ms:.4f} (alone) "
             f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}; "
             f"{flops:.4g} fp32 flops, {nbytes:.4g} bytes) "
             "(no PyTorch call computes a closed-loop rollout)")
@@ -505,8 +533,8 @@ def phase_kernel_d():
             raise AssertionError(f"kernel D [{variant}] disagrees with its "
                                  "plain version or misses a branch")
         out[variant] = dict(max_abs_err=max(a["max_dx"], a["max_du"]),
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
+                            ms=ms, device_ms=alone_ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
     return out
 
 
@@ -519,7 +547,7 @@ def phase_exp_steer_kernel(smi):
     for v in D.VARIANTS:
         D.LAUNCHES[v] = 0
     res = exp_steer_kernel.main(device="cuda")
-    launches = dict(D.LAUNCHES)
+    launches = {v: D.LAUNCHES[v] for v in ("flat", "tree")}
     log(f"exp_steer_kernel main [{smi}]: steer_rollout launches by variant "
         f"{launches}")
     for label, c in [(f"block={k}", v) for k, v in res["kernel"].items()] \
@@ -564,6 +592,469 @@ def bound(flops=None, nbytes=0.0):
     t_ops = max([f / PEAKS[k] * 1e3 for k, f in (flops or {}).items()],
                 default=0.0)
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def pick(res, sel):
+    """The candidates ``sel`` of a SteerResult."""
+    from lqrrt_tpu_torch.core.steer import SteerResult
+
+    return SteerResult(res.x_seq[..., sel], res.u_seq[..., sel],
+                       res.mask[:, sel], res.length[sel], res.xnew[sel],
+                       res.reached[sel], res.in_goal[sel])
+
+
+def phase_d_repairs():
+    """Kernel D's repairs: a parent outside [0, N) or a NaN row gives a NaN
+    start row, and the saturation keeps NaN as torch.clamp does, so the
+    card and the plain version give the same NaN rows.  Tree (N_BENCH
+    rows, B_REPAIR candidates of ``branch_batch``): pids -1, -N, N and
+    N + 7, and one pid at a NaN row of the states; flat: two NaN rows of
+    x0.  The kernel is held bit for bit, NaN equal to NaN, against the
+    plain version on the card (``gather_rows`` and ``make_steer`` on CUDA
+    tensors: the CPU path's code), the tree call under sync-debug mode
+    'error'; and against the wrapper on the CPU: the bad rows bit for bit
+    (NaN x, u and xnew, length 0, not reached, not in the goal), the same
+    NaN entries everywhere, and the finite rows with the round-parity
+    phase's share (0.99) and TOL_STEER on x; u within TOL_STEER plus |K|'s
+    row sum times x's difference (the CPU sums and rounds sin and cos in
+    its own way)."""
+    from lqrrt_tpu_torch.core.steer import make_steer
+    from lqrrt_tpu_torch.models import boat
+    from lqrrt_tpu_torch.ops.kernels.steer_kernel import (
+        gather_rows, make_steer_kernel, make_steer_kernel_tree)
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement, boat_K,
+                                                        branch_batch,
+                                                        steer_args)
+
+    prob = boat.default_problem()
+    args, kw = steer_args(prob)
+    B, N = B_REPAIR, N_BENCH
+    x0_np, xtar_np, _ = branch_batch(B, 37, prob)
+    rng = np.random.default_rng(41)
+    states_np = rng.uniform(-1.0, 1.0, (N, NS)).astype(np.float32)
+    pids_np = rng.permutation(N)[:B].astype(np.int32)
+    states_np[pids_np] = x0_np
+    pids_np[:4] = (-1, -N, N, N + 7)
+    states_np[pids_np[4]] = np.nan
+    x0_np[[5, 6]] = np.nan
+    KN_np = (boat_K(prob) * rng.uniform(0.5, 1.5, (N, 1, 1))).astype(
+        np.float32)
+    KB_np = np.broadcast_to(boat_K(prob), (B, 3, NS)).copy()
+    ksum = float(np.abs(KN_np).sum(-1).max())
+    plain = make_steer(*args, **kw)
+    tree = make_steer_kernel_tree(*args, **kw)
+    flat = make_steer_kernel(*args, **kw)
+
+    def inputs(dev):
+        return [torch.as_tensor(a, device=dev) for a in
+                (states_np, KN_np, pids_np, x0_np, KB_np, xtar_np,
+                 prob["goal"])]
+
+    cases = {
+        "tree": (lambda s, KN, p, x0, KB, xt, g: tree(s, KN, p, xt, g),
+                 lambda s, KN, p, x0, KB, xt, g: plain(
+                     *gather_rows(s, KN, p), xt, g), [0, 1, 2, 3, 4]),
+        "flat": (lambda s, KN, p, x0, KB, xt, g: flat(x0, KB, xt, g),
+                 lambda s, KN, p, x0, KB, xt, g: plain(x0, KB, xt, g),
+                 [5, 6]),
+    }
+    gpu, cpu = inputs("cuda"), inputs("cpu")
+    floats, exact = ("x_seq", "u_seq", "xnew"), ("length", "reached",
+                                                 "in_goal")
+    for variant, (kernel, plain_fn, bad) in cases.items():
+        kernel(*gpu)             # the constants' first copy to the card
+        torch.cuda.synchronize()
+        if variant == "tree":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = kernel(*gpu)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref = plain_fn(*gpu)
+        torch.cuda.synchronize()
+        for f in floats:
+            torch.testing.assert_close(getattr(res, f), getattr(ref, f),
+                                       rtol=0, atol=0, equal_nan=True,
+                                       msg=f"kernel D repairs [{variant}] "
+                                       f"{f} vs the plain version")
+        for f in exact:
+            if not torch.equal(getattr(res, f), getattr(ref, f)):
+                raise AssertionError(f"kernel D repairs [{variant}]: {f} "
+                                     "differs from the plain version")
+        res = type(res)(*(t.cpu() for t in res))
+        ref_cpu = kernel(*cpu)
+        for f in floats:
+            if not torch.equal(getattr(res, f).isnan(),
+                               getattr(ref_cpu, f).isnan()):
+                raise AssertionError(f"kernel D repairs [{variant}]: {f} "
+                                     "is NaN elsewhere than on the CPU")
+        sel = torch.tensor(bad)
+        for r in (res, ref_cpu):
+            r = pick(r, sel)
+            if not (bool((r.length == 0).all()) and not r.reached.any()
+                    and not r.in_goal.any()
+                    and all(bool(getattr(r, f).isnan().all())
+                            for f in floats)):
+                raise AssertionError(f"kernel D repairs [{variant}]: a bad "
+                                     "row is not an empty NaN rollout")
+        bad_card, bad_cpu = pick(res, sel), pick(ref_cpu, sel)
+        for f in floats + exact:
+            torch.testing.assert_close(getattr(bad_card, f),
+                                       getattr(bad_cpu, f), rtol=0, atol=0,
+                                       equal_nan=True)
+        good = torch.ones(B, dtype=torch.bool)
+        good[sel] = False
+        a = agreement(pick(res, good), pick(ref_cpu, good))
+        log(f"kernel D repairs [{variant}] B={B} bad rows {bad}: card vs "
+            "the plain version on the card bit for bit, NaN equal: ok; "
+            "card vs the CPU: the same NaN entries, bad rows empty NaN "
+            f"rollouts on both; finite rows len_eq={a['len_eq']:.6f} "
+            f"in_goal_eq={a['in_goal_eq']:.6f} "
+            f"reached_eq={a['reached_eq']:.6f} max_abs_dx={a['max_dx']:.3e} "
+            f"max_abs_du={a['max_du']:.3e} (u carries x's difference times "
+            f"|K|'s row sum, up to {ksum:.0f})")
+        if not (min(a["len_eq"], a["in_goal_eq"], a["reached_eq"]) >= 0.99
+                and max(a["max_dx"], a["max_dxnew"]) <= TOL_STEER
+                and a["max_du"] <= TOL_STEER + ksum * a["max_dx"]):
+            raise AssertionError(f"kernel D repairs [{variant}]: the finite "
+                                 "rows disagree with the CPU")
+
+
+def phase_f1():
+    """F1, ``make_steer_kernel_dv`` (kernel D with ``batch_tile`` threads
+    a block), against the plain steer on
+    ``branch_batch`` at B = 8192, H = 100, batch_tile 512 and 1024, with
+    phase D's gates."""
+    from lqrrt_tpu_torch.core.steer import make_steer
+    from lqrrt_tpu_torch.models import boat
+    from lqrrt_tpu_torch.ops.kernels.steer_kernel import make_steer_kernel_dv
+    from lqrrt_tpu_torch.tools.exp_steer_dv import BATCH_TILES
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement, boat_K,
+                                                        branch_batch,
+                                                        branch_counts,
+                                                        device_ms,
+                                                        steer_args)
+
+    dev = "cuda"
+    prob = boat.default_problem()
+    args, kw = steer_args(prob)
+    x0_np, xtar_np, _ = branch_batch(B_BENCH, 19, prob)
+    x0, xtar = (torch.as_tensor(a, device=dev) for a in (x0_np, xtar_np))
+    KB = torch.as_tensor(boat_K(prob), device=dev).expand(
+        B_BENCH, 3, NS).contiguous()
+    goal = torch.as_tensor(prob["goal"], device=dev)
+    ncirc = len(prob["constraints"].is_feasible.circles[1])
+    plain = make_steer(*args, **kw)
+    ref = plain(x0, KB, xtar, goal)
+    plain_ms = cuda_ms(lambda: plain(x0, KB, xtar, goal), reps=3)
+    out = dict(batch_tile_ms={}, batch_tile_device_ms={}, max_abs_err=0.0,
+               plain_ms=plain_ms)
+    for bt in BATCH_TILES:
+        dv = make_steer_kernel_dv(*args, batch_tile=bt, **kw)
+        res = dv(x0, KB, xtar, goal)
+        torch.cuda.synchronize()
+        a = agreement(res, ref)
+        counts = branch_counts(res, x0_np, xtar_np)
+        same = all(torch.equal(p, q) for p, q in zip(res, ref))
+        finite = bool(torch.isfinite(res.x_seq).all()
+                      and torch.isfinite(res.u_seq).all())
+        alone_ms = device_ms(lambda: dv(x0, KB, xtar, goal), 20)
+        ms = cuda_ms(lambda: dv(x0, KB, xtar, goal))
+        bound_ms, bound_by, flops, nbytes = steer_bound(res, B_BENCH, ncirc,
+                                                        False)
+        log(f"F1 steer_rollout_dv batch_tile={bt} B={B_BENCH} "
+            f"H={res.x_seq.shape[0]}: bit_exact={same} "
+            f"len_eq={a['len_eq']:.6f} in_goal_eq={a['in_goal_eq']:.6f} "
+            f"reached_eq={a['reached_eq']:.6f} max_abs_dx={a['max_dx']:.3e} "
+            f"max_abs_du={a['max_du']:.3e} branches={counts} "
+            f"kernel_ms={ms:.4f} device_ms={alone_ms:.4f} (alone) "
+            f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}; "
+            f"{flops:.4g} fp32 flops, {nbytes:.4g} bytes)")
+        if not (finite and min(a["len_eq"], a["in_goal_eq"],
+                               a["reached_eq"]) >= 0.999
+                and max(a["max_dx"], a["max_du"], a["max_dxnew"])
+                <= TOL_STEER and min(counts.values()) > 0):
+            raise AssertionError(f"F1 [batch_tile={bt}] disagrees with the "
+                                 "plain steer or misses a branch")
+        out["batch_tile_ms"][bt] = ms
+        out["batch_tile_device_ms"][bt] = alone_ms
+        out["max_abs_err"] = max(out["max_abs_err"], a["max_dx"],
+                                 a["max_du"])
+    out.update(ms=out["batch_tile_ms"][BATCH_TILES[0]],
+               device_ms=out["batch_tile_device_ms"][BATCH_TILES[0]],
+               bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def phase_exp_steer_dv(smi):
+    """F1's main path: the experiment's entry point at full width, with
+    the launch counts set to 0 just before and read just after."""
+    from lqrrt_tpu_torch.ops.kernels import steer_kernel as D
+    from lqrrt_tpu_torch.tools import exp_steer_dv
+
+    for v in D.VARIANTS:
+        D.LAUNCHES[v] = 0
+    res = exp_steer_dv.main(device="cuda")
+    launches = dict(D.LAUNCHES)
+    log(f"exp_steer_dv main [{smi}]: steer_rollout launches by variant "
+        f"{launches}")
+    for bt, c in res["kernel"].items():
+        if not (c["len_eq"] >= 0.999 and c["max_dx"] <= TOL_STEER):
+            raise AssertionError(f"exp_steer_dv: batch_tile={bt} fails: {c}")
+    if launches["dv"] < 1:
+        raise AssertionError("exp_steer_dv: the dv variant was not launched")
+    return launches["dv"]
+
+
+def stage_bound(stage, B, H):
+    """(ms, what bounds it) of one launch of a scaffold stage: the inputs
+    x0T, KT and tarT read once, xs (and F2's us) stored every step (only
+    the final step's without per-step stores), length written once; the
+    flops of the stage's body (``steer_stages.FLOPS``) every step."""
+    from lqrrt_tpu_torch.ops.kernels import steer_stages as S
+
+    rows = NS + (3 if S.STAGES[stage].tool == "F2" else 0)
+    steps = 1 if stage == "identity_nostore" else H
+    nbytes = 4 * B * (NS + 3 * NS + NS) + 4 * steps * rows * B + 4 * B
+    return bound({"fp32": S.FLOPS[stage] * B * H}, nbytes)
+
+
+def phase_f2():
+    """Every configuration of the stage scaffold (F2,
+    ``steer_stages.build``) against its plain version on the card at
+    B = 8192, H = 100 on the tool's data (x0 ~ N(0, 1), K ~ 0.1 N(0, 1),
+    xtar ~ 5 N(0, 1)): length equal, xs and us bit for bit (only xs[0]
+    and us[0] for identity_nostore, which stores nothing else), since the
+    kernel rounds every operation alone in the plain version's order.
+    ``full`` sums e * e over the 6 state rows as torch.sum over dim 0 does
+    on the card (``sum6_rows``); the share of columns on which that order
+    is torch's is printed.  Returns, per stage, the largest difference and
+    the plain version's ms."""
+    from lqrrt_tpu_torch.ops.kernels import steer_stages as S
+    from lqrrt_tpu_torch.tools.exp_steer_stages import stage_inputs
+
+    x0T, KT, tarT = stage_inputs(B_BENCH, 0, "cuda")
+    a = torch.randn((6, 65536), generator=torch.Generator(device="cuda")
+                    .manual_seed(31), device="cuda") * 100.0
+    rows = (((a[0] + a[4]) + (a[1] + a[5])) + a[2]) + a[3]
+    log(f"F2: torch.sum over dim 0 of (6, B) in sum6_rows' order on "
+        f"{(rows == a.sum(0)).double().mean().item():.6f} of columns")
+    out, failed = {}, []
+    for stage in S.F2:
+        xs, us, length = S.build(stage)(x0T, KT, tarT)
+        rxs, rus, rlength = S.plain(stage, x0T, KT, tarT)
+        torch.cuda.synchronize()
+        sl = slice(0, 1) if stage == "identity_nostore" else slice(None)
+        xs, us, rxs, rus = xs[sl], us[sl], rxs[sl], rus[sl]
+        len_eq = torch.equal(length, rlength)
+        same = torch.equal(xs, rxs) and torch.equal(us, rus)
+        err = max((xs - rxs).abs().max().item(),
+                  (us - rus).abs().max().item())
+        finite = bool(torch.isfinite(xs).all() and torch.isfinite(us).all())
+        plain_ms = cuda_ms(lambda: S.plain(stage, x0T, KT, tarT), reps=1)
+        ok = len_eq and finite and same
+        log(f"F2 steer_stages[{stage}] B={B_BENCH} H={S.H}: "
+            f"len_eq={len_eq} bit_exact={same} max_abs_d={err:.3e} "
+            f"finite={finite} plain_ms={plain_ms:.3f}"
+            + ("" if ok else " FAILED"))
+        if not ok:
+            failed.append(stage)
+        out[stage] = dict(max_abs_err=err, plain_ms=plain_ms)
+    if failed:
+        raise AssertionError(f"F2: stages disagree with their plain "
+                             f"versions: {failed}")
+    return out
+
+
+def phase_exp_steer_stages(smi):
+    """F2's main path: the experiment's entry point at full width (B =
+    8192, H = 100, block 64), with the launch counts set to 0 just before
+    and read just after.  Returns its stage times and the launches."""
+    from lqrrt_tpu_torch.ops.kernels import steer_stages as S
+    from lqrrt_tpu_torch.tools import exp_steer_stages
+
+    for k in S.LAUNCHES:
+        S.LAUNCHES[k] = 0
+    res = exp_steer_stages.main(device="cuda")
+    launches = {k: S.LAUNCHES[k] for k in S.F2}
+    log(f"exp_steer_stages main [{smi}]: steer_stage launches by stage "
+        f"{launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"exp_steer_stages: a stage was not launched: "
+                             f"{launches}")
+    return res, launches
+
+
+def phase_f3_f4(smi):
+    """F3 and F4's main paths, ``dbg_steer_kernel.main`` and
+    ``dbg_steer_scaffold.main`` (every stage and probe built, launched and
+    equal to its plain version; F3's on the tool's all-ones inputs and on
+    ``branch_inputs``), with the launch counts set to 0 just before and
+    read just after.  Then F3's stages on ``branch_inputs`` (B = 1024)
+    against their plain versions on the card, bit for bit, with the
+    branches full must take there: the goal group stops at the goal box
+    (which feasibility alone does not), the near group arrives at once
+    (length 0) and the buoy group stops at the circles.  Then each stage's
+    and probe's time at the tools' shapes (B = 1024, H = 100) beside its
+    plain version's (for the probes, the library call)."""
+    from lqrrt_tpu_torch.ops.kernels import scaffold_probes as P
+    from lqrrt_tpu_torch.ops.kernels import steer_stages as S
+    from lqrrt_tpu_torch.tools import dbg_steer_kernel, dbg_steer_scaffold
+    from lqrrt_tpu_torch.tools.dbg_steer_kernel import branch_inputs, same
+    from lqrrt_tpu_torch.tools.dbg_steer_scaffold import probe_args
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import (GROUPS, branch_batch,
+                                                        device_ms)
+
+    for k in S.LAUNCHES:
+        S.LAUNCHES[k] = 0
+    for k in P.PROBES:
+        P.LAUNCHES[k] = 0
+    failed = (dbg_steer_kernel.main(device="cuda"),
+              dbg_steer_scaffold.main(device="cuda"))
+    l3, l4 = {k: S.LAUNCHES[k] for k in S.F3}, dict(P.LAUNCHES)
+    log(f"dbg_steer_kernel / dbg_steer_scaffold main [{smi}]: failed "
+        f"{failed}, launches by stage {l3}, by probe {l4}")
+    if any(failed) or min(l3.values()) < 1 or min(l4.values()) < 1:
+        raise AssertionError("F3/F4: a stage or probe failed or was not "
+                             "launched")
+    B, dev = dbg_steer_scaffold.B, "cuda"
+    ones = [torch.ones(s, device=dev) for s in ((NS, B), (3, NS, B),
+                                                (NS, B))]
+    branches = branch_inputs(B, 0, dev)
+    group = torch.as_tensor(branch_batch(B, 0)[2], device=dev)
+    stages, lengths = {}, {}
+    for stage in S.F3:
+        fn = S.run_stage(stage)
+        xs, length = fn(*branches)
+        ref, _, ref_len = S.plain(stage, *branches)
+        if not (same(xs, ref) and same(length, ref_len)
+                and bool(torch.isfinite(xs).all())):
+            raise AssertionError(f"F3 [{stage}] differs from its plain "
+                                 "version on branch_inputs")
+        lengths[stage] = {g: (int((length[group == i] == 0).sum()),
+                              int(((length[group == i] > 0)
+                                   & (length[group == i] < S.H)).sum()),
+                              int((length[group == i] == S.H).sum()))
+                          for i, g in enumerate(GROUPS)}
+        ms = cuda_ms(lambda: fn(*ones))
+        alone_ms = device_ms(lambda: fn(*ones), 20)
+        plain_ms = cuda_ms(lambda: S.plain(stage, *ones), reps=1)
+        stages[stage] = dict(max_abs_err=(xs - ref).abs().max().item(),
+                             ms=ms, device_ms=alone_ms, plain_ms=plain_ms,
+                             bound=stage_bound(stage, B, S.H))
+        log(f"F3 steer_stage[{stage}] B={B} H={S.H}: bit_exact=True on "
+            f"branch_inputs, (length 0, stopped, H) by group "
+            f"{lengths[stage]}; kernel_ms={ms:.4f} device_ms={alone_ms:.4f} "
+            f"(alone) plain_ms={plain_ms:.3f} "
+            f"bound_ms={stages[stage]['bound'][0]:.5f} "
+            f"({stages[stage]['bound'][1]})")
+    full, feas = lengths["dbg_full"], lengths["dbg_feasibility"]
+    if not (full["goal"][1] == sum(full["goal"]) > feas["goal"][1]
+            and full["near"][0] == sum(full["near"])
+            and full["buoy"][1] == feas["buoy"][1] == sum(full["buoy"])):
+        raise AssertionError("F3: branch_inputs missed a branch of full "
+                             "(goal box, arrived, circles)")
+    probes = {}
+    for name in P.PROBES:
+        args = probe_args(name, dev)
+        y, ref = P.probe(name, *args), P.plain(name, *args)
+        ms = cuda_ms(lambda: P.probe(name, *args))
+        alone_ms = device_ms(lambda: P.probe(name, *args), 20)
+        library_ms = cuda_ms(lambda: P.plain(name, *args))
+        library_alone = device_ms(lambda: P.plain(name, *args), 20)
+        flops, nbytes = probe_work(name, B, P.H)
+        probes[name] = dict(
+            max_abs_err=(y - ref).abs().max().item(), ms=ms,
+            device_ms=alone_ms, library_ms=library_ms,
+            library_device_ms=library_alone,
+            bound=bound({"fp32": flops}, nbytes), flops=flops, nbytes=nbytes)
+        log(f"F4 scaffold_probe[{P.NAMES[name]}] B={B} H={P.H}: "
+            f"kernel_ms={ms:.4f} device_ms={alone_ms:.4f} (alone) "
+            f"library_ms={library_ms:.4f} library_device_ms="
+            f"{library_alone:.4f} (its plain version) "
+            f"bound_ms={probes[name]['bound'][0]:.6f} "
+            f"({probes[name]['bound'][1]})")
+    return l3, l4, stages, probes
+
+
+def probe_work(name, B, H):
+    """(fp32 flops, bytes) of one probe: x (6, B) read once, its
+    constant read once, the output written once; the flops of its
+    expression."""
+    out = {"B": H * NS * B, "C": H * NS * B, "D": B, "E": B}.get(name,
+                                                                NS * B)
+    aux = {"F": NS, "G": 14}.get(name, 0)
+    flops = {"A": NS * B, "B": 0, "C": H * NS * B, "D": 5 * B,
+             "E": H * B * (5 + 1 + NS), "F": NS * B,
+             "G": 13 + NS * B}[name]
+    return flops, 4 * (NS * B + aux + out)
+
+
+def f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3, f3_launches,
+              f4, f4_launches):
+    """The kernels line's entries of kernel F's four functions (F1-F4),
+    from their phases' results and their main paths' launches."""
+    out = []
+    out.append(dict(
+        name="steer_rollout_dv", route="cuda",
+        source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
+        replaces="tools/exp_steer_dv_v5.py:29", launches=f1_launches,
+        **f1, library_ms=None))
+    # F2: the full stage (kernel D's step without its done carry) is the
+    # row's time; every stage's beside it, from the experiment's run (its
+    # ``ms`` is the kernel alone, its ``wall_ms`` the call)
+    stages = f2_res["stages"]
+    full_bound = stage_bound("full", B_BENCH, f2_res["H"])
+    out.append(dict(
+        name="steer_stages", route="cuda",
+        source="lqrrt_tpu_torch/csrc/steer_stages.cu",
+        replaces="tools/exp_steer_stages_v5.py:54",
+        launches=sum(f2_launches.values()),
+        max_abs_err=max(v["max_abs_err"] for v in f2.values()),
+        ms=stages["full"]["wall_ms"], device_ms=stages["full"]["ms"],
+        stages_ms={k: v["wall_ms"] for k, v in stages.items()},
+        stages_device_ms={k: v["ms"] for k, v in stages.items()},
+        plain_ms=f2["full"]["plain_ms"],
+        stages_plain_ms={k: v["plain_ms"] for k, v in f2.items()},
+        bound_ms=full_bound[0], bound_by=full_bound[1],
+        stages_bound_ms={k: stage_bound(k, B_BENCH, f2_res["H"])[0]
+                         for k in stages},
+        steer_rollout_ms=f2_res["steer_rollout_wall_ms"],
+        steer_rollout_device_ms=f2_res["steer_rollout_ms"], library_ms=None))
+    out.append(dict(
+        name="steer_stage_dbg", route="cuda",
+        source="lqrrt_tpu_torch/csrc/steer_stages.cu",
+        replaces="tools/dbg_steer_kernel.py:40",
+        launches=sum(f3_launches.values()),
+        max_abs_err=max(v["max_abs_err"] for v in f3.values()),
+        ms=f3["dbg_full"]["ms"], device_ms=f3["dbg_full"]["device_ms"],
+        stages_ms={k: v["ms"] for k, v in f3.items()},
+        stages_device_ms={k: v["device_ms"] for k, v in f3.items()},
+        plain_ms=f3["dbg_full"]["plain_ms"],
+        bound_ms=f3["dbg_full"]["bound"][0],
+        bound_by=f3["dbg_full"]["bound"][1], library_ms=None))
+    # F4: the seven probes one after another; each probe's plain version is
+    # the library call itself
+    p_bound = bound({"fp32": sum(v["flops"] for v in f4.values())},
+                    sum(v["nbytes"] for v in f4.values()))
+    out.append(dict(
+        name="scaffold_probes", route="cuda",
+        source="lqrrt_tpu_torch/csrc/scaffold_probes.cu",
+        replaces="tools/dbg_steer_scaffold.py:18",
+        launches=sum(f4_launches.values()),
+        max_abs_err=max(v["max_abs_err"] for v in f4.values()),
+        ms=sum(v["ms"] for v in f4.values()),
+        device_ms=sum(v["device_ms"] for v in f4.values()),
+        plain_ms=sum(v["library_ms"] for v in f4.values()),
+        bound_ms=p_bound[0], bound_by=p_bound[1],
+        library_ms=sum(v["library_ms"] for v in f4.values()),
+        library_device_ms=sum(v["library_device_ms"] for v in f4.values()),
+        probes={k: dict(ms=v["ms"], device_ms=v["device_ms"],
+                        library_ms=v["library_ms"],
+                        library_device_ms=v["library_device_ms"],
+                        bound_ms=v["bound"][0], launches=f4_launches[k])
+                for k, v in f4.items()}))
+    return out
 
 
 def phase_care(models):
@@ -814,6 +1305,7 @@ def main() -> int:
     from lqrrt_tpu_torch.ops.kernels import _build
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import (make_nearest_const,
                                                        make_nearest_general)
+    from lqrrt_tpu_torch.ops.kernels.steer_stages import BODIES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -827,7 +1319,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     ptxas_log = _build.ptxas_log_path()
     for line in ptxas_summary(ptxas_log.read_text()
-                              if ptxas_log.exists() else ""):
+                              if ptxas_log.exists() else "", BODIES):
         log(f"  ptxas {line}")
 
     def timed(label, fn, *args, **kw):
@@ -844,6 +1336,13 @@ def main() -> int:
     d = timed("kernel D", phase_kernel_d)
     _, d_launches = timed("exp_steer_kernel main", phase_exp_steer_kernel,
                           smi)
+    timed("kernel D repairs", phase_d_repairs)
+    f1 = timed("F1", phase_f1)
+    f1_launches = timed("exp_steer_dv main", phase_exp_steer_dv, smi)
+    f2 = timed("F2", phase_f2)
+    f2_res, f2_launches = timed("exp_steer_stages main",
+                                phase_exp_steer_stages, smi)
+    f3_launches, f4_launches, f3, f4 = timed("F3/F4", phase_f3_f4, smi)
     timed("batched CARE", phase_care, [("car", car), ("quadrotor", quadrotor)])
     boat_p, car_p, quad_p = (boat.default_problem(), car.default_problem(),
                              quadrotor.default_problem())
@@ -931,6 +1430,8 @@ def main() -> int:
             route="cuda", source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
             replaces=replaces, launches=d_launches[variant],
             **d[variant], library_ms=None))
+    kernels += f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3,
+                         f3_launches, f4, f4_launches)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

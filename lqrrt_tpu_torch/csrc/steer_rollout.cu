@@ -2,12 +2,15 @@
 // optional parent gather.
 //
 // Replaces: tools/steer_kernel_experimental.py, make_steer_pallas (:72) and
-// make_steer_pallas_tree (:340).  The Pallas kernels traced the user's
-// callbacks (dynamics, erf, is_feasible, saturate) into the kernel through
-// jax.vmap.  A CUDA kernel cannot, so the boat's callbacks
-// (lqrrt_tpu_torch/models/boat.py) are written out below as device
-// functions, its numbers arrive as a kernel argument, and the wrapper
-// (ops/kernels/steer_kernel.py) refuses a model that has none.
+// make_steer_pallas_tree (:340), and, launched by F1's factory
+// (make_steer_kernel_dv) into (H, n, 1, B) buffers, the same memory as
+// (H, n, B), tools/exp_steer_dv_v5.py, make_steer_pallas_dv (:29), whose
+// double vmap only kept Mosaic's values 2-D.  The Pallas kernels traced the
+// user's callbacks (dynamics, erf, is_feasible, saturate) into the kernel
+// through jax.vmap.  A CUDA kernel cannot, so the boat's callbacks
+// (lqrrt_tpu_torch/models/boat.py) are device functions
+// (boat_device.cuh), its numbers arrive as a kernel argument, and the
+// wrapper (ops/kernels/steer_kernel.py) refuses a model that has none.
 //
 // For each candidate b, H steps of exactly core/steer.py's step, in its
 // order: e = erf(xtar, x) with psi wrapped; the converged test (scalar
@@ -41,103 +44,29 @@
 // one launch of scalar chains.
 //
 // Rounding: every operation rounds on its own, in the plain version's order
-// (add/sub/mul below are never contracted into FMAs; sums of 6 follow
-// PyTorch's CUDA reduction), with precise sinf, cosf, fmodf and sqrtf (no
+// (the device functions of boat_device.cuh; sums of 6 follow PyTorch's CUDA
+// reduction), with precise sinf, cosf, fmodf and sqrtf (no
 // --use_fast_math), so that on the card the kernel reproduces the plain
 // steer's arithmetic: a rollout amplifies one ulp of x into ~1e-3 of u
-// through the gain K.
+// through the gain K.  The saturation propagates NaN as torch.clamp does,
+// so a NaN start row (a parent out of range, a NaN row of the tree) gives
+// the plain version's NaN x and u, bit for bit.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "boat_device.cuh"
+
 namespace {
 
-constexpr int kN = 6;             // boat state: px, py, psi, vx, vy, w
-constexpr int kM = 3;             // boat wrench: Fx, Fy, Mz
-constexpr int kPsi = 2;           // the erf's wrapped dim (angle_dims)
+using boat::add;
+using boat::kM;
+using boat::kN;
+using boat::kParams;
+using boat::mul;
+using boat::sub;
+using boat::sum6;
+
 constexpr int kMaxCircles = 64;   // MAX_CIRCLES in ops/kernels/steer_kernel.py
-// The boat's numbers, in the order of boat_params() in steer_kernel.py:
-// M_MASS, M_SWAY, 1 / (M_MASS, M_SWAY, I_YAW), D_LIN, D_QUAD, WRENCH_MAX.
-enum { kMass, kSway, kMinv, kDLin = kMinv + 3, kDQuad = kDLin + 3,
-       kWMax = kDQuad + 3, kParams = kWMax + 3 };
-
-// One rounding an operation, as each PyTorch op of the plain version
-// (core/steer.py) rounds: these intrinsics are never contracted into FMAs.
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-
-// a[0] + ... + a[5] in the order of PyTorch's CUDA sum over a contiguous
-// last dim of 6 (ATen/native/cuda/Reduce.cuh): 4 lanes, lane l adds a[l] and
-// a[l + 4], then a shuffle tree by offsets 2 and 1
-__device__ __forceinline__ float sum6(const float* a) {
-  return add(add(add(a[0], a[4]), a[2]), add(add(a[1], a[5]), a[3]));
-}
-
-// a - 2pi floor((a + pi) / 2pi), in [-pi, pi), as torch.remainder computes
-// the floor-mod: fmodf, then the divisor's sign (fmodf alone keeps the
-// dividend's sign and is wrong here)
-__device__ __forceinline__ float wrap_angle(float a) {
-  const float two_pi = 2.0f * CUDART_PI_F;
-  float r = fmodf(add(a, CUDART_PI_F), two_pi);
-  if (r < 0.f) r = add(r, two_pi);
-  return sub(r, CUDART_PI_F);
-}
-
-// the boat's erf: e = xgoal - x, psi wrapped
-__device__ __forceinline__ void boat_erf(const float* xgoal, const float* x,
-                                         float* e) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) e[i] = sub(xgoal[i], x[i]);
-  e[kPsi] = wrap_angle(e[kPsi]);
-}
-
-// boat.f: 3-DOF vessel, body-frame velocities, in the order of the PyTorch
-// expression
-__device__ __forceinline__ void boat_f(const float* p, const float* x,
-                                       const float* u, float* xd) {
-  const float c = cosf(x[2]), s = sinf(x[2]);
-  const float vx = x[3], vy = x[4], w = x[5];
-  xd[0] = sub(mul(c, vx), mul(s, vy));
-  xd[1] = add(mul(s, vx), mul(c, vy));
-  xd[2] = w;
-  const float cor[kM] = {mul(mul(p[kSway], vy), w),
-                         mul(mul(-p[kMass], vx), w),
-                         mul(mul(sub(p[kMass], p[kSway]), vx), vy)};
-#pragma unroll
-  for (int k = 0; k < kM; ++k) {
-    const float nu = x[3 + k];
-    const float drag = add(mul(p[kDLin + k], nu),
-                           mul(mul(p[kDQuad + k], nu), fabsf(nu)));
-    xd[3 + k] = mul(p[kMinv + k], sub(add(u[k], cor[k]), drag));
-  }
-}
-
-// ops/integrate.py rk4_step, u held over the step; hh = dt / 2, h6 = dt / 6
-__device__ __forceinline__ void boat_rk4(const float* p, const float* x,
-                                         const float* u, float hh, float h,
-                                         float h6, float* xn) {
-  float k1[kN], k2[kN], k3[kN], k4[kN], t[kN];
-  boat_f(p, x, u, k1);
-#pragma unroll
-  for (int i = 0; i < kN; ++i) t[i] = add(x[i], mul(hh, k1[i]));
-  boat_f(p, t, u, k2);
-#pragma unroll
-  for (int i = 0; i < kN; ++i) t[i] = add(x[i], mul(hh, k2[i]));
-  boat_f(p, t, u, k3);
-#pragma unroll
-  for (int i = 0; i < kN; ++i) t[i] = add(x[i], mul(h, k3[i]));
-  boat_f(p, t, u, k4);
-#pragma unroll
-  for (int i = 0; i < kN; ++i)
-    xn[i] = add(x[i], mul(h6, add(add(add(k1[i], mul(2.0f, k2[i])),
-                                      mul(2.0f, k3[i])), k4[i])));
-}
 
 // |e| <= tol: the 2-norm against a scalar (the scan's test, not the Pallas
 // kernel's sum <= tol^2), or every dim against its own
@@ -155,7 +84,11 @@ __device__ __forceinline__ bool converged(const float* e, const float* tol,
   return sqrtf(sum6(sq)) <= tol[0];
 }
 
-__global__ void steer_rollout_kernel(
+// kWide: blocks of up to 1024 threads (F1's batch_tile 1024), with the
+// registers a thread may take capped to fit them; D's blocks of up to 512
+// take the 115 the kernel needs.  The arithmetic is the same in both.
+template <bool kWide>
+__global__ void __launch_bounds__(kWide ? 1024 : 512) steer_rollout_kernel(
     const float* __restrict__ rows, const float* __restrict__ gains,
     const int* __restrict__ pids, int R, const float* __restrict__ xtar,
     const float* __restrict__ goal, const float* __restrict__ params,
@@ -174,7 +107,9 @@ __global__ void steer_rollout_kernel(
   if (b >= B) return;
 
   // the start row: b itself, or the parent pids[b]; a parent out of range
-  // gives NaN (an empty, unreached rollout), never a fault
+  // gives a NaN start and gain (with circles, an empty, unreached rollout of
+  // NaN x and u, as the plain version on the wrapper's NaN rows), never a
+  // fault
   const int r = pids != nullptr ? pids[b] : b;
   const bool valid = r >= 0 && r < R;
   const bool has_goal = gbuf != nullptr;
@@ -197,24 +132,20 @@ __global__ void steer_rollout_kernel(
   int len = 0;
   for (int step = 0; step < H; ++step) {
     float e[kN], u[kM];
-    boat_erf(tar, x, e);
+    boat::erf(tar, x, e);
     const bool arrived = converged(e, tl, per_dim);
 #pragma unroll
     for (int i = 0; i < kM; ++i) {
       float prod[kN];
 #pragma unroll
       for (int j = 0; j < kN; ++j) prod[j] = mul(K[i][j], e[j]);
-      // saturate
-      u[i] = fminf(fmaxf(sum6(prod), -p[kWMax + i]), p[kWMax + i]);
+      u[i] = sum6(prod);
     }
+    boat::saturate(p, u);
     if (!done) {
       float xn[kN];
-      boat_rk4(p, x, u, hh, h, h6, xn);
-      bool feas = true;
-      for (int k = 0; k < ncirc; ++k) {
-        const float dx = sub(cs[3 * k], xn[0]), dy = sub(cs[3 * k + 1], xn[1]);
-        feas = feas && add(mul(dx, dx), mul(dy, dy)) > cs[3 * k + 2];
-      }
+      boat::rk4_f(p, x, u, hh, h, h6, xn);
+      const bool feas = boat::circles_free(cs, ncirc, xn);
       const bool commit = !arrived && feas;
       done = arrived || !feas;
       if (commit) {
@@ -223,7 +154,7 @@ __global__ void steer_rollout_kernel(
         ++len;
         if (has_goal) {   // the first committed in-goal step ends it
           float eg[kN];
-          boat_erf(g, xn, eg);
+          boat::erf(g, xn, eg);
           bool in = true;
 #pragma unroll
           for (int i = 0; i < kN; ++i) in = in && fabsf(eg[i]) <= gb[i];
@@ -238,7 +169,7 @@ __global__ void steer_rollout_kernel(
     for (int i = 0; i < kM; ++i) us[((size_t)step * kM + i) * B + b] = u[i];
   }
   float e[kN];
-  boat_erf(tar, x, e);
+  boat::erf(tar, x, e);
   length[b] = len;
 #pragma unroll
   for (int i = 0; i < kN; ++i) xnew[(size_t)b * kN + i] = x[i];
@@ -265,7 +196,9 @@ extern "C" int lqrrt_steer_rollout(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + threads - 1) / threads);
-  steer_rollout_kernel<<<grid, threads, 0, s>>>(
+  auto kernel = threads > 512 ? steer_rollout_kernel<true>
+                               : steer_rollout_kernel<false>;
+  kernel<<<grid, threads, 0, s>>>(
       rows, gains, pids, R, xtar, goal, params, tol, gbuf, circles, ncirc, xs,
       us, length, xnew, reached, in_goal, B, H, per_dim, hh, h, h6);
   return static_cast<int>(cudaGetLastError());

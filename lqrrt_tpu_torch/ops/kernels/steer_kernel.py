@@ -1,6 +1,7 @@
 """The fused closed-loop steer rollout, kernel D (port of
 tools/steer_kernel_experimental.py: ``make_steer_pallas`` and
-``make_steer_pallas_tree``).
+``make_steer_pallas_tree``), and the factory of its double-vmap variant F1
+(tools/exp_steer_dv_v5.py: ``make_steer_pallas_dv``).
 
 Both factories build a steer that computes ``core.steer.make_steer``'s
 function and returns its ``SteerResult``, time-major: x_seq (H, n, B),
@@ -13,7 +14,13 @@ length``.
 - ``make_steer_kernel_tree(...)`` -> ``steer(states (N, n), K (N, m, n),
   pids (B,) int32, xtar (B, n)[, goal])``, which starts candidate b from
   tree row pids[b]: x0 = states[pids], K0 = K[pids]
-  (``steer.takes_tree = True``).
+  (``steer.takes_tree = True``); a pid outside [0, N) gives a NaN start
+  row and gain (``gather_rows``);
+- ``make_steer_kernel_dv(...)`` -> ``make_steer_kernel``'s steer with
+  ``batch_tile`` as the block's thread count, counted as "dv".  The Pallas
+  kernel's double vmap writes (H, n, 1, B) and squeezes it; on the card
+  that is the same memory as (H, n, B), so F1's counterpart is kernel D
+  under F1's factory.
 
 A CUDA kernel cannot trace Python callbacks, so the kernel
 (``csrc/steer_rollout.cu``) carries the model's callbacks written out as
@@ -25,9 +32,11 @@ all-true default) and raise ``NotImplementedError`` on anything else,
 whatever the device: nothing drops back to the Python loop on the card.
 
 Each steer takes the plain version (``core.steer.make_steer``; for the tree
-variant after the index gather) for CPU tensors and launches the kernel for
-CUDA tensors; there is no other path.  ``LAUNCHES`` counts the kernel's
-launches by variant ("flat", "tree"), where they happen.
+variant after ``gather_rows``) for CPU tensors and launches the kernel for
+CUDA tensors; there is no other path.  The kernel's saturation keeps NaN as
+``torch.clamp`` does, so the two give the same NaN rows.  ``LAUNCHES``
+counts the kernel's launches by variant ("flat", "tree", "dv"), where they
+happen.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ from ...core.steer import SteerResult, make_steer
 from ...models import boat
 from .nn_kernel import _launch
 
-VARIANTS = ("flat", "tree")
+VARIANTS = ("flat", "tree", "dv")
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
 MAX_CIRCLES = 64          # kMaxCircles in csrc/steer_rollout.cu
 
@@ -190,6 +199,16 @@ class _Spec:
                              f"batch, got {R} and {B}")
 
 
+def _flat_steer(spec, variant, name):
+    def steer(x0, K, xtar, goal=None):
+        spec.check(name, x0, K, xtar, goal)
+        if xtar.device.type == "cpu":
+            return spec.plain(x0, K, xtar, goal)
+        return spec.launch(x0, K, None, xtar, goal, variant)
+
+    return steer
+
+
 def make_steer_kernel(dynamics, erf, is_feasible, horizon_steps: int,
                       dt: float, error_tol, saturate=None, goal_buffer=None,
                       block: int = 64):
@@ -197,16 +216,24 @@ def make_steer_kernel(dynamics, erf, is_feasible, horizon_steps: int,
 
     ``block``: candidates (threads) a block of the kernel, a multiple of 32
     (the counterpart of the Pallas kernel's ``batch_tile``)."""
-    spec = _Spec(dynamics, erf, is_feasible, horizon_steps, dt, error_tol,
-                 saturate, goal_buffer, block)
+    return _flat_steer(_Spec(dynamics, erf, is_feasible, horizon_steps, dt,
+                             error_tol, saturate, goal_buffer, block), "flat",
+                       "steer_rollout")
 
-    def steer(x0, K, xtar, goal=None):
-        spec.check("steer_rollout", x0, K, xtar, goal)
-        if xtar.device.type == "cpu":
-            return spec.plain(x0, K, xtar, goal)
-        return spec.launch(x0, K, None, xtar, goal, "flat")
 
-    return steer
+def gather_rows(states, K, pids):
+    """(states[pids], K[pids]), with a NaN row where a pid is outside
+    [0, N): what the tree kernel reads.  A clamped index and ``torch.where``,
+    so nothing syncs with the host and no pid wraps around (a plain index
+    would read row N + pid for pid in [-N, 0))."""
+    N = states.shape[0]
+    idx = pids.long()
+    ok = (idx >= 0) & (idx < N)
+    safe = idx.clamp(0, max(N - 1, 0))
+    nan = torch.full((), float("nan"), dtype=states.dtype,
+                     device=states.device)
+    return (torch.where(ok[:, None], states[safe], nan),
+            torch.where(ok[:, None, None], K[safe], nan))
 
 
 def make_steer_kernel_tree(dynamics, erf, is_feasible, horizon_steps: int,
@@ -214,17 +241,31 @@ def make_steer_kernel_tree(dynamics, erf, is_feasible, horizon_steps: int,
                            goal_buffer=None, block: int = 64):
     """Build steer(states (N, n), K (N, m, n), pids (B,) int32, xtar (B, n)
     [, goal (n,)]): the rollout of ``make_steer_kernel`` from the parents'
-    rows, gathered inside the kernel.  pids outside [0, N) give an empty,
-    unreached rollout of NaN on the card (the plain version raises)."""
+    rows, gathered inside the kernel.  A pid outside [0, N) gives a NaN
+    start row and gain on the card and on the CPU alike: with circles, an
+    empty, unreached rollout of NaN x and u (length 0, not in the goal).
+    The JAX tree kernel's one-hot gather gives a zero start there."""
     spec = _Spec(dynamics, erf, is_feasible, horizon_steps, dt, error_tol,
                  saturate, goal_buffer, block)
 
     def steer(states, K, pids, xtar, goal=None):
         spec.check("steer_rollout_tree", states, K, xtar, goal, pids)
         if xtar.device.type == "cpu":
-            idx = pids.long()
-            return spec.plain(states[idx], K[idx], xtar, goal)
+            return spec.plain(*gather_rows(states, K, pids), xtar, goal)
         return spec.launch(states, K, pids, xtar, goal, "tree")
 
     steer.takes_tree = True
     return steer
+
+
+def make_steer_kernel_dv(dynamics, erf, is_feasible, horizon_steps: int,
+                         dt: float, error_tol, saturate=None,
+                         goal_buffer=None, batch_tile: int = 512):
+    """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal (n,)]), the
+    counterpart of ``make_steer_pallas_dv``: kernel D with ``batch_tile``
+    candidates (threads) a block, a multiple of 32 up to 1024, counted as
+    "dv".  The Pallas kernel tests sum(e * e) <= tol^2; this one keeps the
+    scan's norm (ROADMAP section 3)."""
+    return _flat_steer(_Spec(dynamics, erf, is_feasible, horizon_steps, dt,
+                             error_tol, saturate, goal_buffer, batch_tile),
+                       "dv", "steer_rollout_dv")

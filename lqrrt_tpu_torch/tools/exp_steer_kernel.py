@@ -177,6 +177,49 @@ def timed_ms(fn, dev, reps: int) -> float:
     return statistics.median(times)
 
 
+SPIN_CYCLES = 2_000_000    # ~1 ms of the card's clock: longer than a call's
+                           # dispatch on the host
+
+
+def device_ms(fn, reps: int) -> float:
+    """Median device ms of one call of ``fn`` (CUDA) over ``reps`` calls
+    after a warm-up, without the host's dispatch: before each call the
+    stream spins (``torch.cuda._sleep``) while the host enqueues the call
+    between two CUDA events, so that the events time only the call's
+    kernels.  ``timed_ms`` on the card times the dispatch too.
+
+    Each call checks that the spin outlasted the host's enqueueing: the
+    device time from the spin's start to the start event must exceed the
+    host time from before the spin to after the end event (the device
+    cannot start the spin before the host enqueues it).  Where it does
+    not, host time could leak into the events, and the call is repeated
+    with a spin twice as long; after 6 doublings it raises."""
+    fn()
+    times, cycles = [], SPIN_CYCLES
+    while len(times) < reps:
+        torch.cuda.synchronize()
+        spin, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        t0 = time.perf_counter()
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if spin.elapsed_time(start) > host_ms:
+            times.append(start.elapsed_time(end))
+        elif cycles < SPIN_CYCLES << 6:
+            cycles *= 2
+        else:
+            raise RuntimeError(
+                f"device_ms: the stream's spin ({spin.elapsed_time(start):.3f}"
+                f" ms) ended before the host enqueued the call "
+                f"({host_ms:.3f} ms)")
+    return statistics.median(times)
+
+
 def main(device: str = "cuda", B: int = 8192, N: int = 40960,
          seed: int = 0) -> dict:
     """Run the experiment; print its lines and return its numbers."""

@@ -36,7 +36,7 @@ import jax.numpy as jnp
 from lqrrt_tpu.core.steer import make_steer as jmake_steer
 from lqrrt_tpu.models import boat as jboat
 from lqrrt_tpu_torch.constraints import _all_true
-from lqrrt_tpu_torch.core.steer import make_steer
+from lqrrt_tpu_torch.core.steer import SteerResult, make_steer
 from lqrrt_tpu_torch.models import boat, car, quadrotor
 from lqrrt_tpu_torch.ops import collision
 from lqrrt_tpu_torch.ops.angles import make_erf
@@ -207,6 +207,74 @@ def test_tree_wrapper_matches_pallas_tree_interpret():
     flat = make_steer_kernel(*args, **kw)(*_t(x0, KN[pids], xtar, GOAL))
     for a, b in zip(port, flat):
         assert torch.equal(a, b)
+
+
+def _rows(res, sel):
+    """The candidates ``sel`` of a SteerResult."""
+    return SteerResult(res.x_seq[..., sel], res.u_seq[..., sel],
+                       res.mask[:, sel], res.length[sel], res.xnew[sel],
+                       res.reached[sel], res.in_goal[sel])
+
+
+def _jax_tree(states, KN, pids, xtar):
+    jargs, jkw = _jargs()
+    return tool.make_steer_pallas_tree(
+        *jargs, goal_buffer=JPROB["constraints"].goal_buffer,
+        node_block=NODE_BLOCK, interpret=True, **jkw)(
+            jnp.asarray(states), jnp.asarray(KN), jnp.asarray(pids),
+            jnp.asarray(xtar), jnp.asarray(GOAL))
+
+
+def test_tree_pids_out_of_range_give_nan_rows():
+    """Pids -1, -N, N and N + 7 give on the CPU what they give on the card:
+    a NaN start row and gain, so an empty, unreached rollout of NaN x and
+    u (length 0, not in the goal), and no pid wraps around (a pid in
+    [-N, 0) must not read row N + pid).  The other rows equal the plain
+    steer from their gathered rows, bit for bit.  The JAX tree kernel's
+    one-hot gather matches no row for such a pid and gives it a zero start
+    and gain instead: a rollout that holds x = 0 for all H steps (a
+    deliberate difference, ROADMAP section 3)."""
+    _, _, xtar, states, KN, pids = _inputs(0)
+    pids[:4] = (-1, -N, N, N + 7)
+    args, kw = _port_args()
+    port = make_steer_kernel_tree(*args, **kw)(
+        *_t(states, KN, pids, xtar, GOAL))
+    bad, good = slice(0, 4), slice(4, None)
+    rows = _rows(port, bad)
+    assert torch.equal(rows.length, torch.zeros(4, dtype=torch.int32))
+    assert not rows.reached.any() and not rows.in_goal.any()
+    for field in (rows.x_seq, rows.u_seq, rows.xnew):
+        assert field.isnan().all()
+    safe = pids.copy()
+    safe[bad] = 0
+    ref = make_steer(*args, **kw)(*_t(states[safe], KN[safe], xtar, GOAL))
+    for a, b in zip(_rows(port, good), _rows(ref, good)):
+        assert torch.equal(a, b)
+    jres = _jax_tree(states, KN, pids, xtar)
+    np.testing.assert_array_equal(np.asarray(jres.x_seq)[..., bad], 0.0)
+    np.testing.assert_array_equal(np.asarray(jres.length)[bad], H)
+
+
+def test_dead_nan_rows_drop_only_themselves():
+    """A NaN in tree rows no pid points at (one in states, one in K)
+    changes none of the port's rollouts, which gather by index.  The JAX
+    tree kernel gathers with a one-hot matmul, and 0 * NaN is NaN, so the
+    same rows poison every candidate's start (a deliberate difference,
+    ROADMAP section 3)."""
+    _, _, xtar, states, KN, pids = _inputs(0)
+    dead = np.setdiff1d(np.arange(N), pids)[:2]
+    states_nan, KN_nan = states.copy(), KN.copy()
+    states_nan[dead[0]] = np.nan
+    KN_nan[dead[1]] = np.nan
+    args, kw = _port_args()
+    steer = make_steer_kernel_tree(*args, **kw)
+    clean = steer(*_t(states, KN, pids, xtar, GOAL))
+    port = steer(*_t(states_nan, KN_nan, pids, xtar, GOAL))
+    for a, b in zip(port, clean):
+        assert torch.equal(a, b)
+    assert not port.x_seq.isnan().any()
+    jres = _jax_tree(states_nan, KN_nan, pids, xtar)
+    assert np.isnan(np.asarray(jres.x_seq)).any(axis=(0, 1)).all()
 
 
 @pytest.mark.parametrize("seed", [0, 1])
