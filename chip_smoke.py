@@ -11,10 +11,16 @@ exits non-zero:
 3. kernel A (nn_const) vs its plain PyTorch version at bench shapes, with an
    fp64 brute-force anchor, and both times (the plain version's at size
    32768 only, as for kernel C);
-4. kernel B (block_write) vs its plain version, bit for bit, and both times;
+4. kernel B (block_write) vs its plain version, bit for bit, at C = 6 and
+   3 and aligned, unaligned, negative and tail starts; both times, and the
+   kernel and ``copy_`` alone in turns with L2 cold and warm
+   (``lqrrt_tpu_torch.tools.kernel_times.time_write``);
 5. kernel C (nn_general) vs its plain version at N = 40960, B = 8192 for
    n = 4 (wrap dim 2) and n = 12 (wrap dim 5) with random SPD per-node S,
-   with an fp64 brute-force anchor, and both times;
+   with an fp64 brute-force anchor, at sizes 0 to 32768 (partial tiles,
+   node partitions with no live row); the root-pad tie (id 0, also across
+   partitions), NaN S rows inside and past size, a non-symmetric S; both
+   times, the wrapper alone and the launch alone;
 5b. kernel E (nn_expand) in each cross-term mode (fma, bf16, bf16x3) vs
    its plain version at N = 40960, B = 8192, boat S and boat-scale data,
    sizes 512 / 8704 / 32768, wrap dim 2 and unwrapped: id match, fp64
@@ -64,10 +70,13 @@ exits non-zero:
 The last two lines are a JSON object with the kernels' checks and times and
 ``{"ok": true, "device": {...}}``.  In the kernels line every ``ms``,
 ``plain_ms`` and ``library_ms`` is one clock: CUDA events around one call
-of the wrapper, the host's dispatch included (``cuda_ms``); kernels D and F
-add ``device_ms`` (and F's dicts ``*_device_ms``), the kernel alone
+of the wrapper, the host's dispatch included (``cuda_ms``); kernels B, C, D
+and F add ``device_ms`` (and F's dicts ``*_device_ms``), the kernel alone
 (``exp_steer_kernel.device_ms``: the stream spins while the host dispatches
-the call).  Without CUDA, or without the package
+the call).  B's ``device_ms`` is taken with L2 cold, beside
+``library_device_ms``, ``copy_`` alone; C's includes its fold, and
+``launch_device_ms`` is the launch without it.  Without CUDA, or without
+the package
 beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -226,8 +235,14 @@ def phase_kernel_a():
 
 
 def phase_kernel_b():
+    """Kernel B bit for bit against its plain version at C = 6 and 3, at
+    aligned starts (the planner's), unaligned ones (the scalar path), a
+    negative one and the tail; then both times with the dispatch, and
+    alone beside ``copy_`` alone, L2 cold and warm
+    (``tools.kernel_times.time_write``)."""
     from lqrrt_tpu_torch.ops.kernels.write_kernel import (block_write,
                                                           block_write_plain)
+    from lqrrt_tpu_torch.tools.kernel_times import time_write
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(5)
@@ -236,7 +251,8 @@ def phase_kernel_b():
     for C in (6, 3):
         dst0 = torch.randn((100, C, N_BENCH), generator=g, device=dev)
         src = torch.randn((100, C, B_BENCH), generator=g, device=dev)
-        for start in (512, 512 + 8192, 24576 + 512, 1000, 37000):
+        for start in (512, 512 + 8192, 24576 + 512, 1000, 37000, 0, 1001,
+                      1003, -3, N_BENCH - 2):
             a, b = dst0.clone(), dst0.clone()
             s = torch.tensor(start, dtype=torch.int32, device=dev)
             block_write(a, src, s)
@@ -256,20 +272,100 @@ def phase_kernel_b():
         # the library call: the same slice assignment at a host-side start
         library_ms = cuda_ms(
             lambda: a[..., 512 + 8192:512 + 8192 + B_BENCH].copy_(src))
+        alone = time_write(C, 20)
         log(f"kernel B block_write (100,{C},{N_BENCH}) B={B_BENCH}: "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} (slice copy_)")
-        timing[C] = (ms, plain_ms, library_ms)
-    return dict(max_abs_err=max_err, ms=timing[6][0], plain_ms=timing[6][1],
-                library_ms=timing[6][2])
+            f"library_ms={library_ms:.4f} (slice copy_); alone, "
+            + "; ".join(f"L2 {k}: kernel {alone[k]['kernel_ms']:.4f} "
+                        f"copy_ {alone[k]['copy_ms']:.4f}"
+                        for k in ("cold", "cold_clean", "warm")))
+        timing[C] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         alone=alone)
+    t6 = timing[6]
+    return dict(max_abs_err=max_err, ms=t6["ms"], plain_ms=t6["plain_ms"],
+                library_ms=t6["library_ms"],
+                device_ms=t6["alone"]["cold"]["kernel_ms"],
+                library_device_ms=t6["alone"]["cold"]["copy_ms"],
+                alone={C: {k: t["alone"][k]
+                           for k in ("cold", "cold_clean", "warm")}
+                       for C, t in timing.items()})
 
 
-def phase_kernel_c():
+C_SIZES = (0, 1, 33, 512, 4097, 8704, 32767, 32768)
+
+
+def check_nn_general(label, states, S, xr, size, wrap, dead=None,
+                     timed=False):
+    """Kernel C against its plain version and an fp64 brute-force anchor
+    on 256 candidates at one size; ``dead`` marks rows that must never be
+    picked (NaN S), left out of the anchor; ``timed`` adds the wrapper's
+    time with its dispatch to the line.  Raises on a disagreement;
+    returns (the kernel's ids, id_match, max |cost| error)."""
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import (nn_general,
                                                        nn_general_plain)
 
+    dev = states.device
+    sz = torch.tensor(size, dtype=torch.int32, device=dev)
+    ik, ck = nn_general(states, S, sz, xr, wrap_dim=wrap)
+    ip, cp = nn_general_plain(states, S, sz, xr, wrap_dim=wrap)
+    torch.cuda.synchronize()
+    id_match = (ik == ip).double().mean().item()
+    if size == 0:
+        ok = bool((ik == 0).all() and torch.isinf(ck).all() and (ck > 0).all()
+                  and torch.equal(ik, ip) and torch.equal(ck, cp))
+        log(f"kernel C nn_general {label} size=0: (0, +inf) everywhere={ok}")
+        if not ok:
+            raise AssertionError(f"kernel C {label}: size 0 is not (0, inf)")
+        return ik, id_match, 0.0
+    st64, xr64, S64 = states.double(), xr.double(), S.double()
+    anchor = torch.arange(0, len(xr), max(len(xr) // 256, 1),
+                          device=dev)[:256]
+    c_k = wrapped_cost64(xr64, st64[ik.long()], S64[ik.long()], wrap)
+    c_p = wrapped_cost64(xr64, st64[ip.long()], S64[ip.long()], wrap)
+    excess = rel_excess(c_k, c_p)
+    c_star = torch.full((len(anchor),), math.inf, dtype=torch.float64,
+                        device=dev)
+    for j0 in range(0, size, 2048):
+        j1 = min(j0 + 2048, size)
+        c = wrapped_cost64(xr64[anchor, None, :], st64[None, j0:j1],
+                           S64[None, j0:j1], wrap)
+        if dead is not None:
+            c = torch.where(dead[None, j0:j1], math.inf, c)
+        c_star = torch.minimum(c_star, c.min(dim=1).values)
+    anchor_k = rel_excess(c_k[anchor], c_star)
+    anchor_p = rel_excess(c_p[anchor], c_star)
+    max_err = (ck - cp).abs().max().item()
+    max_rel = ((ck - cp).abs() / cp.abs().clamp(min=1e-6)).max().item()
+    ms = cuda_ms(lambda: nn_general(states, S, sz, xr, wrap_dim=wrap)) \
+        if timed else None
+    picks_ok = bool((ik >= 0).all() and (ik < size).all())
+    if dead is not None:
+        picks_ok = picks_ok and not bool(dead[ik.long()].any())
+    log(f"kernel C nn_general {label} size={size}: id_match={id_match:.6f} "
+        f"fp64_excess={excess:.3e} anchor_kernel={anchor_k:.3e} "
+        f"anchor_plain={anchor_p:.3e} max_abs_cost_err={max_err:.3e} "
+        f"max_rel_cost_err={max_rel:.3e}"
+        + (f" kernel_ms={ms:.4f}" if ms is not None else ""))
+    if not (picks_ok and excess <= TOL_EXCESS and anchor_k <= TOL_EXCESS
+            and anchor_p <= TOL_EXCESS):
+        raise AssertionError(f"kernel C disagrees: {label}, size={size}")
+    return ik, id_match, max_err
+
+
+def phase_kernel_c():
+    """Kernel C at N = 40960, B = 8192, n = 4 (wrap dim 2) and n = 12 (wrap
+    dim 5) with random SPD S_j, at every size of C_SIZES (partial tiles,
+    partitions with no live row, size 0); then the root-pad tie, NaN S rows
+    inside and past size, and a non-symmetric S at size 32768; then the
+    times: the wrapper with its dispatch, alone (``device_ms``, the fold
+    included) and the launch alone on folded rows."""
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import (
+        EMPTY_KEY, _launch, nn_general, nn_general_fold, nn_general_plain)
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import device_ms
+
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(7)
+    g_skew = torch.Generator(device=dev).manual_seed(11)
     out = {}
     for n, wrap in ((4, 2), (12, 5)):
         scale = torch.full((n,), 10.0, device=dev)
@@ -280,47 +376,62 @@ def phase_kernel_c():
             * scale
         A = torch.randn((N_BENCH, n, n), generator=g, device=dev) * 0.5
         S = A @ A.mT + 0.1 * torch.eye(n, device=dev)
-        st64, xr64, S64 = states.double(), xr.double(), S.double()
-        anchor = torch.arange(0, B_BENCH, B_BENCH // 256, device=dev)[:256]
-        for size in SIZES:
-            sz = torch.tensor(size, dtype=torch.int32, device=dev)
-            ik, ck = nn_general(states, S, sz, xr, wrap_dim=wrap)
-            ip, cp = nn_general_plain(states, S, sz, xr, wrap_dim=wrap)
-            torch.cuda.synchronize()
-            id_match = (ik == ip).double().mean().item()
-            c_k = wrapped_cost64(xr64, st64[ik.long()], S64[ik.long()], wrap)
-            c_p = wrapped_cost64(xr64, st64[ip.long()], S64[ip.long()], wrap)
-            excess = rel_excess(c_k, c_p)
-            c_star = torch.full((256,), math.inf, dtype=torch.float64,
-                                device=dev)
-            for j0 in range(0, size, 2048):
-                j1 = min(j0 + 2048, size)
-                c = wrapped_cost64(xr64[anchor, None, :], st64[None, j0:j1],
-                                   S64[None, j0:j1], wrap)
-                c_star = torch.minimum(c_star, c.min(dim=1).values)
-            anchor_k = rel_excess(c_k[anchor], c_star)
-            anchor_p = rel_excess(c_p[anchor], c_star)
-            max_err = (ck - cp).abs().max().item()
-            max_rel = ((ck - cp).abs() / cp.abs().clamp(min=1e-6)).max().item()
-            ms = cuda_ms(lambda: nn_general(states, S, sz, xr, wrap_dim=wrap))
-            # the plain version is timed at the top size only (script time)
-            plain_ms = cuda_ms(
-                lambda: nn_general_plain(states, S, sz, xr, wrap_dim=wrap),
-                reps=5) if size == SIZES[-1] else None
-            live_ids_ok = bool((ik < size).all().item())
-            log(f"kernel C nn_general n={n} wrap={wrap} size={size}: "
-                f"id_match={id_match:.6f} fp64_excess={excess:.3e} "
-                f"anchor_kernel={anchor_k:.3e} anchor_plain={anchor_p:.3e} "
-                f"max_abs_cost_err={max_err:.3e} "
-                f"max_rel_cost_err={max_rel:.3e} kernel_ms={ms:.4f}"
-                + (f" plain_ms={plain_ms:.4f}" if plain_ms is not None
-                   else ""))
-            if not (live_ids_ok and excess <= TOL_EXCESS
-                    and anchor_k <= TOL_EXCESS and anchor_p <= TOL_EXCESS):
-                raise AssertionError(f"kernel C disagrees at n={n}, "
-                                     f"size={size}")
-            out[(n, size)] = dict(max_abs_err=max_err, ms=ms,
-                                  plain_ms=plain_ms)
+        match, max_err = {}, 0.0
+        for size in C_SIZES:
+            _, match[size], err = check_nn_general(
+                f"n={n} wrap={wrap}", states, S, xr, size, wrap, timed=True)
+            max_err = max(max_err, err)
+        size = C_SIZES[-1]
+        # root pad: rows 1..511 copy row 0 and must lose to it, also where
+        # they span several node partitions (size 1024)
+        st_p, S_p = states.clone(), S.clone()
+        st_p[1:512] = st_p[0]
+        S_p[1:512] = S_p[0]
+        xr_p = xr.clone()
+        xr_p[:64] = st_p[0] + 0.01 * xr_p[:64] / scale
+        for sz_p in (1024, size):
+            ik, _, _ = check_nn_general(f"n={n} root pad", st_p, S_p, xr_p,
+                                        sz_p, wrap)
+            root = ik[:64]
+            if not bool((root == 0).all()):
+                raise AssertionError(f"kernel C n={n}: root-pad ties picked "
+                                     f"{root.unique().tolist()}, not row 0")
+            log(f"kernel C nn_general n={n} root pad size={sz_p}: the 64 "
+                "candidates by row 0 all pick id 0")
+        # NaN S rows inside and past size drop only themselves
+        S_nan, st_nan = S.clone(), states.clone()
+        dead = torch.zeros(N_BENCH, dtype=torch.bool, device=dev)
+        dead[::97] = True
+        S_nan[dead] = math.nan
+        st_nan[size + 5:] = math.nan
+        check_nn_general(f"n={n} NaN rows", st_nan, S_nan, xr, size, wrap,
+                         dead=dead[:size])
+        # a non-symmetric S: its skew part adds nothing to e' S e
+        K = torch.randn((N_BENCH, n, n), generator=g_skew, device=dev) \
+            * 0.5
+        check_nn_general(f"n={n} non-symmetric S", states, S + K - K.mT,
+                         xr, size, wrap)
+
+        sz = torch.tensor(size, dtype=torch.int32, device=dev)
+        ms = cuda_ms(lambda: nn_general(states, S, sz, xr, wrap_dim=wrap))
+        plain_ms = cuda_ms(
+            lambda: nn_general_plain(states, S, sz, xr, wrap_dim=wrap),
+            reps=5)
+        alone = device_ms(lambda: nn_general(states, S, sz, xr, wrap), 20)
+        rows, perm = nn_general_fold(states, S, wrap)
+        xr_perm = xr.index_select(1, perm).contiguous()
+        keys = torch.full((B_BENCH,), EMPTY_KEY, dtype=torch.int64,
+                          device=dev)
+        launch = device_ms(lambda: _launch(
+            "lqrrt_nn_general", rows, xr_perm, sz, keys, N_BENCH, B_BENCH,
+            n, 1), 20)
+        log(f"kernel C nn_general n={n} size={size}: kernel_ms={ms:.4f} "
+            f"device_ms={alone:.4f} (alone, the fold included) "
+            f"launch_device_ms={launch:.4f} plain_ms={plain_ms:.4f} "
+            f"id_match by size {match}")
+        out[n] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                      device_ms=alone, launch_device_ms=launch,
+                      id_match=match)
     return out
 
 
@@ -1386,7 +1497,7 @@ def main() -> int:
     e_replaces = {"fma": "tools/exp_nn_hybrid_v5.py:214",
                   "bf16": "tools/exp_nn_hybrid_v5.py:82",
                   "bf16x3": "tools/exp_nn_hybrid_v5.py:341"}
-    cq = c[(12, 32768)]
+    cq = c[12]
     kernels = [
         dict(name="nn_const", route="cuda",
              source="lqrrt_tpu_torch/csrc/nn_const.cu",
@@ -1400,15 +1511,20 @@ def main() -> int:
              replaces="lqrrt_tpu/ops/pallas/write_kernel.py:26",
              launches=sum(l["block_write"] for l in (l_boat, l_car, l_quad)),
              max_abs_err=b["max_abs_err"], ms=b["ms"],
-             plain_ms=b["plain_ms"], bound_ms=b_bound[0],
-             bound_by=b_bound[1], library_ms=b["library_ms"]),
+             device_ms=b["device_ms"], plain_ms=b["plain_ms"],
+             bound_ms=b_bound[0], bound_by=b_bound[1],
+             library_ms=b["library_ms"],
+             library_device_ms=b["library_device_ms"], alone=b["alone"]),
         dict(name="nn_general", route="cuda",
              source="lqrrt_tpu_torch/csrc/nn_general.cu",
              replaces="lqrrt_tpu/ops/pallas/nn_kernel.py:177",
              launches=l_car["nn_general"] + l_quad["nn_general"],
              max_abs_err=max(v["max_abs_err"] for v in c.values()),
-             ms=cq["ms"], plain_ms=cq["plain_ms"], bound_ms=c_bound[0],
-             bound_by=c_bound[1], library_ms=None),
+             ms=cq["ms"], device_ms=cq["device_ms"],
+             launch_device_ms=cq["launch_device_ms"],
+             device_ms_n4=c[4]["device_ms"], plain_ms=cq["plain_ms"],
+             bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
+             id_match={f"n={n}": v["id_match"] for n, v in c.items()}),
     ]
     for mode, flops in e_flops.items():
         eb = bound({k: pairs * f for k, f in flops.items()},

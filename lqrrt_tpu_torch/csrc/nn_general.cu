@@ -6,160 +6,340 @@
 // (1 + n + n^2 lanes) so that the (B x N) cost matrix became one MXU matmul;
 // the expansion cancels for near nodes (hence Precision.HIGHEST and the
 // centring) and its wrap correction assumed a symmetric S.  This kernel
-// evaluates the metric directly: e_k = x_jk - r_bk, the wrapped dim a
-// shifted by -2pi rint(e_a / 2pi), q = S_j e, cost = e . q, in fp32 FMAs
-// with the full S_j -- exact for any S, like the plain scan.  No tensor
-// cores: TF32 would lose the argmin.
+// evaluates the metric directly in fp32 FMAs on the CUDA cores: TF32 would
+// lose the argmin.
 //
-// Bound: about B * size * (n^2 + 2n) FMAs -- 45 G at the quadrotor's n = 12
-// with B = 8192 and size = 32768, 6 G for the car's n = 4 -- against
-// size * (n^2 + n) * 4 bytes of node data (20 MB at n = 12), which every
-// block re-reads from L2.  So it is compute-bound on the fp32 CUDA cores
-// and on the shared-memory loads that feed them.  Design: a block owns 32
-// candidates (r_b in registers, one per lane) and kGroups warps.  It stages
-// a tile of node rows (S_j, x_j) in shared memory, and warp w scans the
-// tile's rows j = w, w + kGroups, ...: all lanes of a warp read the same
-// row, so every shared load is a broadcast, and S_j is read as float4.  The
-// kGroups warps give the SMs kGroups times the warps that one thread per
-// candidate alone would (B = 8192 is 256 warps for 132 SMs).  Each warp keeps
-// a running (min, argmin) with a strict '<' over increasing j; the groups
-// merge at the end by (cost, index), so the lowest index wins ties as in a
-// sequential scan -- the root-pad rows 1..root_pad-1 copy row 0 and must
-// lose to it.  Dead rows are skipped by index (j < size, read from device
-// memory).  A non-finite cost never wins and drops only its own row.
+// Input, folded by the wrapper in plain PyTorch (``nn_general_fold``), as
+// the JAX kernel builds its node features outside the pallas_call: one
+// packed row a node, [x_j (n), U_j (n(n+1)/2), zero pad to a multiple of 4
+// floats], with U_j the upper triangle of S_j's symmetric part (U_ii = S_ii,
+// U_ik = S_ik + S_ki for i < k, row-major) and the state dims permuted so
+// that the wrapped dim comes first.  Then e' S_j e = sum_i e_i t_i with
+// t_i = sum_{k >= i} U_ik e_k: exact algebra for any S, n(n+1)/2 + n FMAs a
+// pair (90 at n = 12) against n^2 + n for the full S_j.
+//
+// Bound: B * size pairs of 196 fp32 flops at n = 12 (n sub, the wrap, the
+// folded form counted as in chip_smoke.py): 0.785 ms at B = 8192, size
+// 32768 on the H100's 67 TFLOP/s (data sheet, 700 W).  It is bound by the
+// instruction rate: every FMA, every shared load and every compare takes
+// one of the SM's four instruction slots a cycle.  Design:
+// - Grid (candidate tiles) x (node partitions), sized so that the blocks
+//   fill the SMs in one wave; each block derives its row range, a slice of
+//   [0, size), from ``*size`` on the device.
+// - Register blocking: a thread holds kCands candidates (r, e, t in
+//   registers), so each broadcast 16-byte shared load of a packed row feeds
+//   4 * kCands FMAs.
+// - Asynchronous staging: a ring of kStages tiles in dynamic shared memory,
+//   each filled by one 1-D bulk copy (cp.async.bulk, the TMA's linear form:
+//   a partition's packed rows are contiguous) that completes on an
+//   mbarrier, so the next tiles land while this one is scanned.
+// - The merge: each thread keeps a running (min, argmin) with a strict '<'
+//   over increasing j and merges it with one 64-bit atomicMin on the key
+//   (order-preserving int32 of cost + 0.0f) << 32 | j, so the lowest cost
+//   wins and a tie goes to the lowest index, as in a sequential scan (the
+//   root-pad rows 1..root_pad-1 copy row 0 and must lose to it).  The
+//   wrapper fills the keys with (+inf, 0) before the launch and unpacks
+//   them after it; no host sync.  A non-finite cost (NaN, +-inf) never
+//   enters the merge and drops only its own row; dead rows (j >= size) are
+//   never read.
+// - Every index into the register arrays is a compile-time constant (the
+//   row's layout is unrolled from an integer sequence), so nothing spills.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+#include <utility>
+
 namespace {
 
-constexpr int kLanes = 32;            // candidates per block
-constexpr int kGroups = 4;            // warps per block, one row group each
-constexpr int kThreads = kLanes * kGroups;
-constexpr int kTileBytes = 40 * 1024; // static shared memory for the tile
-// n is a template argument (r_b, e and q live in registers); 16 covers
-// every model of the package (boat 6, car 4, quadrotor 12)
+constexpr int kThreads = 128;
+constexpr int kStages = 3;
+constexpr int kTileBytesTarget = 12 * 1024;
+// n is a template argument; 16 covers every model of the package (boat 6,
+// car 4, quadrotor 12)
 constexpr int kMaxStates = 16;
 
 template <int NS>
-struct Layout {
-  static constexpr int kSP = (NS * NS + 3) / 4 * 4;  // S_j floats, float4-padded
-  static constexpr int kXP = (NS + 3) / 4 * 4;       // x_j floats, float4-padded
-  static constexpr int kRow = kSP + kXP;             // floats per staged row
-  static constexpr int kFit = kTileBytes / (4 * kRow);
-  static constexpr int kRows = (kFit > 256 ? 256 : kFit) / kGroups * kGroups;
+struct Cfg {
+  static constexpr int kCands = NS <= 8 ? 4 : 2;       // candidates a thread
+  static constexpr int kTri = NS * (NS + 1) / 2;
+  static constexpr int kRow = (NS + kTri + 3) / 4 * 4; // floats a packed row
+  static constexpr int kTileRows = kTileBytesTarget / (4 * kRow) / 4 * 4;
+  static constexpr int kTileBytes = kTileRows * kRow * 4;
+  static constexpr int kBlockCands = kThreads * kCands;
+  static constexpr int kSmem = kStages * kTileBytes + kStages * 8;
 };
 
-template <int NS>
-__global__ void __launch_bounds__(kThreads)
-nn_general_kernel(const float* __restrict__ states,  // (N, NS)
-                  const float* __restrict__ S,       // (N, NS, NS)
-                  const float* __restrict__ xrand,   // (B, NS)
-                  const int* __restrict__ size_ptr,
-                  int* __restrict__ ids, float* __restrict__ cost,
-                  int N, int B, int wrap) {
-  using L = Layout<NS>;
-  static_assert(NS >= 1 && NS <= kMaxStates, "state dimension out of range");
-  static_assert(L::kRows >= kGroups, "tile holds too few rows");
-  __shared__ __align__(16) float tile[L::kRows * L::kRow];
-  __shared__ float group_cost[kGroups][kLanes];
-  __shared__ int group_id[kGroups][kLanes];
+// (row, column) of the p-th entry of the row-major upper triangle of n x n
+__host__ __device__ constexpr int tri_row(int p, int n) {
+  int i = 0;
+  while (p >= n - i) p -= n - i++;
+  return i;
+}
+__host__ __device__ constexpr int tri_col(int p, int n) {
+  int i = 0;
+  while (p >= n - i) p -= n - i++;
+  return i + p;
+}
 
-  const int lane = threadIdx.x % kLanes;
-  const int group = threadIdx.x / kLanes;
-  const int b = blockIdx.x * kLanes + lane;
-  const bool active = b < B;
-  int size = *size_ptr;
-  size = size < 0 ? 0 : (size > N ? N : size);
+template <class Fn, int... Fs>
+__device__ __forceinline__ void unroll_seq(Fn& fn,
+                                           std::integer_sequence<int, Fs...>) {
+  (fn(std::integral_constant<int, Fs>{}), ...);
+}
 
-  float r[NS];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) r[k] = active ? xrand[(size_t)b * NS + k] : 0.f;
+// fn(std::integral_constant<int, f>) for f = 0 .. N-1, in order
+template <int N, class Fn>
+__device__ __forceinline__ void unroll(Fn&& fn) {
+  unroll_seq(fn, std::make_integer_sequence<int, N>{});
+}
+
+template <int K>
+__device__ __forceinline__ float lane(const float4& v) {
+  if constexpr (K == 0) return v.x;
+  else if constexpr (K == 1) return v.y;
+  else if constexpr (K == 2) return v.z;
+  else return v.w;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// one 1-D bulk copy global -> shared, completing on ``bar``; bytes and
+// both addresses are multiples of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// order the threads' reads of a slot (generic proxy) before the bulk copy
+// (async proxy) that overwrites it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// (order-preserving int32 of cost + 0.0f) << 32 | id: signed 64-bit order
+// is (cost, id) order; -0.0 and +0.0 tie, as floats do
+__device__ __forceinline__ long long pack_key(float cost, int id) {
+  const int bits = __float_as_int(__fadd_rn(cost, 0.0f));
+  const int ord = bits ^ ((bits >> 31) & 0x7fffffff);
+  return static_cast<long long>(
+      (static_cast<unsigned long long>(static_cast<uint32_t>(ord)) << 32) |
+      static_cast<uint32_t>(id));
+}
+
+// acc[c] = e' S_j e for the kC candidates r[c] against one packed row
+template <int NS, bool WRAP, int kC>
+__device__ __forceinline__ void row_costs(const float4* __restrict__ row,
+                                          const float (&r)[kC][NS],
+                                          float (&acc)[kC]) {
+  using C = Cfg<NS>;
   const float two_pi = 2.0f * CUDART_PI_F;
   const float inv_two_pi = 1.0f / two_pi;
-
-  float best = CUDART_INF_F;
-  int best_id = 0;
-  for (int t0 = 0; t0 < size; t0 += L::kRows) {
-    const int rows = min(L::kRows, size - t0);
-    __syncthreads();   // the previous tile is no longer being read
-    for (int i = threadIdx.x; i < rows * NS * NS; i += kThreads) {
-      const int row = i / (NS * NS);
-      tile[row * L::kRow + (i - row * NS * NS)] = S[(size_t)t0 * NS * NS + i];
-    }
-    for (int i = threadIdx.x; i < rows * NS; i += kThreads) {
-      const int row = i / NS;
-      tile[row * L::kRow + L::kSP + (i - row * NS)] = states[(size_t)t0 * NS + i];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = group; j < rows; j += kGroups) {
-      const float4* row = reinterpret_cast<const float4*>(tile + j * L::kRow);
-      float e[NS], q[NS];
+  float e[kC][NS];
+  float t[kC];
+  float4 v;
+  unroll<C::kRow>([&](auto fc) {
+    constexpr int f = decltype(fc)::value;
+    if constexpr (f % 4 == 0) v = row[f / 4];
+    const float w = lane<f % 4>(v);
+    if constexpr (f < NS) {            // x_j, f: e = x_j - r_b
 #pragma unroll
-      for (int c = 0; c < L::kXP / 4; ++c) {
-        const float4 v = row[L::kSP / 4 + c];
-        const float w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          if (4 * c + t < NS) e[4 * c + t] = w[t] - r[4 * c + t];
+      for (int c = 0; c < kC; ++c) {
+        float d = w - r[c][f];
+        if constexpr (WRAP && f == 0)  // the wrapped dim comes first
+          d -= two_pi * rintf(d * inv_two_pi);
+        e[c][f] = d;
       }
+    } else if constexpr (f < NS + C::kTri) {   // U_ik, row-major
+      constexpr int i = tri_row(f - NS, NS);
+      constexpr int k = tri_col(f - NS, NS);
 #pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        if (k == wrap) e[k] -= two_pi * rintf(e[k] * inv_two_pi);
-        q[k] = 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < L::kSP / 4; ++c) {
-        const float4 v = row[c];
-        const float w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int f = 4 * c + t;   // flat index into S_j, row-major
-          if (f < NS * NS) q[f / NS] = fmaf(w[t], e[f % NS], q[f / NS]);
+      for (int c = 0; c < kC; ++c) {
+        if constexpr (k == i) t[c] = w * e[c][k];
+        else t[c] = fmaf(w, e[c][k], t[c]);
+        if constexpr (k == NS - 1) {
+          if constexpr (i == 0) acc[c] = e[c][0] * t[c];
+          else acc[c] = fmaf(e[c][i], t[c], acc[c]);
         }
       }
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < NS; ++k) acc = fmaf(e[k], q[k], acc);
-      // NaN and -inf fail one of the two tests: a non-finite cost never wins
-      if (acc < best && acc > -CUDART_INF_F) {
-        best = acc;
-        best_id = t0 + j;
-      }
     }
+  });
+}
+
+template <int NS, bool WRAP>
+__global__ void __launch_bounds__(kThreads)
+nn_general_kernel(const float* __restrict__ rows,  // (N, kRow) packed
+                  const float* __restrict__ xr,    // (B, NS), wrap dim first
+                  const int* __restrict__ size_ptr,
+                  long long* __restrict__ keys, int N, int B) {
+  using C = Cfg<NS>;
+  constexpr int kC = C::kCands;
+  static_assert(NS >= 1 && NS <= kMaxStates, "state dimension out of range");
+  static_assert(C::kTileRows >= 4, "a tile holds too few rows");
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* tiles = reinterpret_cast<float*>(smem);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kStages * C::kTileBytes);
+
+  // this block's slice of the live rows, from the device-side size
+  int size = __ldg(size_ptr);
+  size = size < 0 ? 0 : (size > N ? N : size);
+  const int parts = gridDim.y;
+  const int per = ((size + parts - 1) / parts + 3) / 4 * 4;
+  const int lo = blockIdx.y * per;
+  const int hi = min(lo + per, size);
+  if (lo >= hi) return;   // the whole block: no live row in its slice
+  const int n_tiles = (hi - lo + C::kTileRows - 1) / C::kTileRows;
+
+  auto fetch = [&](int t) {
+    const int r0 = lo + t * C::kTileRows;
+    const int nr = min(C::kTileRows, hi - r0);
+    const uint32_t bytes = static_cast<uint32_t>(nr) * C::kRow * 4;
+    uint64_t* bar = full + t % kStages;
+    mbar_expect_tx(bar, bytes);
+    bulk_load(tiles + (t % kStages) * C::kTileRows * C::kRow,
+              rows + static_cast<size_t>(r0) * C::kRow, bytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
+    mbar_fence_init();
   }
-  group_cost[group][lane] = best;
-  group_id[group][lane] = best_id;
   __syncthreads();
-  if (group == 0 && active) {
+  if (threadIdx.x == 0)
+    for (int t = 0; t < kStages && t < n_tiles; ++t) fetch(t);
+
+  const int b0 = blockIdx.x * C::kBlockCands + threadIdx.x;
+  float r[kC][NS];
+  float best[kC];
+  int best_id[kC];
 #pragma unroll
-    for (int g = 1; g < kGroups; ++g) {
-      const float c = group_cost[g][lane];
-      const int id = group_id[g][lane];
-      if (c < best || (c == best && id < best_id)) {
-        best = c;
-        best_id = id;
+  for (int c = 0; c < kC; ++c) {
+    const int b = b0 + c * kThreads;
+#pragma unroll
+    for (int k = 0; k < NS; ++k)
+      r[c][k] = b < B ? xr[static_cast<size_t>(b) * NS + k] : 0.f;
+    best[c] = CUDART_INF_F;
+    best_id[c] = 0;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int slot = t % kStages;
+    mbar_wait(full + slot, (t / kStages) & 1);
+    const float4* tile = reinterpret_cast<const float4*>(
+        tiles + slot * C::kTileRows * C::kRow);
+    const int r0 = lo + t * C::kTileRows;
+    const int nr = min(C::kTileRows, hi - r0);
+    for (int j = 0; j < nr; ++j) {
+      float acc[kC];
+      row_costs<NS, WRAP>(tile + j * (C::kRow / 4), r, acc);
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        // NaN and -inf fail one of the two tests: never a winner
+        if (acc[c] < best[c] && acc[c] > -CUDART_INF_F) {
+          best[c] = acc[c];
+          best_id[c] = r0 + j;
+        }
       }
     }
-    ids[b] = best_id;
-    cost[b] = best;
+    __syncthreads();   // every thread is done reading this slot
+    if (threadIdx.x == 0 && t + kStages < n_tiles) {
+      fence_proxy_async();
+      fetch(t + kStages);
+    }
   }
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const int b = b0 + c * kThreads;
+    if (b < B && best[c] < CUDART_INF_F)
+      atomicMin(keys + b, pack_key(best[c], best_id[c]));
+  }
+}
+
+// SMs x resident blocks of the instance on the current device, asked of the
+// runtime once a device (the launch is on the planner's hot path)
+template <int NS, bool WRAP>
+int resident_blocks() {
+  constexpr int kDevices = 64;
+  static int cached[kDevices] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  const bool keep = device >= 0 && device < kDevices;
+  if (keep && cached[device] > 0) return cached[device];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, nn_general_kernel<NS, WRAP>, kThreads, Cfg<NS>::kSmem);
+  const int blocks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  if (keep) cached[device] = blocks;
+  return blocks;
+}
+
+template <int NS, bool WRAP>
+int launch(const float* rows, const float* xr, const int* size,
+           long long* keys, int N, int B, cudaStream_t s) {
+  using C = Cfg<NS>;
+  // the ring fits the 48 KB a launch gets without cudaFuncSetAttribute
+  static_assert(C::kSmem <= 48 * 1024, "the tile ring is too large");
+  // as many node partitions as fill the SMs in one wave, and no more than
+  // the buffer has tiles of rows
+  const int cand_tiles = (B + C::kBlockCands - 1) / C::kBlockCands;
+  int parts = resident_blocks<NS, WRAP>() / cand_tiles;
+  const int max_parts = (N + C::kTileRows - 1) / C::kTileRows;
+  parts = parts < 1 ? 1 : (parts > max_parts ? max_parts : parts);
+  parts = parts > 65535 ? 65535 : parts;
+  const dim3 grid(cand_tiles, parts);
+  nn_general_kernel<NS, WRAP><<<grid, kThreads, C::kSmem, s>>>(
+      rows, xr, size, keys, N, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define LQRRT_NN_GENERAL_CASE(NS)                                          \
-  case NS:                                                                 \
-    nn_general_kernel<NS><<<grid, kThreads, 0, s>>>(states, S, xrand, size, \
-                                                    ids, cost, N, B, wrap); \
-    break;
+#define LQRRT_NN_GENERAL_CASE(NS)                                         \
+  case NS:                                                                \
+    return wrap ? launch<NS, true>(rows, xr, size, keys, N, B, s)         \
+                : launch<NS, false>(rows, xr, size, keys, N, B, s);
 
-extern "C" int lqrrt_nn_general(const float* states, const float* S,
-                                const float* xrand, const int* size, int* ids,
-                                float* cost, int N, int B, int n, int wrap,
-                                void* stream) {
+// rows (N, kRow) from nn_general_fold, xr (B, n) permuted as rows' x_j,
+// keys (B,) filled with the key of (+inf, 0); wrap: the first dim is an
+// angle
+extern "C" int lqrrt_nn_general(const float* rows, const float* xr,
+                                const int* size, long long* keys, int N,
+                                int B, int n, int wrap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + kLanes - 1) / kLanes);
+  if (N < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (n) {
     LQRRT_NN_GENERAL_CASE(1) LQRRT_NN_GENERAL_CASE(2)
     LQRRT_NN_GENERAL_CASE(3) LQRRT_NN_GENERAL_CASE(4)
@@ -172,5 +352,4 @@ extern "C" int lqrrt_nn_general(const float* states, const float* S,
     default:
       return static_cast<int>(cudaErrorInvalidValue);  // n > kMaxStates
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -22,9 +22,10 @@ _DTYPES = dict(parent=np.int32, edge_len=np.int32, n_children=np.int32,
                size=np.int32, in_goal=np.bool_, goal_found=np.bool_)
 
 
-def tree_from_numpy(tree, device="cpu") -> TreeArrays:
+def tree_from_numpy(tree, device="cuda") -> TreeArrays:
     """A tree with TreeArrays' field names (a NamedTuple or a dict of
-    arrays) -> port TreeArrays on ``device``."""
+    arrays) -> port TreeArrays on ``device``: the card unless the caller
+    asks for the CPU, as ``Planner``."""
     d = tree if isinstance(tree, dict) else tree._asdict()
     out = {}
     for f in TreeArrays._fields:

@@ -14,8 +14,14 @@ The distance and the argmin are the kernel (``csrc/nn_const.cu``):
 ``cost = |z_j - w_b - k c|^2`` with ``k = rint((x_a - r_a) / 2pi)`` and
 ``c = 2pi L[a, :]``.
 
-``nn_general``: no prep; the kernel (``csrc/nn_general.cu``) evaluates
-e' S_j e with e = x_j - r_b and e_a -= 2pi rint(e_a / 2pi) directly.
+``nn_general``: the prep folds each S_j into the upper triangle U_j of its
+symmetric part (``nn_general_fold``: U_ii = S_ii, U_ik = S_ik + S_ki for
+i < k) and packs it with x_j into one row a node, the wrapped dim moved
+first; the kernel (``csrc/nn_general.cu``) evaluates e' S_j e =
+sum_i e_i sum_{k >= i} U_ik e_k with e = x_j - r_b and e_a -= 2pi
+rint(e_a / 2pi).  Its blocks merge their partial argmins with one 64-bit
+``atomicMin`` a candidate on ``pack_keys``' keys, which ``unpack_keys``
+turns back into (ids, cost).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and its kernel
 for CUDA tensors; there is no other path.  Each header says what bounds the
@@ -124,6 +130,84 @@ def nn_general_dist(states, S, xrand, wrap_dim: Optional[int]):
     return (e * q).sum(-1)
 
 
+_FOLD_INDEX = {}
+
+
+def _fold_index(n: int, wrap_dim: Optional[int], device):
+    """(ia, ib, perm): for each column f of a packed row, the two columns
+    of [states | S flattened | 0] whose sum it is (the zero column z for a
+    term that is not there), and the permutation of the state dims.  Made
+    on ``device`` from device ops (no copy from the host) and memoised."""
+    key = (n, wrap_dim, str(device))
+    if key not in _FOLD_INDEX:
+        perm = torch.arange(n, device=device)
+        if wrap_dim is not None:
+            a = wrap_dim % n
+            perm = torch.cat([perm[a:a + 1], perm[:a], perm[a + 1:]])
+        i, k = torch.triu_indices(n, n, device=device)
+        pi, pk = perm.index_select(0, i), perm.index_select(0, k)
+        z = n + n * n
+        pad = torch.full((-(n + i.numel()) % 4,), z, device=device)
+        ia = torch.cat([perm, n + pi * n + pk, pad])
+        ib = torch.cat([torch.full((n,), z, device=device),
+                        torch.where(i == k, z, n + pk * n + pi), pad])
+        _FOLD_INDEX[key] = (ia, ib, perm)
+    return _FOLD_INDEX[key]
+
+
+def nn_general_fold(states, S, wrap_dim: Optional[int]):
+    """(rows, perm): the kernel's packed node rows and the permutation of
+    the state dims that puts ``wrap_dim`` first.  Row j is [x_j[perm],
+    U_j, zeros to a multiple of 4], with U_j the row-major upper triangle
+    of S_j's symmetric part in the permuted dims: U_ii = S_ii and U_ik =
+    S_ik + S_ki for i < k.  Exact algebra for any S: e' S e = sum_i e_i
+    sum_{k >= i} U_ik e_k; only the rounding of S_ik + S_ki differs.  Two
+    gathers and one add over [states | S | 0]."""
+    N, n = states.shape
+    ia, ib, perm = _fold_index(n, wrap_dim, states.device)
+    src = torch.cat([states, S.reshape(N, n * n), states.new_zeros((N, 1))],
+                    1)
+    return src.index_select(1, ia) + src.index_select(1, ib), perm
+
+
+def nn_general_fold_dist(rows, xr, n: int, wrapped: bool):
+    """(B, R) costs of candidates xr (B, n, permuted as ``perm``) against
+    packed rows (R, .) from ``nn_general_fold``: the kernel's arithmetic
+    in plain PyTorch.  ``wrapped``: the first dim is the wrapped one."""
+    e = rows[None, :, :n] - xr[:, None, :]                  # (B, R, n)
+    if wrapped:
+        a = e[..., 0]
+        a -= torch.round(a * (1.0 / _TWO_PI)) * _TWO_PI     # in place in e
+    i, k = torch.triu_indices(n, n, device=rows.device)
+    U = rows.new_zeros((rows.shape[0], n, n))
+    U[:, i, k] = rows[:, n:n + i.numel()]
+    t = torch.einsum("rik,brk->bri", U, e)                  # sum_{k>=i}
+    return (e * t).sum(-1)
+
+
+# The merge key of (cost, id): the order-preserving int32 of cost + 0.0
+# (so -0.0 and +0.0 tie) in the high half and the row in the low half, so
+# that int64 order is (cost, id) order: the lowest cost wins and a tie goes
+# to the lowest index.  csrc/nn_general.cu's pack_key makes the same bits.
+def pack_keys(cost, ids):
+    """int64 merge keys of float32 ``cost`` and int ``ids`` (>= 0)."""
+    bits = (cost.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)
+    order = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return order * (1 << 32) + ids.to(torch.int64)
+
+
+EMPTY_KEY = 0x7F800000 << 32   # pack_keys(+inf, 0): no live row yet
+
+
+def unpack_keys(keys):
+    """(ids int32, cost float32) of int64 merge keys; exact inverse of
+    ``pack_keys`` (up to -0.0, which packs as +0.0)."""
+    ids = (keys & 0xFFFFFFFF).to(torch.int32)
+    order = keys >> 32
+    bits = order ^ ((order >> 31) & 0x7FFFFFFF)
+    return ids, bits.to(torch.int32).view(torch.float32)
+
+
 def nn_general_plain(states, S, size, xrand, wrap_dim: Optional[int] = None,
                      block: int = _PLAIN_BLOCK):
     """The plain version of ``nn_general``: a blocked scan of e' S_j e."""
@@ -205,15 +289,17 @@ def nn_general(states, S, size, xrand, wrap_dim: Optional[int] = None):
     if states.device.type == "cpu":
         return nn_general_plain(states, S, size, xrand, wrap_dim)
     B = xrand.shape[0]
-    ids = torch.empty((B,), dtype=torch.int32, device=states.device)
-    cost = torch.empty((B,), dtype=torch.float32, device=states.device)
-    if B == 0:
-        return ids, cost
-    _launch("lqrrt_nn_general", states.contiguous(), S.contiguous(),
-            xrand.contiguous(), size, ids, cost, N, B, n,
-            -1 if wrap_dim is None else int(wrap_dim))
+    if B == 0 or N == 0:
+        return (torch.zeros((B,), dtype=torch.int32, device=states.device),
+                torch.full((B,), math.inf, device=states.device))
+    rows, perm = nn_general_fold(states, S, wrap_dim)
+    xr = xrand.index_select(1, perm).contiguous()
+    keys = torch.full((B,), EMPTY_KEY, dtype=torch.int64,
+                      device=states.device)
+    _launch("lqrrt_nn_general", rows, xr, size, keys, N, B, n,
+            int(wrap_dim is not None))
     nn_general.launches += 1
-    return ids, cost
+    return unpack_keys(keys)
 
 
 nn_general.launches = 0

@@ -181,12 +181,14 @@ SPIN_CYCLES = 2_000_000    # ~1 ms of the card's clock: longer than a call's
                            # dispatch on the host
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, before=None) -> float:
     """Median device ms of one call of ``fn`` (CUDA) over ``reps`` calls
     after a warm-up, without the host's dispatch: before each call the
     stream spins (``torch.cuda._sleep``) while the host enqueues the call
     between two CUDA events, so that the events time only the call's
-    kernels.  ``timed_ms`` on the card times the dispatch too.
+    kernels.  ``timed_ms`` on the card times the dispatch too.  ``before``,
+    if given, is enqueued ahead of each spin, outside the timed events (an
+    L2 flush, for a cold cache).
 
     Each call checks that the spin outlasted the host's enqueueing: the
     device time from the spin's start to the start event must exceed the
@@ -197,6 +199,8 @@ def device_ms(fn, reps: int) -> float:
     fn()
     times, cycles = [], SPIN_CYCLES
     while len(times) < reps:
+        if before is not None:
+            before()
         torch.cuda.synchronize()
         spin, start, end = (torch.cuda.Event(enable_timing=True)
                             for _ in range(3))

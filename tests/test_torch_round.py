@@ -87,7 +87,7 @@ def _port_round(d, nearest_fn):
         spec, tprob["dynamics"], interop.lqr_from_numpy(d["jS"], d["jK"]),
         tprob["erf"], tprob["constraints"].is_feasible, 0.05, d["gb"],
         wrap_mask=WRAP, saturate=tprob["saturate"], nearest_fn=nearest_fn)
-    tree = interop.tree_from_numpy(d["tree_np"])
+    tree = interop.tree_from_numpy(d["tree_np"], device="cpu")
     c = expand(tree, torch.from_numpy(d["xr"]), torch.from_numpy(GOAL))
     return tree, c, rounds.commit_candidates(spec, tree, c)
 
@@ -164,7 +164,7 @@ def test_make_round_with_xrand_gen_matches_expand_and_commit(lockstep):
         tprob["erf"], tprob["constraints"].is_feasible, 0.05, d["gb"],
         wrap_mask=WRAP, saturate=tprob["saturate"],
         xrand_gen=lambda gen, batch: torch.from_numpy(d["xr"][:batch]))
-    tree = interop.tree_from_numpy(d["tree_np"])
+    tree = interop.tree_from_numpy(d["tree_np"], device="cpu")
     out = round_fn(tree, torch.Generator(), torch.from_numpy(GOAL), None,
                    None, None)
     _, _, want = _port_round(d, None)
@@ -177,7 +177,7 @@ def test_stats_and_best_node_on_carried_tree(lockstep):
     d = lockstep
     jtree = JTree(**{f: jnp.asarray(getattr(d["tree_np"], f))
                      for f in JTree._fields})
-    tree = interop.tree_from_numpy(d["tree_np"])
+    tree = interop.tree_from_numpy(d["tree_np"], device="cpu")
     assert int(best_node(tree)) == int(jbest_node(jtree))
     np.testing.assert_array_equal(_chunk_stats(tree).numpy(),
                                   np.asarray(jchunk_stats(jtree)))
@@ -185,7 +185,8 @@ def test_stats_and_best_node_on_carried_tree(lockstep):
 
 def test_interop_round_trip(lockstep):
     d = lockstep
-    back = interop.tree_to_numpy(interop.tree_from_numpy(d["tree_np"]))
+    back = interop.tree_to_numpy(
+        interop.tree_from_numpy(d["tree_np"], device="cpu"))
     for f in JTree._fields:
         a = np.asarray(getattr(d["tree_np"], f))
         assert back[f].dtype == a.dtype, f
@@ -251,7 +252,7 @@ def test_car_round_lockstep(car_lockstep, nn):
         tprob["constraints"].is_feasible, 0.05, d["gb"], wrap_mask=CAR_WRAP,
         saturate=tprob["saturate"],
         nearest_fn=None if nn == "plain" else make_nearest_general(2))
-    tree = interop.tree_from_numpy(d["tree_np"])
+    tree = interop.tree_from_numpy(d["tree_np"], device="cpu")
     # the carried tree holds a per-node S and K, one per row
     assert not np.allclose(tree.S[0].numpy(), tree.S[PAD].numpy())
     c = expand(tree, torch.from_numpy(d["xr"]), torch.from_numpy(CAR_GOAL))
@@ -299,7 +300,8 @@ def test_car_round_lockstep(car_lockstep, nn):
 
 def test_car_interop_round_trip(car_lockstep):
     d = car_lockstep
-    back = interop.tree_to_numpy(interop.tree_from_numpy(d["tree_np"]))
+    back = interop.tree_to_numpy(
+        interop.tree_from_numpy(d["tree_np"], device="cpu"))
     for f in JTree._fields:
         a = np.asarray(getattr(d["tree_np"], f))
         assert back[f].dtype == a.dtype, f
@@ -307,3 +309,16 @@ def test_car_interop_round_trip(car_lockstep):
     assert back["S"].shape == (CAP + SLACK, 4, 4)
     assert back["K"].shape == (CAP + SLACK, 2, 4)
     JTree(**{f: jnp.asarray(v) for f, v in back.items()})
+
+
+def test_tree_from_numpy_defaults_to_the_card():
+    """Like ``Planner``, the carrier of the JAX package's state puts it on
+    the card unless the caller asks for the CPU (no card needed here)."""
+    import inspect
+
+    from lqrrt_tpu_torch import Planner
+
+    default = inspect.signature(interop.tree_from_numpy) \
+        .parameters["device"].default
+    assert default == "cuda"
+    assert default == inspect.signature(Planner).parameters["device"].default

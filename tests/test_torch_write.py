@@ -47,14 +47,17 @@ def test_matches_pallas_and_dus(C, start):
     np.testing.assert_array_equal(got.view(np.int32), dus.view(np.int32))
 
 
-@pytest.mark.parametrize("start", [1, 777, N - 100])
+@pytest.mark.parametrize("start", [1, 777, 1003, N - 100, N - 2, -3,
+                                   -B - 1])
 def test_any_start_masked_at_n(start):
-    """Unaligned starts land exactly; columns past N are dropped."""
-    dst, src = _bufs(3, start)
+    """Unaligned starts land exactly; columns outside [0, N) are
+    dropped, for negative starts too."""
+    dst, src = _bufs(3, abs(start))
     got = _port(dst, src, start)
     want = dst.copy()
-    hi = min(start + B, N)
-    want[:, :, start:hi] = src[:, :, :hi - start]
+    lo, hi = max(start, 0), min(start + B, N)
+    if hi > lo:
+        want[:, :, lo:hi] = src[:, :, lo - start:hi - start]
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
@@ -77,3 +80,13 @@ def test_rejects_bad_inputs():
     with pytest.raises(ValueError):
         block_write(torch.from_numpy(dst).transpose(0, 1),
                     torch.from_numpy(src).transpose(0, 1), s)
+
+
+def test_kernel_times_needs_a_card(monkeypatch):
+    """The B and C timing tool measures the card only: without one it
+    raises and prints nothing."""
+    from lqrrt_tpu_torch.tools import kernel_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        kernel_times.main(reps=1)
