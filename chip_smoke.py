@@ -7,10 +7,15 @@ exits non-zero:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: compile the CUDA kernels from ``lqrrt_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel), with ``ptxas``'s resource lines;
-3. kernel A (nn_const) vs its plain PyTorch version at bench shapes, with an
-   fp64 brute-force anchor, and both times (the plain version's at size
-   32768 only, as for kernel C);
+   ``nvcc`` per source, in parallel), with ``ptxas``'s resource lines; every
+   instance of kernels A and E without spills;
+3. kernel A (nn_const) vs its plain PyTorch version at N = 40960,
+   B = 8192 with an fp64 brute-force anchor: the boat's n = 6 (wrap dim 2)
+   at sizes 0 to 32768, the root-pad tie at sizes 1024 and 32768, NaN
+   state rows inside and past size, n = 4, 12 and 16 wrapped at the first
+   and the last dim and unwrapped; id match >= 0.999 at each; then the
+   wrapper's time with its dispatch and alone, its launch alone, its prep
+   alone and the plain version's time;
 4. kernel B (block_write) vs its plain version, bit for bit, at C = 6 and
    3 and aligned, unaligned, negative and tail starts; both times, and the
    kernel and ``copy_`` alone in turns with L2 cold and warm
@@ -25,9 +30,9 @@ exits non-zero:
    its plain version at N = 40960, B = 8192, boat S and boat-scale data,
    sizes 512 / 8704 / 32768, wrap dim 2 and unwrapped: id match, fp64
    excess and an fp64 brute-force anchor against the mode's error bound,
-   cost agreement, and the times of the kernel, the wrapper (prep
-   included) and the plain version; kernel A's launch alone on the same
-   inputs; then kernel E's main path, the experiment's entry point
+   cost agreement, and the times of the launch alone, the wrapper alone
+   and with its dispatch, and the plain version; kernel A's launch alone on
+   the same inputs; then kernel E's main path, the experiment's entry point
    ``lqrrt_tpu_torch.tools.exp_nn_hybrid.main`` at full width, with the
    launch counts set to 0 just before and read just after;
 5c. kernel D (steer_rollout), flat and tree-gather, vs its plain version
@@ -70,21 +75,20 @@ exits non-zero:
 The last two lines are a JSON object with the kernels' checks and times and
 ``{"ok": true, "device": {...}}``.  In the kernels line every ``ms``,
 ``plain_ms`` and ``library_ms`` is one clock: CUDA events around one call
-of the wrapper, the host's dispatch included (``cuda_ms``); kernels B, C, D
-and F add ``device_ms`` (and F's dicts ``*_device_ms``), the kernel alone
+of the wrapper, the host's dispatch included (``cuda_ms``); every kernel
+adds ``device_ms`` (and F's dicts ``*_device_ms``), the wrapper alone
 (``exp_steer_kernel.device_ms``: the stream spins while the host dispatches
 the call).  B's ``device_ms`` is taken with L2 cold, beside
-``library_device_ms``, ``copy_`` alone; C's includes its fold, and
-``launch_device_ms`` is the launch without it.  Without CUDA, or without
-the package
-beside it, the script exits non-zero and prints no result.
+``library_device_ms``, ``copy_`` alone; A's, C's and E's include their
+prep, and ``launch_device_ms`` is the launch without it.  Without CUDA, or
+without the package beside it, the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -106,9 +110,6 @@ SIZES = (512, 8704, 32768)
 TOL_STEER = 1e-3       # |dx|, |du| of a rollout where lengths agree (the
                        # CPU tests'); lengths, in_goal, reached: >= 0.999
 B_REPAIR = 2048        # candidates of kernel D's repair phase (a CPU run)
-# H100 SXM peaks (NVIDIA's data sheet, dense): flop/s by type, HBM bytes/s
-PEAKS = {"fp32": 67e12, "bf16": 989e12}
-HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -155,82 +156,83 @@ def rel_excess(c, c_ref):
     return ((c - c_ref) / c_ref.abs().clamp(min=1e-6)).max().item()
 
 
-def ptxas_summary(build_log: str, bodies=()):
-    """One line per kernel instance from ``ptxas -v``: registers, shared
-    memory and spills, with the kernel's name and template arguments (the
-    state dimension; for ``stage_kernel`` the step body, named from
-    ``bodies``, and whether it stores every step)."""
-    out, name, spill = [], None, ""
-    for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            k = re.search(r"\d+([a-z_]+_(?:kernel|merge))"
-                          r"(?:I((?:L[a-z]\d+E)+)E)?", m.group(1))
-            args = re.findall(r"L[a-z](\d+)E", k.group(2) or "") if k else []
-            if k is not None and k.group(1) == "stage_kernel" and bodies:
-                args = [bodies[int(args[0])], f"store={args[1]}"]
-            name = (m.group(1) if k is None else
-                    k.group(1) + (f"<{','.join(args)}>" if args else ""))
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = f"spill {m.group(1)}/{m.group(2)} B"
-            continue
-        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} registers, "
-                       f"{m.group(2) or 0} B smem, {spill}")
-            name = None
-    return out
+A_SIZES = (0, 1, 33, 512, 4097, 8704, 32767, 32768)
 
 
 def phase_kernel_a():
-    from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const, nn_const_plain
+    """Kernel A at N = 40960, B = 8192 against its plain version and an
+    fp64 brute-force anchor: the boat's n = 6 (wrap dim 2) at every size
+    of A_SIZES (partial tiles, node partitions with no live row, size 0);
+    the root-pad tie at sizes 1024 and 32768; NaN state rows inside and
+    past size; n = 4, 12 and 16 wrapped at the first and the last dim and
+    unwrapped.  Gates: id match >= 0.999, fp64 excess and anchors <=
+    TOL_EXCESS.  Then the times at n = 6, size 32768: the wrapper with its
+    dispatch, alone (``device_ms``), its launch alone and its prep alone
+    (the candidate mean and the fill of the keys), and the plain
+    version."""
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import (nn_const,
+                                                       nn_const_plain)
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import device_ms
+    from lqrrt_tpu_torch.tools.kernel_times import (const_inputs,
+                                                    const_launcher, prep_ms)
 
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(3)
-    scale = torch.tensor([40.0, 40.0, math.pi, 3.0, 3.0, 1.0], device=dev)
-    states = (torch.rand((N_BENCH, NS), generator=g, device=dev) * 2 - 1) \
-        * scale
-    xr = (torch.rand((B_BENCH, NS), generator=g, device=dev) * 2 - 1) * scale
-    A = torch.randn((NS, NS), generator=g, device=dev) * 0.3
-    S = A @ A.T + 2.0 * torch.eye(NS, device=dev)
-    st64, xr64, S64 = states.double(), xr.double(), S.double()
-    anchor = torch.arange(0, B_BENCH, B_BENCH // 256, device=dev)[:256]
-    out = {}
-    for size in SIZES:
-        sz = torch.tensor(size, dtype=torch.int32, device=dev)
-        ik, ck = nn_const(states, S, sz, xr, wrap_dim=WRAP)
-        ip, cp = nn_const_plain(states, S, sz, xr, wrap_dim=WRAP)
-        torch.cuda.synchronize()
-        id_match = (ik == ip).double().mean().item()
-        c_k = wrapped_cost64(xr64, st64[ik.long()], S64)
-        c_p = wrapped_cost64(xr64, st64[ip.long()], S64)
-        excess = ((c_k - c_p) / c_p.abs().clamp(min=1e-6)).max().item()
-        c_star = wrapped_cost64(xr64[anchor, None, :], st64[None, :size, :],
-                                S64).min(dim=1).values
-        anchor_k = ((c_k[anchor] - c_star)
-                    / c_star.abs().clamp(min=1e-6)).max().item()
-        anchor_p = ((c_p[anchor] - c_star)
-                    / c_star.abs().clamp(min=1e-6)).max().item()
-        max_err = (ck - cp).abs().max().item()
-        ms = cuda_ms(lambda: nn_const(states, S, sz, xr, wrap_dim=WRAP))
-        # the plain version is timed at the top size only (script time)
-        plain_ms = cuda_ms(
-            lambda: nn_const_plain(states, S, sz, xr, wrap_dim=WRAP),
-            reps=5) if size == SIZES[-1] else None
-        live_ids_ok = bool((ik < size).all().item())
-        log(f"kernel A nn_const size={size}: id_match={id_match:.6f} "
-            f"fp64_excess={excess:.3e} anchor_kernel={anchor_k:.3e} "
-            f"anchor_plain={anchor_p:.3e} max_abs_cost_err={max_err:.3e} "
-            f"kernel_ms={ms:.4f}"
-            + (f" plain_ms={plain_ms:.4f}" if plain_ms is not None else ""))
-        if not (live_ids_ok and excess <= TOL_EXCESS
-                and anchor_k <= TOL_EXCESS and anchor_p <= TOL_EXCESS):
-            raise AssertionError(f"kernel A disagrees at size={size}")
-        out[size] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                         id_match=id_match, fp64_excess=excess)
+    fns = ("kernel A nn_const", nn_const, nn_const_plain)
+    states, S, xr = const_inputs(NS, WRAP, "cuda", 3)
+    out = {"id_match": {}}
+    max_err = 0.0
+    for size in A_SIZES:
+        _, out["id_match"][size], err = check_nn(
+            fns, f"n={NS} wrap={WRAP}", states, S, xr, size, WRAP,
+            timed=size == A_SIZES[-1], gate_ids=True)
+        max_err = max(max_err, err)
+    # root pad: rows 1..511 copy row 0 and must lose to it, also where
+    # they span several node partitions (size 1024)
+    st_p = states.clone()
+    st_p[1:512] = st_p[0]
+    xr_p = xr.clone()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    xr_p[:64] = st_p[0] + 0.01 * (
+        torch.rand((64, NS), generator=g, device="cuda") * 2 - 1)
+    for sz_p in (1024, 32768):
+        ik, _, _ = check_nn(fns, f"n={NS} root pad", st_p, S, xr_p, sz_p,
+                            WRAP, gate_ids=True)
+        if not bool((ik[:64] == 0).all()):
+            raise AssertionError("kernel A: root-pad ties picked "
+                                 f"{ik[:64].unique().tolist()}, not row 0")
+        log(f"kernel A nn_const n={NS} root pad size={sz_p}: the 64 "
+            "candidates by row 0 all pick id 0")
+    # NaN state rows inside and past size drop only themselves
+    st_nan = states.clone()
+    dead = torch.zeros(N_BENCH, dtype=torch.bool, device="cuda")
+    dead[::97] = True
+    st_nan[dead] = math.nan
+    st_nan[32768 + 5:] = math.nan
+    check_nn(fns, f"n={NS} NaN rows", st_nan, S, xr, 32768, WRAP,
+             dead=dead[:32768], gate_ids=True)
+    for n in (4, 12, 16):
+        for wrap in (0, n - 1, None):
+            st_n, S_n, xr_n = const_inputs(n, wrap, "cuda", 30 + n)
+            for size in (4097, 32768):
+                check_nn(fns, f"n={n} wrap={wrap}", st_n, S_n, xr_n, size,
+                         wrap, gate_ids=True)
+
+    size = A_SIZES[-1]
+    sz = torch.tensor(size, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: nn_const(states, S, sz, xr, wrap_dim=WRAP))
+    plain_ms = cuda_ms(
+        lambda: nn_const_plain(states, S, sz, xr, wrap_dim=WRAP), reps=5)
+    alone = device_ms(lambda: nn_const(states, S, sz, xr, WRAP), 20)
+    launch, refill = const_launcher(states, S, xr, sz, WRAP)
+    launch_alone = device_ms(launch, 20, refill)
+    prep_alone = prep_ms(xr, 20)
+    log(f"kernel A nn_const n={NS} size={size}: kernel_ms={ms:.4f} "
+        f"device_ms={alone:.4f} (alone, the prep included) "
+        f"launch_device_ms={launch_alone:.4f} prep_device_ms="
+        f"{prep_alone:.4f} (2 ops: the candidate mean, the fill of the "
+        f"keys) plain_ms={plain_ms:.4f}")
+    out.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               device_ms=alone, launch_device_ms=launch_alone,
+               prep_device_ms=prep_alone)
     return out
 
 
@@ -294,41 +296,47 @@ def phase_kernel_b():
 C_SIZES = (0, 1, 33, 512, 4097, 8704, 32767, 32768)
 
 
-def check_nn_general(label, states, S, xr, size, wrap, dead=None,
-                     timed=False):
-    """Kernel C against its plain version and an fp64 brute-force anchor
-    on 256 candidates at one size; ``dead`` marks rows that must never be
-    picked (NaN S), left out of the anchor; ``timed`` adds the wrapper's
-    time with its dispatch to the line.  Raises on a disagreement;
-    returns (the kernel's ids, id_match, max |cost| error)."""
-    from lqrrt_tpu_torch.ops.kernels.nn_kernel import (nn_general,
-                                                       nn_general_plain)
-
+def check_nn(fns, label, states, S, xr, size, wrap, dead=None, timed=False,
+             gate_ids=False):
+    """A nearest-neighbour kernel (``fns``: its name, wrapper and plain
+    version; kernel A with one shared S (n, n), kernel C with S (N, n, n))
+    against its plain version and an fp64 brute-force anchor on 256
+    candidates at one size; ``dead`` marks rows that must never be picked
+    (NaN), left out of the anchor; ``timed`` adds the wrapper's time with
+    its dispatch to the line; ``gate_ids`` also requires an id match >=
+    0.999.  Raises on a disagreement; returns (the kernel's ids, id_match,
+    max |cost| error)."""
+    name, kernel, plain = fns
     dev = states.device
     sz = torch.tensor(size, dtype=torch.int32, device=dev)
-    ik, ck = nn_general(states, S, sz, xr, wrap_dim=wrap)
-    ip, cp = nn_general_plain(states, S, sz, xr, wrap_dim=wrap)
+    ik, ck = kernel(states, S, sz, xr, wrap_dim=wrap)
+    ip, cp = plain(states, S, sz, xr, wrap_dim=wrap)
     torch.cuda.synchronize()
     id_match = (ik == ip).double().mean().item()
     if size == 0:
         ok = bool((ik == 0).all() and torch.isinf(ck).all() and (ck > 0).all()
                   and torch.equal(ik, ip) and torch.equal(ck, cp))
-        log(f"kernel C nn_general {label} size=0: (0, +inf) everywhere={ok}")
+        log(f"{name} {label} size=0: (0, +inf) everywhere={ok}")
         if not ok:
-            raise AssertionError(f"kernel C {label}: size 0 is not (0, inf)")
+            raise AssertionError(f"{name} {label}: size 0 is not (0, inf)")
         return ik, id_match, 0.0
     st64, xr64, S64 = states.double(), xr.double(), S.double()
     anchor = torch.arange(0, len(xr), max(len(xr) // 256, 1),
                           device=dev)[:256]
-    c_k = wrapped_cost64(xr64, st64[ik.long()], S64[ik.long()], wrap)
-    c_p = wrapped_cost64(xr64, st64[ip.long()], S64[ip.long()], wrap)
+    shared = S64.dim() == 2
+
+    def metric(rows):
+        return S64 if shared else S64[rows]
+
+    c_k = wrapped_cost64(xr64, st64[ik.long()], metric(ik.long()), wrap)
+    c_p = wrapped_cost64(xr64, st64[ip.long()], metric(ip.long()), wrap)
     excess = rel_excess(c_k, c_p)
     c_star = torch.full((len(anchor),), math.inf, dtype=torch.float64,
                         device=dev)
     for j0 in range(0, size, 2048):
         j1 = min(j0 + 2048, size)
         c = wrapped_cost64(xr64[anchor, None, :], st64[None, j0:j1],
-                           S64[None, j0:j1], wrap)
+                           S64 if shared else S64[None, j0:j1], wrap)
         if dead is not None:
             c = torch.where(dead[None, j0:j1], math.inf, c)
         c_star = torch.minimum(c_star, c.min(dim=1).values)
@@ -336,19 +344,20 @@ def check_nn_general(label, states, S, xr, size, wrap, dead=None,
     anchor_p = rel_excess(c_p[anchor], c_star)
     max_err = (ck - cp).abs().max().item()
     max_rel = ((ck - cp).abs() / cp.abs().clamp(min=1e-6)).max().item()
-    ms = cuda_ms(lambda: nn_general(states, S, sz, xr, wrap_dim=wrap)) \
+    ms = cuda_ms(lambda: kernel(states, S, sz, xr, wrap_dim=wrap)) \
         if timed else None
     picks_ok = bool((ik >= 0).all() and (ik < size).all())
     if dead is not None:
         picks_ok = picks_ok and not bool(dead[ik.long()].any())
-    log(f"kernel C nn_general {label} size={size}: id_match={id_match:.6f} "
+    log(f"{name} {label} size={size}: id_match={id_match:.6f} "
         f"fp64_excess={excess:.3e} anchor_kernel={anchor_k:.3e} "
         f"anchor_plain={anchor_p:.3e} max_abs_cost_err={max_err:.3e} "
         f"max_rel_cost_err={max_rel:.3e}"
         + (f" kernel_ms={ms:.4f}" if ms is not None else ""))
     if not (picks_ok and excess <= TOL_EXCESS and anchor_k <= TOL_EXCESS
-            and anchor_p <= TOL_EXCESS):
-        raise AssertionError(f"kernel C disagrees: {label}, size={size}")
+            and anchor_p <= TOL_EXCESS
+            and (id_match >= 0.999 or not gate_ids)):
+        raise AssertionError(f"{name} disagrees: {label}, size={size}")
     return ik, id_match, max_err
 
 
@@ -363,6 +372,7 @@ def phase_kernel_c():
         EMPTY_KEY, _launch, nn_general, nn_general_fold, nn_general_plain)
     from lqrrt_tpu_torch.tools.exp_steer_kernel import device_ms
 
+    fns = ("kernel C nn_general", nn_general, nn_general_plain)
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(7)
     g_skew = torch.Generator(device=dev).manual_seed(11)
@@ -378,8 +388,9 @@ def phase_kernel_c():
         S = A @ A.mT + 0.1 * torch.eye(n, device=dev)
         match, max_err = {}, 0.0
         for size in C_SIZES:
-            _, match[size], err = check_nn_general(
-                f"n={n} wrap={wrap}", states, S, xr, size, wrap, timed=True)
+            _, match[size], err = check_nn(
+                fns, f"n={n} wrap={wrap}", states, S, xr, size, wrap,
+                timed=True)
             max_err = max(max_err, err)
         size = C_SIZES[-1]
         # root pad: rows 1..511 copy row 0 and must lose to it, also where
@@ -390,8 +401,8 @@ def phase_kernel_c():
         xr_p = xr.clone()
         xr_p[:64] = st_p[0] + 0.01 * xr_p[:64] / scale
         for sz_p in (1024, size):
-            ik, _, _ = check_nn_general(f"n={n} root pad", st_p, S_p, xr_p,
-                                        sz_p, wrap)
+            ik, _, _ = check_nn(fns, f"n={n} root pad", st_p, S_p, xr_p,
+                                sz_p, wrap)
             root = ik[:64]
             if not bool((root == 0).all()):
                 raise AssertionError(f"kernel C n={n}: root-pad ties picked "
@@ -404,13 +415,13 @@ def phase_kernel_c():
         dead[::97] = True
         S_nan[dead] = math.nan
         st_nan[size + 5:] = math.nan
-        check_nn_general(f"n={n} NaN rows", st_nan, S_nan, xr, size, wrap,
-                         dead=dead[:size])
+        check_nn(fns, f"n={n} NaN rows", st_nan, S_nan, xr, size, wrap,
+                 dead=dead[:size])
         # a non-symmetric S: its skew part adds nothing to e' S e
         K = torch.randn((N_BENCH, n, n), generator=g_skew, device=dev) \
             * 0.5
-        check_nn_general(f"n={n} non-symmetric S", states, S + K - K.mT,
-                         xr, size, wrap)
+        check_nn(fns, f"n={n} non-symmetric S", states, S + K - K.mT, xr,
+                 size, wrap)
 
         sz = torch.tensor(size, dtype=torch.int32, device=dev)
         ms = cuda_ms(lambda: nn_general(states, S, sz, xr, wrap_dim=wrap))
@@ -445,10 +456,12 @@ def phase_kernel_e():
     agree within TOL_SUM M_b in cost; picks that differ are equivalent
     when their costs under the mode's operands, in fp64, are that close."""
     from lqrrt_tpu_torch.ops.kernels.nn_hybrid import (
-        ERROR, MODES, error_scale, expand_prep, launch_expand, nn_exp,
-        nn_expand_plain, nn_hybrid, nn_split3, pick_cost64)
-    from lqrrt_tpu_torch.ops.kernels.nn_kernel import _launch, nn_const_prep
+        ERROR, MODES, error_scale, expand_prep, nn_exp, nn_expand_plain,
+        nn_hybrid, nn_split3, pick_cost64)
     from lqrrt_tpu_torch.tools.exp_nn_hybrid import problem
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import device_ms
+    from lqrrt_tpu_torch.tools.kernel_times import (const_launcher,
+                                                    expand_launcher)
 
     wrappers = {"fma": nn_exp, "bf16x3": nn_split3,
                 "bf16": lambda *a, **k: nn_hybrid(*a, prec="default", **k)}
@@ -494,10 +507,12 @@ def phase_kernel_e():
                 cost_err = (err / M).max().item()
                 max_err = err.max().item()
                 live_ok = bool((ik < size).all().item())
-                # the kernel alone, on prepared features, and the wrapper
-                # (prep and launch)
-                ms = cuda_ms(lambda: launch_expand(p, sz, mode, wrapped),
-                             reps=50)
+                # the launch alone, and the wrapper (prep and launch) alone
+                # and with its dispatch
+                launch, refill = expand_launcher(states, S[0].contiguous(),
+                                                 xr, sz, wrap, mode)
+                ms = device_ms(launch, 20, refill)
+                wrapper_device_ms = device_ms(kernel, 20)
                 wrapper_ms = cuda_ms(kernel)
                 top = wrap is not None and size == SIZES[-1]
                 plain_ms = cuda_ms(plain, reps=3 if top else 1)
@@ -509,7 +524,8 @@ def phase_kernel_e():
                     f"anchor_kernel/bound={anchor_k:.3e} "
                     f"anchor_plain/bound={anchor_p:.3e} "
                     f"max_abs_cost_err={max_err:.3e} "
-                    f"cost_err/M={cost_err:.3e} kernel_ms={ms:.4f} "
+                    f"cost_err/M={cost_err:.3e} launch_device_ms={ms:.4f} "
+                    f"wrapper_device_ms={wrapper_device_ms:.4f} "
                     f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
                     "(no single PyTorch call computes this function) "
                     f"t={time.perf_counter() - t_cfg:.2f} s")
@@ -518,18 +534,17 @@ def phase_kernel_e():
                         and cost_err <= TOL_SUM):
                     raise AssertionError(f"kernel E disagrees in mode {mode} "
                                          f"at wrap={wrap}, size={size}")
-                out[(mode, wrap, size)] = dict(max_abs_err=max_err, ms=ms,
-                                               plain_ms=plain_ms)
+                out[(mode, wrap, size)] = dict(
+                    max_abs_err=max_err, ms=wrapper_ms,
+                    device_ms=wrapper_device_ms, launch_device_ms=ms,
+                    plain_ms=plain_ms)
     # kernel A's launch alone on the same inputs, for the like-for-like
     # comparison
     sz = torch.tensor(SIZES[-1], dtype=torch.int32, device="cuda")
-    z, w, xa, ra, c = nn_const_prep(states, S, xr, WRAP)
-    ids = torch.empty(B_BENCH, dtype=torch.int32, device="cuda")
-    cost = torch.empty(B_BENCH, dtype=torch.float32, device="cuda")
-    a_ms = cuda_ms(lambda: _launch("lqrrt_nn_const", z, xa, w, ra, c, sz, ids,
-                                   cost, N_BENCH, B_BENCH, NS, 1))
+    launch, refill = const_launcher(states, S[0].contiguous(), xr, sz, WRAP)
+    a_ms = device_ms(launch, 20, refill)
     log(f"kernel A nn_const launch alone, same inputs, wrap={WRAP} "
-        f"size={SIZES[-1]}: kernel_ms={a_ms:.4f}")
+        f"size={SIZES[-1]}: launch_device_ms={a_ms:.4f}")
     return out
 
 
@@ -684,6 +699,8 @@ def steer_bound(res, rows_read, ncirc, tree):
     at the end.  Bytes: xtar, the start rows read (x0 and K, or the
     distinct parents' rows and pids) and the small constants read once;
     xs, us, length, xnew, reached and in_goal written once."""
+    from lqrrt_tpu_torch.tools.kernel_times import bound
+
     H, n, B = res.x_seq.shape
     m = res.u_seq.shape[1]
     length = res.length.long()
@@ -694,15 +711,6 @@ def steer_bound(res, rows_read, ncirc, tree):
               + 4 * (3 * n + 14 + 3 * ncirc)
               + 4 * H * (n + m) * B + B * (4 + 4 * n + 2))
     return (*bound({"fp32": flops}, nbytes), flops, nbytes)
-
-
-def bound(flops=None, nbytes=0.0):
-    """(ms, what bounds it): the larger of the bytes over the memory rate
-    and each type's operations over its peak (PEAKS)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max([f / PEAKS[k] * 1e3 for k, f in (flops or {}).items()],
-                default=0.0)
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def pick(res, sel):
@@ -923,6 +931,7 @@ def stage_bound(stage, B, H):
     the final step's without per-step stores), length written once; the
     flops of the stage's body (``steer_stages.FLOPS``) every step."""
     from lqrrt_tpu_torch.ops.kernels import steer_stages as S
+    from lqrrt_tpu_torch.tools.kernel_times import bound
 
     rows = NS + (3 if S.STAGES[stage].tool == "F2" else 0)
     steps = 1 if stage == "identity_nostore" else H
@@ -1013,6 +1022,7 @@ def phase_f3_f4(smi):
     from lqrrt_tpu_torch.tools import dbg_steer_kernel, dbg_steer_scaffold
     from lqrrt_tpu_torch.tools.dbg_steer_kernel import branch_inputs, same
     from lqrrt_tpu_torch.tools.dbg_steer_scaffold import probe_args
+    from lqrrt_tpu_torch.tools.kernel_times import bound
     from lqrrt_tpu_torch.tools.exp_steer_kernel import (GROUPS, branch_batch,
                                                         device_ms)
 
@@ -1105,6 +1115,8 @@ def f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3, f3_launches,
               f4, f4_launches):
     """The kernels line's entries of kernel F's four functions (F1-F4),
     from their phases' results and their main paths' launches."""
+    from lqrrt_tpu_torch.tools.kernel_times import bound
+
     out = []
     out.append(dict(
         name="steer_rollout_dv", route="cuda",
@@ -1417,6 +1429,7 @@ def main() -> int:
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import (make_nearest_const,
                                                        make_nearest_general)
     from lqrrt_tpu_torch.ops.kernels.steer_stages import BODIES
+    from lqrrt_tpu_torch.tools.kernel_times import ptxas_summary
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1428,10 +1441,16 @@ def main() -> int:
     _build.lib()
     log(f"build: {_build.library_path().name} in "
         f"{time.perf_counter() - t0:.2f} s")
-    ptxas_log = _build.ptxas_log_path()
-    for line in ptxas_summary(ptxas_log.read_text()
-                              if ptxas_log.exists() else "", BODIES):
+    ptxas = ptxas_summary(BODIES)
+    for line in ptxas:
         log(f"  ptxas {line}")
+    # kernels A and E: every instance without spills
+    ae_ptxas = [line for line in ptxas
+                if line.startswith(("nn_const_kernel", "nn_expand_kernel"))]
+    spilled = [line for line in ae_ptxas if "spill 0/0 B" not in line]
+    if len(ae_ptxas) != 38 or spilled:
+        raise AssertionError(f"ptxas: kernels A and E: {len(ae_ptxas)} "
+                             f"instances (38 expected), spilling {spilled}")
 
     def timed(label, fn, *args, **kw):
         t = time.perf_counter()
@@ -1471,14 +1490,16 @@ def main() -> int:
     # bounds of the timed calls, from this run's shapes (size 32768 live
     # rows of N, B candidates): flops a live pair by type, and the inputs
     # read once plus the (ids, cost) written once
+    from lqrrt_tpu_torch.tools.kernel_times import (bound, const_bound,
+                                                    expand_bound)
+
     size, pairs = SIZES[-1], SIZES[-1] * B_BENCH
 
     def nn_bytes(row_floats, n):
         return 4 * (size * row_floats + B_BENCH * n) + 8 * B_BENCH
 
-    # A: per dim, d = z - w - k c (sub, fma) and acc += d^2 (fma); the
-    # turn count k (sub, mul, rint)
-    a_bound = bound({"fp32": pairs * (NS * 5 + 3)}, nn_bytes(NS, NS))
+    # A: 3n + 3 flops a pair, wrapped (``kernel_times.const_flops``)
+    a_bound = const_bound(NS, True, size, B_BENCH)
     # B: src read and dst columns written, (100, 6, B) f32 each
     b_bound = bound(None, 2 * 100 * 6 * B_BENCH * 4)
     # C at n = 12: e (n sub), the wrap (mul, rint, fma), and the quadratic
@@ -1487,13 +1508,6 @@ def main() -> int:
     nc = 12
     c_bound = bound({"fp32": pairs * (nc + 4 + nc * (nc + 1) + 2 * nc)},
                     nn_bytes(nc * nc + nc, nc))
-    # E: the epilogue (sub, mul, rint, add, fma, mul, fma: 9 flops) and the
-    # cross term: n multiply-adds onto |z_j|^2 (psi's leading 1 and the
-    # zero pad are layout, not work), in fp32, or in bf16 a pass (3 passes,
-    # and one fp32 add, in bf16x3)
-    e_flops = {"fma": {"fp32": 9 + 2 * NS},
-               "bf16": {"fp32": 9, "bf16": 2 * NS},
-               "bf16x3": {"fp32": 10, "bf16": 3 * 2 * NS}}
     e_replaces = {"fma": "tools/exp_nn_hybrid_v5.py:214",
                   "bf16": "tools/exp_nn_hybrid_v5.py:82",
                   "bf16x3": "tools/exp_nn_hybrid_v5.py:341"}
@@ -1502,10 +1516,14 @@ def main() -> int:
         dict(name="nn_const", route="cuda",
              source="lqrrt_tpu_torch/csrc/nn_const.cu",
              replaces="lqrrt_tpu/ops/pallas/nn_kernel.py:415",
-             launches=l_boat["nn_const"],
-             max_abs_err=a[32768]["max_abs_err"],
-             ms=a[32768]["ms"], plain_ms=a[32768]["plain_ms"],
-             bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=None),
+             launches=l_boat["nn_const"], max_abs_err=a["max_abs_err"],
+             ms=a["ms"], device_ms=a["device_ms"],
+             launch_device_ms=a["launch_device_ms"],
+             prep_device_ms=a["prep_device_ms"], plain_ms=a["plain_ms"],
+             bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=None,
+             id_match={str(k): v for k, v in a["id_match"].items()},
+             ptxas=[line for line in ae_ptxas
+                    if line.startswith("nn_const_kernel")]),
         dict(name="block_write", route="cuda",
              source="lqrrt_tpu_torch/csrc/block_write.cu",
              replaces="lqrrt_tpu/ops/pallas/write_kernel.py:26",
@@ -1526,9 +1544,10 @@ def main() -> int:
              bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
              id_match={f"n={n}": v["id_match"] for n, v in c.items()}),
     ]
-    for mode, flops in e_flops.items():
-        eb = bound({k: pairs * f for k, f in flops.items()},
-                   nn_bytes(NS, NS))
+    for mode in e_replaces:
+        # E: the cross term and the wrap's epilogue
+        # (``kernel_times.expand_flops``)
+        eb = expand_bound(mode, NS, True, size, B_BENCH)
         top = e[(mode, WRAP, size)]
         kernels.append(dict(
             name=f"nn_expand[{mode}]", route="cuda",
@@ -1536,7 +1555,9 @@ def main() -> int:
             replaces=e_replaces[mode], launches=e_launches[mode],
             max_abs_err=max(v["max_abs_err"] for k, v in e.items()
                             if k[0] == mode),
-            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=eb[0],
+            ms=top["ms"], device_ms=top["device_ms"],
+            launch_device_ms=top["launch_device_ms"],
+            plain_ms=top["plain_ms"], bound_ms=eb[0],
             bound_by=eb[1], library_ms=None))
     d_replaces = {"flat": "tools/steer_kernel_experimental.py:72",
                   "tree": "tools/steer_kernel_experimental.py:340"}

@@ -18,8 +18,7 @@ def sample_batch(gen: torch.Generator, batch: int, sample_space, goal_bias,
     return torch.where(take_goal, bias_target, xr)
 
 
-def normalize_goal_bias(goal_bias, nstates: int,
-                        device="cpu") -> torch.Tensor:
+def normalize_goal_bias(goal_bias, nstates: int, device) -> torch.Tensor:
     """Accept a scalar or per-dim goal_bias; return (n,) f32 on device."""
     gb = torch.as_tensor(goal_bias, dtype=torch.float32)
     if gb.ndim == 0:

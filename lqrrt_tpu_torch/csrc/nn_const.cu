@@ -8,114 +8,266 @@
 // kernel forms the whitened difference directly and sums its squares in
 // fp32 FMAs on the CUDA cores (no cancellation, no split).
 //
-// Inputs are prepared by the wrapper (ops/kernels/nn_kernel.py), as the JAX
-// side prepares them outside the pallas_call: S = L L' (Cholesky), states and
-// candidates centred on the candidate mean (the wrap dim left uncentred) and
-// whitened, z = statesc @ L (N, n), w = xrandc @ L (B, n).  With one wrapped
-// angle dim a, k = rint((x_a - r_a) / 2pi) turns, and the whitened shift of
-// one turn is c = 2pi L[a, :], so the distance is |z_j - w_b - k c|^2.
+// The arithmetic (ops/kernels/nn_kernel.py ``nn_const_prep`` and
+// ``nn_const_dist`` are the same in plain PyTorch): the state dims are
+// permuted so that the wrapped dim a comes first, L = cholesky(S_p + 1e-9 I)
+// of the permuted S, rows and candidates are centred on the candidate mean
+// (dim a uncentred) and whitened, z = x_c L, w = r_c L.  L is lower
+// triangular, so one turn of dim a shifts z by c = 2pi L[0, :] =
+// (c0, 0, ..., 0): with x'_a = x_a / 2pi, r'_a = r_a / 2pi and k =
+// rint(x'_a - r'_a), the cost is (z_0 - w_0 - k c0)^2 + sum_{i>0} (z_i -
+// w_i)^2.  The wrap costs three adds and one FMA a pair, not n FMAs and a
+// quarter-rate FRND.
 //
-// Bound: about B * size * (3n + 6) flops -- 6 GFLOP at B = 8192, size =
-// 32768 -- against ~1 MB of node data, so it is compute-bound on fp32 CUDA
-// cores.  Design: one thread per candidate keeps w_b in registers; a block
-// stages tiles of z (and x_a) in shared memory, which every thread of the
-// block then reads as a broadcast.  Rows are scanned in increasing j with a
-// strict '<', so the lowest index wins ties, as in the Pallas kernel -- the
-// root-pad rows 1..root_pad-1 are copies of row 0 and must lose to it.  Dead
-// rows are skipped by index (j < size, read from device memory), never by
-// poisoning their values.
+// Bound: B * size pairs of 3n + 3 fp32 flops, wrapped (n subs z_i - w_i,
+// the squares summed in n - 1 FMAs and a mul, and the turn: a sub, a rint
+// and the FMA of k c0 into z_0 - w_0; 3n - 1 unwrapped; tools/kernel_times.py
+// ``const_flops``): 0.0841 ms at n = 6, B = 8192, size 32768 on the H100's
+// 67 TFLOP/s (data sheet, 700 W), against ~1 MB of node data:
+// compute-bound.  What the card issues is 2n + 7 instructions a pair at
+// n = 6 wrapped (the turn: a sub and two adds; z_0: a sub, an FMA, a mul;
+// 5 x (sub, FMA); compare and two selects), 19, each one of the SM's four
+// issue slots a cycle, so the issue bound is about 0.15-0.17 ms.  Design:
+// - Grid (candidate tiles) x (node partitions), sized so that the blocks
+//   fill the SMs in one wave; each block derives its row range, a slice of
+//   [0, size), from ``*size`` on the device.
+// - Register blocking: a thread holds kC candidates (w, r'_a, the running
+//   minimum), so each broadcast 16-byte shared load of a row feeds 4 kC
+//   pairs' work.
+// - The prep is in the block: warp 0 factors S (n <= 16, ~1-3 us, while the
+//   first tiles land), each thread whitens its candidates, and each tile of
+//   raw state rows is whitened once by the block into a packed tile
+//   [x'_a, z, 0 pad] before the scan.  So the wrapper launches only the
+//   candidate mean, the fill of the keys and this kernel.
+// - Asynchronous staging: a ring of kStages raw tiles in dynamic shared
+//   memory, each filled by one 1-D bulk copy (cp.async.bulk) that completes
+//   on an mbarrier, and two packed tiles, so that the copies of the next
+//   tiles and the whitening of the next tile overlap the scan; one
+//   __syncthreads a tile.  A tile's last rows, past the 16-byte multiple
+//   that a bulk copy moves, are read from device memory.
+// - The merge: each thread keeps a running (min, argmin) with a strict '<'
+//   over increasing j and merges it with one 64-bit atomicMin on
+//   pack_key's (cost, j) key, so the lowest cost wins and a tie goes to
+//   the lowest index, as in a sequential scan (the root-pad rows
+//   1..root_pad-1 copy row 0 and must lose to it).  The block that finishes
+//   last (a counter in the keys buffer) unpacks the keys into (ids, cost),
+//   so the call needs no host sync and no unpacking ops.  A NaN cost never
+//   enters the merge and drops only its own row (squares are never
+//   negative); dead rows (j >= size) are never read; size 0 gives (0, inf).
+// - Every index into the register arrays is a compile-time constant, so
+//   nothing spills.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+
+#include "nn_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 64;   // candidates per block: 128 blocks at B = 8192
-constexpr int kTile = 256;     // node rows staged in shared memory per pass
-// n is a template argument (w_b lives in registers); 16 covers every model
+using namespace lqrrt_nn;
+
+constexpr int kThreads = 128;
+constexpr int kStages = 3;
+constexpr int kTileRows = 128;   // rows a tile; a multiple of 4
+// n is a template argument (w lives in registers); 16 covers every model
 // of the package (boat 6, car 4, quadrotor 12)
 constexpr int kMaxStates = 16;
 
-template <int NS>
-__global__ void nn_const_kernel(const float* __restrict__ z,
-                                const float* __restrict__ xa,
-                                const float* __restrict__ w,
-                                const float* __restrict__ ra,
-                                const float* __restrict__ c,
-                                const int* __restrict__ size_ptr,
-                                int* __restrict__ ids,
-                                float* __restrict__ cost,
-                                int N, int B, int wrapped) {
+template <int NS, bool WRAP>
+struct Cfg {
+  static constexpr int kCands = NS <= 8 ? 4 : 2;        // candidates a thread
+  static constexpr int kOff = WRAP ? 1 : 0;             // x'_a leads a row
+  static constexpr int kRow = (NS + kOff + 3) / 4 * 4;  // floats a packed row
+  static constexpr int kRaw = kTileRows * NS;           // floats a raw tile
+  static constexpr int kPacked = kTileRows * kRow;      // floats a packed tile
+  static constexpr int kBlockCands = kThreads * kCands;
+  // raw ring, two packed tiles, the ring's barriers, the fp64 factor, L,
+  // the centre
+  static constexpr int kSmem = 4 * (kStages * kRaw + 2 * kPacked) +
+                               8 * (kStages + NS * NS) + 4 * (NS * NS + NS);
+};
+
+template <int NS, bool WRAP>
+__global__ void __launch_bounds__(kThreads)
+nn_const_kernel(const float* __restrict__ states,  // (N, NS)
+                const float* __restrict__ xr,      // (B, NS)
+                const float* __restrict__ S,       // (NS, NS)
+                const float* __restrict__ center,  // (NS,) candidate mean
+                const int* __restrict__ size_ptr,
+                long long* __restrict__ keys,      // (B + 1,) kEmptyKey
+                int* __restrict__ ids, float* __restrict__ cost, int N,
+                int B, int a) {
+  using C = Cfg<NS, WRAP>;
+  constexpr int kC = C::kCands;
   static_assert(NS >= 1 && NS <= kMaxStates, "state dimension out of range");
-  __shared__ float zs[kTile * NS];
-  __shared__ float xas[kTile];
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = b < B;
-  int size = *size_ptr;
-  size = size < 0 ? 0 : (size > N ? N : size);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* raw = reinterpret_cast<float*>(smem);
+  float* packed = raw + kStages * C::kRaw;
+  uint64_t* full = reinterpret_cast<uint64_t*>(packed + 2 * C::kPacked);
+  double* Ws = reinterpret_cast<double*>(full + kStages);
+  float* Ls = reinterpret_cast<float*>(Ws + NS * NS);
+  float* ctr = Ls + NS * NS;
+  if (!WRAP) a = -1;
 
-  float wb[NS], cb[NS];
-  float rb = 0.f;
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    wb[k] = active ? w[(size_t)b * NS + k] : 0.f;
-    cb[k] = c[k];
+  int lo, hi;
+  block_rows(size_ptr, N, lo, hi);
+  const int n_tiles = lo < hi ? (hi - lo + kTileRows - 1) / kTileRows : 0;
+
+  auto fetch = [&](int t) {
+    const int r0 = lo + t * kTileRows;
+    const int nr = min(kTileRows, hi - r0);
+    const uint32_t bytes = static_cast<uint32_t>(nr * NS * 4) & ~15u;
+    uint64_t* bar = full + t % kStages;
+    mbar_expect_tx(bar, bytes);
+    if (bytes > 0)
+      bulk_load(raw + (t % kStages) * C::kRaw,
+                states + static_cast<size_t>(r0) * NS, bytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
+    mbar_fence_init();
   }
-  if (active && wrapped) rb = ra[b];
-  const float inv_two_pi = 1.0f / (2.0f * CUDART_PI_F);
+  if (threadIdx.x < 32) {
+    warp_cholesky(S, NS, a, Ws, Ls, NS);
+  } else if (threadIdx.x < 32 + NS) {
+    const int k = threadIdx.x - 32;   // angles stay uncentred
+    ctr[k] = k == a ? 0.f : center[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int t = 0; t < kStages && t < n_tiles; ++t) fetch(t);
 
-  float best = CUDART_INF_F;
-  int best_id = 0;
-  for (int t0 = 0; t0 < size; t0 += kTile) {
-    const int rows = min(kTile, size - t0);
-    __syncthreads();   // the previous tile is no longer being read
-    for (int i = threadIdx.x; i < rows * NS; i += kThreads)
-      zs[i] = z[(size_t)t0 * NS + i];
-    if (wrapped)
-      for (int i = threadIdx.x; i < rows; i += kThreads) xas[i] = xa[t0 + i];
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < rows; ++j) {
-      float turns = 0.f;
-      if (wrapped) turns = rintf((xas[j] - rb) * inv_two_pi);
-      float acc = 0.f;
+  const float c0 = WRAP ? kTwoPi * Ls[0] : 0.f;
+  const int b0 = blockIdx.x * C::kBlockCands + threadIdx.x;
+  float w[kC][NS], rp[kC], best[kC];
+  int best_id[kC];
 #pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        const float d = zs[j * NS + k] - wb[k] - turns * cb[k];
-        acc = fmaf(d, d, acc);
-      }
-      if (acc < best) {
-        best = acc;
-        best_id = t0 + j;
+  for (int c = 0; c < kC; ++c) {
+    const int b = b0 + c * kThreads;
+    const float* r = xr + static_cast<size_t>(b < B ? b : 0) * NS;
+    float xc[NS];
+    whiten<NS, NS>([&](int p) { return b < B ? __ldg(r + p) : 0.f; }, NS,
+                   Ls, ctr, a, xc, w[c]);
+    rp[c] = WRAP && b < B ? __ldg(r + a) * kInvTwoPi : 0.f;
+    best[c] = CUDART_INF_F;
+    best_id[c] = 0;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int slot = t % kStages;
+    mbar_wait(full + slot, (t / kStages) & 1);
+    const int r0 = lo + t * kTileRows;
+    const int nr = min(kTileRows, hi - r0);
+    const float* rt = raw + slot * C::kRaw;
+    float* pt = packed + (t & 1) * C::kPacked;
+    const int in_smem = (nr * NS) & ~3;   // floats the bulk copy moved
+    for (int r = threadIdx.x; r < nr; r += kThreads) {
+      const float* g = states + static_cast<size_t>(r0 + r) * NS;
+      auto at = [&](int p) {
+        return r * NS + p < in_smem ? rt[r * NS + p] : __ldg(g + p);
+      };
+      float xc[NS], z[NS];
+      whiten<NS, NS>(at, NS, Ls, ctr, a, xc, z);
+      float* row = pt + r * C::kRow;
+      if constexpr (WRAP) row[0] = at(a) * kInvTwoPi;
+#pragma unroll
+      for (int k = 0; k < NS; ++k) row[C::kOff + k] = z[k];
+    }
+    __syncthreads();   // the tile is packed; every thread is done with slot
+    if (threadIdx.x == 0 && t + kStages < n_tiles) {
+      fence_proxy_async();
+      fetch(t + kStages);
+    }
+    for (int j = 0; j < nr; ++j) {
+      const float4* row = reinterpret_cast<const float4*>(pt + j * C::kRow);
+      float acc[kC], turn[kC];
+      float4 v;
+      unroll<C::kOff + NS>([&](auto fc) {
+        constexpr int f = decltype(fc)::value;
+        if constexpr (f % 4 == 0) v = row[f / 4];
+        const float x = lane<f % 4>(v);
+        if constexpr (WRAP && f == 0) {          // k = rint(x'_a - r'_a)
+#pragma unroll
+          for (int c = 0; c < kC; ++c) turn[c] = (x - rp[c] + kRound) - kRound;
+        } else {
+          constexpr int k = f - C::kOff;
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            float d = x - w[c][k];
+            if constexpr (WRAP && k == 0) d = fmaf(-turn[c], c0, d);
+            if constexpr (k == 0) acc[c] = d * d;
+            else acc[c] = fmaf(d, d, acc[c]);
+          }
+        }
+      });
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        if (acc[c] < best[c]) {   // NaN fails: never a winner
+          best[c] = acc[c];
+          best_id[c] = r0 + j;
+        }
       }
     }
   }
-  if (active) {
-    ids[b] = best_id;
-    cost[b] = best;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const int b = b0 + c * kThreads;
+    if (b < B && best[c] < CUDART_INF_F)
+      atomicMin(keys + b, pack_key(best[c], best_id[c]));
   }
+  if (last_block(keys + B)) {
+    for (int b = threadIdx.x; b < B; b += kThreads)
+      unpack_key(__ldcg(keys + b), ids[b], cost[b]);
+  }
+}
+
+template <int NS, bool WRAP>
+int launch(const float* states, const float* xr, const float* S,
+           const float* center, const int* size, long long* keys, int* ids,
+           float* cost, int N, int B, int a, cudaStream_t s) {
+  using C = Cfg<NS, WRAP>;
+  // the ring fits the 48 KB a launch gets without cudaFuncSetAttribute
+  static_assert(C::kSmem <= 48 * 1024, "the tile ring is too large");
+  static int cache[64] = {};
+  const int cand_tiles = (B + C::kBlockCands - 1) / C::kBlockCands;
+  const int parts = node_parts(
+      resident_blocks(nn_const_kernel<NS, WRAP>, kThreads, C::kSmem, cache),
+      cand_tiles, N, kTileRows);
+  const dim3 grid(cand_tiles, parts);
+  nn_const_kernel<NS, WRAP><<<grid, kThreads, C::kSmem, s>>>(
+      states, xr, S, center, size, keys, ids, cost, N, B, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define LQRRT_NN_CASE(NS)                                                   \
+#define LQRRT_NN_CONST_CASE(NS)                                             \
   case NS:                                                                  \
-    nn_const_kernel<NS><<<grid, kThreads, 0, s>>>(z, xa, w, ra, c, size,    \
-                                                  ids, cost, N, B, wrapped); \
-    break;
+    return wrap ? launch<NS, true>(states, xr, S, center, size, keys, ids,  \
+                                   cost, N, B, a, s)                        \
+                : launch<NS, false>(states, xr, S, center, size, keys, ids, \
+                                    cost, N, B, a, s);
 
-extern "C" int lqrrt_nn_const(const float* z, const float* xa, const float* w,
-                              const float* ra, const float* c, const int* size,
-                              int* ids, float* cost, int N, int B, int n,
-                              int wrapped, void* stream) {
+// states (N, n) and xr (B, n) raw, 16-byte aligned; S (n, n); center (n,)
+// the candidates' mean; keys (B + 1,) filled with pack_key(+inf, 0); ids,
+// cost (B,) written by the launch; a the wrapped dim or -1
+extern "C" int lqrrt_nn_const(const float* states, const float* xr,
+                              const float* S, const float* center,
+                              const int* size, long long* keys, int* ids,
+                              float* cost, int N, int B, int n, int a,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + kThreads - 1) / kThreads);
+  const bool wrap = a >= 0;
+  if (N < 1 || B < 1 || a >= n) return static_cast<int>(cudaErrorInvalidValue);
   switch (n) {
-    LQRRT_NN_CASE(1) LQRRT_NN_CASE(2) LQRRT_NN_CASE(3) LQRRT_NN_CASE(4)
-    LQRRT_NN_CASE(5) LQRRT_NN_CASE(6) LQRRT_NN_CASE(7) LQRRT_NN_CASE(8)
-    LQRRT_NN_CASE(9) LQRRT_NN_CASE(10) LQRRT_NN_CASE(11) LQRRT_NN_CASE(12)
-    LQRRT_NN_CASE(13) LQRRT_NN_CASE(14) LQRRT_NN_CASE(15) LQRRT_NN_CASE(16)
+    LQRRT_NN_CONST_CASE(1) LQRRT_NN_CONST_CASE(2) LQRRT_NN_CONST_CASE(3)
+    LQRRT_NN_CONST_CASE(4) LQRRT_NN_CONST_CASE(5) LQRRT_NN_CONST_CASE(6)
+    LQRRT_NN_CONST_CASE(7) LQRRT_NN_CONST_CASE(8) LQRRT_NN_CONST_CASE(9)
+    LQRRT_NN_CONST_CASE(10) LQRRT_NN_CONST_CASE(11) LQRRT_NN_CONST_CASE(12)
+    LQRRT_NN_CONST_CASE(13) LQRRT_NN_CONST_CASE(14) LQRRT_NN_CONST_CASE(15)
+    LQRRT_NN_CONST_CASE(16)
     default:
       return static_cast<int>(cudaErrorInvalidValue);  // n > kMaxStates
   }
-  return static_cast<int>(cudaGetLastError());
 }

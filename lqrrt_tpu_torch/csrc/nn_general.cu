@@ -50,7 +50,11 @@
 #include <cstdint>
 #include <utility>
 
+#include "nn_common.cuh"
+
 namespace {
+
+using namespace lqrrt_nn;
 
 constexpr int kThreads = 128;
 constexpr int kStages = 3;
@@ -80,83 +84,6 @@ __host__ __device__ constexpr int tri_col(int p, int n) {
   int i = 0;
   while (p >= n - i) p -= n - i++;
   return i + p;
-}
-
-template <class Fn, int... Fs>
-__device__ __forceinline__ void unroll_seq(Fn& fn,
-                                           std::integer_sequence<int, Fs...>) {
-  (fn(std::integral_constant<int, Fs>{}), ...);
-}
-
-// fn(std::integral_constant<int, f>) for f = 0 .. N-1, in order
-template <int N, class Fn>
-__device__ __forceinline__ void unroll(Fn&& fn) {
-  unroll_seq(fn, std::make_integer_sequence<int, N>{});
-}
-
-template <int K>
-__device__ __forceinline__ float lane(const float4& v) {
-  if constexpr (K == 0) return v.x;
-  else if constexpr (K == 1) return v.y;
-  else if constexpr (K == 2) return v.z;
-  else return v.w;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-// one 1-D bulk copy global -> shared, completing on ``bar``; bytes and
-// both addresses are multiples of 16
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// order the threads' reads of a slot (generic proxy) before the bulk copy
-// (async proxy) that overwrites it
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// (order-preserving int32 of cost + 0.0f) << 32 | id: signed 64-bit order
-// is (cost, id) order; -0.0 and +0.0 tie, as floats do
-__device__ __forceinline__ long long pack_key(float cost, int id) {
-  const int bits = __float_as_int(__fadd_rn(cost, 0.0f));
-  const int ord = bits ^ ((bits >> 31) & 0x7fffffff);
-  return static_cast<long long>(
-      (static_cast<unsigned long long>(static_cast<uint32_t>(ord)) << 32) |
-      static_cast<uint32_t>(id));
 }
 
 // acc[c] = e' S_j e for the kC candidates r[c] against one packed row

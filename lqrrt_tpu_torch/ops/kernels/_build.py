@@ -34,10 +34,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers and the stream as c_void_p, sizes as c_int, scalars
 # as c_float
 _SIGNATURES = {
-    "lqrrt_nn_const": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lqrrt_nn_const": [_P] * 8 + [_I, _I, _I, _I, _P],
     "lqrrt_nn_general": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lqrrt_block_write": [_P, _P, _P, _I, _I, _I, _P],
-    "lqrrt_nn_expand": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "lqrrt_nn_expand": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
     "lqrrt_steer_rollout": [_P, _P, _P, _I] + [_P] * 6 + [_I] + [_P] * 6
                            + [_I, _I, _I, _F, _F, _F, _I, _P],
     "lqrrt_steer_stage": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 5

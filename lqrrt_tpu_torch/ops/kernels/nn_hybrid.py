@@ -5,18 +5,19 @@ and ``nearest_const_split3``).
 The same argmin as kernel A (``nn_const``): for each candidate r_b, the
 live row j < size minimising (x_j - r_b)' S (x_j - r_b) under one shared S,
 with at most one wrapped angle dim a.  Here it is taken in expanded form.
-The prep (``expand_prep``, outside the kernel as in JAX) whitens with
-L = cholesky(S + 1e-9 I), centres on the candidate mean (dim a uncentred),
-and builds depth-8 features
+The prep (``expand_prep``; the kernel builds the same in the launch)
+shares A's ``whitening``, without A's permutation: L = cholesky(S + 1e-9 I),
+centring on the candidate mean (dim a uncentred); then depth-8 features
 
     phi_j = [|z_j|^2, -2 z_j, 0...]    z = statesc @ L
     psi_b = [1, w_b, 0...]             w = xrandc @ L
 
-and, for the wrap, x_a, r_a, P_j = -4pi (statesc @ S[a])_j,
-Q_b = +4pi (xrandc @ S[a])_b and S_aa.  The kernel computes
+and, for the wrap, x'_a = x_a / 2pi, r'_a = r_a / 2pi, P_j = -4pi
+(statesc @ S[a])_j, Q_b = +4pi (xrandc @ S[a])_b and S_aa.  The kernel
+computes
 
     c_bj = psi_b . phi_j + k (P_j + Q_b) + 4pi^2 S_aa k^2,
-    k = rint((x_a,j - r_a,b) / 2pi),
+    k = rint(x'_a,j - r'_a,b),
 
 and a running (c, j) minimum; the functions return ``(ids int32, c + |w_b|^2
 f32)``.  The three differ only in how the depth-8 cross term is taken, the
@@ -34,7 +35,9 @@ Dead rows (j >= size) are masked by index and a non-finite cost never wins
 its block there).  The lowest index wins ties.
 
 Each wrapper takes its plain version for CPU tensors and the kernel
-(``csrc/nn_expand.cu``) for CUDA tensors; there is no other path.
+(``csrc/nn_expand.cu``) for CUDA tensors; there is no other path.  The
+kernel's blocks merge on ``nn_kernel.pack_keys``' keys of c, as kernel A's
+do, and the block that finishes last adds |w_b|^2: one launch a call.
 ``LAUNCHES`` counts the kernel's launches by mode, where they happen
 (``launch_expand``): ``nn_hybrid`` spans all three modes.
 """
@@ -45,12 +48,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .nn_kernel import _PLAIN_BLOCK, _blocked_argmin, _check, _launch, _mask
+from .nn_kernel import (_INV_TWO_PI, _PLAIN_BLOCK, _aligned, _blocked_argmin,
+                        _check, _empty_result, _keyed_outputs, _launch, _mask,
+                        _rint, whiten, whitening)
 
 _TWO_PI = 2.0 * math.pi
 DEPTH = 8                 # feature depth: |z|^2 and at most 7 coordinates
 MAX_STATES = DEPTH - 1
-CHUNK = 512               # node rows per block, kChunk in csrc/nn_expand.cu
 MODES = ("fma", "bf16", "bf16x3")
 _PREC_MODE = {"highest": "fma", "default": "bf16", "high": "bf16x3"}
 
@@ -60,10 +64,15 @@ LAUNCHES = dict.fromkeys(MODES, 0)
 class ExpandPrep(NamedTuple):
     phi: torch.Tensor     # (N, 8) node features [|z|^2, -2 z, 0...]
     psi: torch.Tensor     # (B, 8) candidate features [1, w, 0...]
-    nodew: torch.Tensor   # (N, 2) [x_a, P] (zeros when unwrapped)
-    candw: torch.Tensor   # (B, 2) [r_a, Q] (zeros when unwrapped)
+    nodew: torch.Tensor   # (N, 2) [x_a / 2pi, P] (zeros when unwrapped)
+    candw: torch.Tensor   # (B, 2) [r_a / 2pi, Q] (zeros when unwrapped)
     saa: torch.Tensor     # (1,) S_aa (zero when unwrapped)
     w2: torch.Tensor      # (B,) |w|^2
+
+
+def _norm2(z):
+    """(R,) |z_j|^2 in fp64, rounded once to z's type, as the kernel's."""
+    return (z.double() ** 2).sum(-1).to(z.dtype)
 
 
 def expand_prep(states, S, xrand, wrap_dim: Optional[int]) -> ExpandPrep:
@@ -71,36 +80,29 @@ def expand_prep(states, S, xrand, wrap_dim: Optional[int]) -> ExpandPrep:
     85-133``), on the inputs' device, with no host sync."""
     N, n = states.shape
     B = xrand.shape[0]
-    if S.dim() == 3:
-        S = S[0]
-    eye = torch.eye(n, dtype=S.dtype, device=S.device)
-    # cholesky_ex: no host-side error check, so no sync
-    L, _ = torch.linalg.cholesky_ex(S + 1e-9 * eye)
-    center = xrand.mean(0)
-    if wrap_dim is not None:
-        # a mask: writing a Python scalar into a device tensor would sync
-        center = center * (torch.arange(n, device=S.device) != wrap_dim)
+    L, center, _ = whitening(S, xrand, wrap_dim, False)
     statesc = states - center
     xrandc = xrand - center
-    z = statesc @ L
-    w = xrandc @ L
+    z = whiten(statesc, L)
+    w = whiten(xrandc, L)
     pad = DEPTH - 1 - n
-    phi = torch.cat([(z * z).sum(-1, keepdim=True), -2.0 * z,
-                     z.new_zeros((N, pad))], 1)
+    phi = torch.cat([_norm2(z)[:, None], -2.0 * z, z.new_zeros((N, pad))],
+                    1)
     psi = torch.cat([w.new_ones((B, 1)), w, w.new_zeros((B, pad))], 1)
     if wrap_dim is None:
         nodew = states.new_zeros((N, 2))
         candw = xrand.new_zeros((B, 2))
-        saa = S.new_zeros((1,))
+        saa = L.new_zeros((1,))
     else:
-        Sa = S[wrap_dim]
-        nodew = torch.stack([statesc[:, wrap_dim],
+        a = wrap_dim % n
+        S0 = S[0] if S.dim() == 3 else S
+        Sa = S0[a]
+        nodew = torch.stack([states[:, a] * _INV_TWO_PI,
                              (-2.0 * _TWO_PI) * (statesc @ Sa)], 1)
-        candw = torch.stack([xrandc[:, wrap_dim],
+        candw = torch.stack([xrand[:, a] * _INV_TWO_PI,
                              (2.0 * _TWO_PI) * (xrandc @ Sa)], 1)
-        saa = S[wrap_dim, wrap_dim].reshape(1)
-    return ExpandPrep(phi.contiguous(), psi.contiguous(), nodew.contiguous(),
-                      candw.contiguous(), saa.contiguous(), (w * w).sum(-1))
+        saa = S0[a, a].reshape(1)
+    return ExpandPrep(phi, psi, nodew, candw, saa, _norm2(w))
 
 
 def split_bf16(a):
@@ -178,9 +180,9 @@ def pick_cost64(p: ExpandPrep, ids, mode: str, wrapped: bool):
         terms = [(psi, phi)]
     c = sum((a.double() * b.double()).sum(-1) for a, b in terms)
     if wrapped:
-        xa, P = p.nodew[ids.long()].unbind(-1)
-        ra, Q = p.candw.unbind(-1)
-        k = torch.round((xa - ra) * (1.0 / _TWO_PI)).double()  # as in fp32
+        xp, P = p.nodew[ids.long()].unbind(-1)
+        rp, Q = p.candw.unbind(-1)
+        k = _rint(xp - rp).double()                  # as in fp32
         c = c + k * (P.double() + Q.double()) \
             + (_TWO_PI * _TWO_PI) * p.saa.double() * k * k
     return c + p.w2.double()
@@ -191,9 +193,9 @@ def expand_cost(p: ExpandPrep, j0: int, j1: int, mode: str, wrapped: bool):
     rows j0..j1: the kernel's arithmetic in plain PyTorch."""
     c = cross_term(p.psi, p.phi[j0:j1], mode)
     if wrapped:
-        xa, P = p.nodew[j0:j1, 0], p.nodew[j0:j1, 1]
-        ra, Q = p.candw[:, 0], p.candw[:, 1]
-        k = torch.round((xa[None, :] - ra[:, None]) * (1.0 / _TWO_PI))
+        xp, P = p.nodew[j0:j1, 0], p.nodew[j0:j1, 1]
+        rp, Q = p.candw[:, 0], p.candw[:, 1]
+        k = _rint(xp[None, :] - rp[:, None])
         c = c + k * (P[None, :] + Q[:, None]) \
             + ((_TWO_PI * _TWO_PI) * p.saa) * (k * k)
     return c
@@ -230,23 +232,21 @@ def _check_expand(name, states, S, size, xrand):
         raise ValueError(f"{name}: states and xrand must be contiguous")
 
 
-def launch_expand(p: ExpandPrep, size, mode: str, wrapped: bool):
-    """Launch ``lqrrt_nn_expand`` in ``mode`` on prepared CUDA features;
-    returns (ids, cost).  The main kernel scans CHUNK node rows a block and
-    writes one (cost, id) per candidate and chunk; a second pass in the
-    same ``.cu`` merges the chunks."""
-    N, B = p.phi.shape[0], p.psi.shape[0]
-    dev = p.phi.device
-    ids = torch.empty((B,), dtype=torch.int32, device=dev)
-    cost = torch.empty((B,), dtype=torch.float32, device=dev)
-    if B == 0:
-        return ids, cost
-    nsplit = -(-N // CHUNK)
-    part_cost = torch.empty((nsplit, B), dtype=torch.float32, device=dev)
-    part_id = torch.empty((nsplit, B), dtype=torch.int32, device=dev)
-    _launch("lqrrt_nn_expand", p.phi, p.nodew, p.psi, p.candw, p.saa, size,
-            p.w2, part_cost, part_id, ids, cost, N, B, MODES.index(mode),
-            int(wrapped))
+def launch_expand(states, S, size, xrand, wrap_dim: Optional[int],
+                  mode: str):
+    """Launch ``lqrrt_nn_expand`` in ``mode`` on CUDA tensors; returns
+    (ids, cost).  The launch builds the features, scans, merges its blocks
+    on 64-bit keys and writes (ids, cost); the wrapper adds the candidate
+    mean and the fill of the keys."""
+    N, n = states.shape
+    B = xrand.shape[0]
+    if B == 0 or N == 0:
+        return _empty_result(B, states.device)
+    S0 = (S[0] if S.dim() == 3 else S).contiguous()
+    keys, ids, cost = _keyed_outputs(B, states.device)
+    _launch("lqrrt_nn_expand", _aligned(states), _aligned(xrand), S0,
+            xrand.mean(0), size, keys, ids, cost, N, B, n, MODES.index(mode),
+            -1 if wrap_dim is None else wrap_dim % n)
     LAUNCHES[mode] += 1
     return ids, cost
 
@@ -255,8 +255,7 @@ def _run(states, S, size, xrand, wrap_dim, mode):
     """The plain version for CPU tensors, the kernel for CUDA tensors."""
     if states.device.type == "cpu":
         return nn_expand_plain(states, S, size, xrand, wrap_dim, mode)
-    return launch_expand(expand_prep(states, S, xrand, wrap_dim), size, mode,
-                         wrap_dim is not None)
+    return launch_expand(states, S, size, xrand, wrap_dim, mode)
 
 
 def nn_exp(states, S, size, xrand, *, wrap_dim: Optional[int] = None):

@@ -7,12 +7,17 @@ For each candidate r_b both return the argmin over live rows j < size of
 lowest index winning ties and a non-finite cost never winning.  They return
 ``(ids int32, cost f32)`` with the true metric value, as the JAX kernels do.
 
-``nn_const``: the prep stays in PyTorch, as JAX keeps it outside the
-``pallas_call``: ``L = cholesky(S + 1e-9 I)``, centring on the candidate mean
-(the wrap dim left uncentred), ``z = statesc @ L`` and ``w = xrandc @ L``.
-The distance and the argmin are the kernel (``csrc/nn_const.cu``):
-``cost = |z_j - w_b - k c|^2`` with ``k = rint((x_a - r_a) / 2pi)`` and
-``c = 2pi L[a, :]``.
+``nn_const``: the state dims are permuted so that the wrapped dim a comes
+first, ``L = cholesky(S_p + 1e-9 I)`` of the permuted S, and rows and
+candidates are centred on the candidate mean (dim a uncentred) and
+whitened, ``z = x_c L``, ``w = r_c L``.  L is lower triangular, so a turn
+of dim a shifts z by ``(c0, 0, ..., 0)``, ``c0 = 2pi L[0, 0]``, and the
+cost is ``|z_j - w_b - k (c0, 0, ...)|^2`` with ``k = rint(x_a / 2pi -
+r_a / 2pi)`` (``nn_const_prep``, ``nn_const_dist``).  The kernel
+(``csrc/nn_const.cu``) does all of it in the launch: it factors S, whitens
+the candidates and each staged tile of rows, and unpacks its merge keys
+into (ids, cost) in the block that finishes last.  The wrapper adds only
+the candidate mean and the fill of the keys.
 
 ``nn_general``: the prep folds each S_j into the upper triangle U_j of its
 symmetric part (``nn_general_fold``: U_ii = S_ii, U_ik = S_ik + S_ki for
@@ -26,7 +31,9 @@ turns back into (ids, cost).
 Each wrapper takes its plain PyTorch version for CPU tensors and its kernel
 for CUDA tensors; there is no other path.  Each header says what bounds the
 kernel on the H100 and what its design does about it.  ``nn_const.launches``
-and ``nn_general.launches`` count kernel launches.
+and ``nn_general.launches`` count kernel launches.  Both kernels' blocks
+take slices of the live rows (``block_rows`` in csrc/nn_common.cuh) and
+merge their first minima on ``pack_keys``' keys.
 """
 from __future__ import annotations
 
@@ -36,46 +43,86 @@ from typing import Optional
 import torch
 
 _TWO_PI = 2.0 * math.pi
+_INV_TWO_PI = 1.0 / _TWO_PI
+_ROUND = 12582912.0   # 1.5 * 2^23
 _PLAIN_BLOCK = 1024   # node rows per step of the plain version's scan
 _MAX_STATES = 16      # kMaxStates in csrc/nn_const.cu and nn_general.cu
 
 
-def nn_const_prep(states, S, xrand, wrap_dim: Optional[int]):
-    """(z, w, x_a, r_a, c): whitened centred nodes and candidates, the wrap
-    dim's raw values, and the whitened shift of one turn."""
-    n = states.shape[1]
+def _rint(v):
+    """v rounded to the nearest integer, ties to even, as two adds: ``(v +
+    1.5 * 2^23) - 1.5 * 2^23`` in fp32 (kRound in csrc/nn_common.cuh), 1.5
+    * 2^52 in fp64.  It equals ``torch.round(v)`` for |v| < 2^22 turns."""
+    m = _ROUND if v.dtype == torch.float32 else 1.5 * 2.0 ** 52
+    return (v + m) - m
+
+
+def _perm(n: int, wrap_dim: Optional[int]):
+    """The state dims with ``wrap_dim`` moved first (the identity without
+    one); perm_dim in csrc/nn_common.cuh."""
+    dims = list(range(n))
+    if wrap_dim is not None:
+        dims.insert(0, dims.pop(wrap_dim % n))
+    return dims
+
+
+def whitening(S, xrand, wrap_dim: Optional[int], wrap_first: bool):
+    """(L, center, perm): ``L = cholesky(S_p + 1e-9 I)`` of S with its dims
+    permuted as ``perm`` (the wrap dim first if ``wrap_first``), the jitter
+    added in fp32, factored in fp64 and rounded to fp32; and the candidate
+    mean with the wrap dim zeroed (angles stay uncentred).  S is (n, n) or
+    (N, n, n) (row 0 used).  The constant-metric kernels do the same in the
+    launch (``warp_cholesky``)."""
+    n = xrand.shape[1]
     if S.dim() == 3:
         S = S[0]
+    perm = _perm(n, wrap_dim if wrap_first else None)
+    Sp = S[perm][:, perm]
     eye = torch.eye(n, dtype=S.dtype, device=S.device)
     # cholesky_ex: no host-side error check, so no sync inside a chunk
-    L, _ = torch.linalg.cholesky_ex(S + 1e-9 * eye)
+    L = torch.linalg.cholesky_ex((Sp + 1e-9 * eye).double())[0].to(S.dtype)
     center = xrand.mean(0)
     if wrap_dim is not None:
-        # angles stay wrapped; a mask, since writing a Python scalar into
-        # a device tensor would copy it from the host and sync
-        center = center * (torch.arange(n, device=S.device) != wrap_dim)
-    statesc = states - center
-    xrandc = xrand - center
-    z = (statesc @ L).contiguous()
-    w = (xrandc @ L).contiguous()
+        # a mask: writing a Python scalar into a device tensor would sync
+        center = center * (torch.arange(n, device=S.device)
+                           != wrap_dim % n)
+    return L, center, perm
+
+
+def whiten(xc, L, perm=None):
+    """``xc[:, perm] @ L`` in fp64, rounded once to xc's type: the
+    kernels' whitening of centred rows ``xc``."""
+    if perm is not None:
+        xc = xc[:, perm]
+    return (xc.double() @ L.double()).to(xc.dtype)
+
+
+def nn_const_prep(states, S, xrand, wrap_dim: Optional[int]):
+    """(z, w, xp, rp, c0): whitened centred nodes and candidates in the
+    permuted dims (the wrap dim first), the wrap dim's raw values over 2pi,
+    and the whitened shift of one turn along z_0 (zeros without a wrap)."""
+    L, center, perm = whitening(S, xrand, wrap_dim, True)
+    z = whiten(states - center, L, perm)
+    w = whiten(xrand - center, L, perm)
     if wrap_dim is None:
-        xa = torch.zeros_like(states[:, 0])
-        ra = torch.zeros_like(xrand[:, 0])
-        c = torch.zeros_like(L[0])
+        xp = states.new_zeros(states.shape[0])
+        rp = xrand.new_zeros(xrand.shape[0])
+        c0 = L.new_zeros(())
     else:
-        xa = states[:, wrap_dim].contiguous()
-        ra = xrand[:, wrap_dim].contiguous()
-        c = (_TWO_PI * L[wrap_dim]).contiguous()
-    return z, w, xa, ra, c
+        a = wrap_dim % states.shape[1]
+        xp = states[:, a] * _INV_TWO_PI
+        rp = xrand[:, a] * _INV_TWO_PI
+        c0 = _TWO_PI * L[0, 0]
+    return z, w, xp, rp, c0
 
 
-def nn_const_dist(z, w, xa, ra, c, wrapped: bool):
+def nn_const_dist(z, w, xp, rp, c0, wrapped: bool):
     """(B, R) costs of candidates w against node rows z: the kernel's
     arithmetic in plain PyTorch, fp32, elementwise."""
     d = z[None, :, :] - w[:, None, :]
     if wrapped:
-        k = torch.round((xa[None, :] - ra[:, None]) * (1.0 / _TWO_PI))
-        d = d - k[:, :, None] * c
+        k = _rint(xp[None, :] - rp[:, None])
+        d = torch.cat([(d[..., 0] - k * c0)[..., None], d[..., 1:]], -1)
     return (d * d).sum(-1)
 
 
@@ -106,10 +153,10 @@ def nn_const_plain(states, S, size, xrand, wrap_dim: Optional[int] = None,
                    block: int = _PLAIN_BLOCK):
     """The plain version of ``nn_const``: a blocked scan of the whitened
     distance."""
-    z, w, xa, ra, c = nn_const_prep(states, S, xrand, wrap_dim)
+    z, w, xp, rp, c0 = nn_const_prep(states, S, xrand, wrap_dim)
 
     def dist(j0, j1):
-        cost = nn_const_dist(z[j0:j1], w, xa[j0:j1], ra, c,
+        cost = nn_const_dist(z[j0:j1], w, xp[j0:j1], rp, c0,
                              wrap_dim is not None)
         return _mask(cost, j0, j1, size)
 
@@ -188,7 +235,7 @@ def nn_general_fold_dist(rows, xr, n: int, wrapped: bool):
 # The merge key of (cost, id): the order-preserving int32 of cost + 0.0
 # (so -0.0 and +0.0 tie) in the high half and the row in the low half, so
 # that int64 order is (cost, id) order: the lowest cost wins and a tie goes
-# to the lowest index.  csrc/nn_general.cu's pack_key makes the same bits.
+# to the lowest index.  pack_key in csrc/nn_common.cuh makes the same bits.
 def pack_keys(cost, ids):
     """int64 merge keys of float32 ``cost`` and int ``ids`` (>= 0)."""
     bits = (cost.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)
@@ -233,6 +280,9 @@ def _check(name, states, S, size, xrand):
             size.device != states.device:
         raise TypeError(f"{name}: size must be one int32 element on the "
                         "inputs' device")
+    if S.shape[-2:] != (states.shape[1],) * 2 or S.dim() not in (2, 3):
+        raise ValueError(f"{name}: S must be (n, n) or (N, n, n) with n = "
+                         f"{states.shape[1]}, got {tuple(S.shape)}")
     if states.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {states.device}")
     if states.device.type == "cuda" and states.shape[1] > _MAX_STATES:
@@ -254,6 +304,28 @@ def _launch(fn, *args):
     _build.check(err, fn)
 
 
+def _aligned(t):
+    """``t`` if it is contiguous and 16-byte aligned (the kernels' bulk
+    copies need both), else such a copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _keyed_outputs(B: int, device):
+    """(keys, ids, cost): the merge keys, filled with EMPTY_KEY, with one
+    slot more, the counter of finished blocks (``last_block`` in
+    csrc/nn_common.cuh), and the outputs that the launch writes."""
+    return (torch.full((B + 1,), EMPTY_KEY, dtype=torch.int64, device=device),
+            torch.empty((B,), dtype=torch.int32, device=device),
+            torch.empty((B,), dtype=torch.float32, device=device))
+
+
+def _empty_result(B: int, device):
+    return (torch.zeros((B,), dtype=torch.int32, device=device),
+            torch.full((B,), math.inf, device=device))
+
+
 def nn_const(states, S, size, xrand, wrap_dim: Optional[int] = None):
     """(ids, cost) of each candidate's nearest live node under one shared
     S.  states (N, n), S (n, n) or (N, n, n) (row 0 used), size 0-d int32
@@ -263,13 +335,13 @@ def nn_const(states, S, size, xrand, wrap_dim: Optional[int] = None):
         return nn_const_plain(states, S, size, xrand, wrap_dim)
     N, n = states.shape
     B = xrand.shape[0]
-    z, w, xa, ra, c = nn_const_prep(states, S, xrand, wrap_dim)
-    ids = torch.empty((B,), dtype=torch.int32, device=states.device)
-    cost = torch.empty((B,), dtype=torch.float32, device=states.device)
-    if B == 0:
-        return ids, cost
-    _launch("lqrrt_nn_const", z, xa, w, ra, c, size, ids, cost, N, B, n,
-            int(wrap_dim is not None))
+    if B == 0 or N == 0:
+        return _empty_result(B, states.device)
+    S0 = (S[0] if S.dim() == 3 else S).contiguous()
+    keys, ids, cost = _keyed_outputs(B, states.device)
+    _launch("lqrrt_nn_const", _aligned(states), _aligned(xrand), S0,
+            xrand.mean(0), size, keys, ids, cost, N, B, n,
+            -1 if wrap_dim is None else wrap_dim % n)
     nn_const.launches += 1
     return ids, cost
 
@@ -290,8 +362,7 @@ def nn_general(states, S, size, xrand, wrap_dim: Optional[int] = None):
         return nn_general_plain(states, S, size, xrand, wrap_dim)
     B = xrand.shape[0]
     if B == 0 or N == 0:
-        return (torch.zeros((B,), dtype=torch.int32, device=states.device),
-                torch.full((B,), math.inf, device=states.device))
+        return _empty_result(B, states.device)
     rows, perm = nn_general_fold(states, S, wrap_dim)
     xr = xrand.index_select(1, perm).contiguous()
     keys = torch.full((B,), EMPTY_KEY, dtype=torch.int64,

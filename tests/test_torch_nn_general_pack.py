@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_nn_merge import partitioned_argmin
 from lqrrt_tpu_torch.ops.kernels.nn_kernel import (EMPTY_KEY, _mask,
                                                    nn_general_dist,
                                                    nn_general_fold,
@@ -142,15 +143,8 @@ def test_partitioned_key_merge_matches_the_scan(parts):
     rows, perm = nn_general_fold(states, S, wrap_dim)
     cost = nn_general_fold_dist(rows, xr[:, perm], n, True)
     cost = _mask(cost, 0, rows.shape[0], size)
-    keys = torch.full((xr.shape[0],), EMPTY_KEY, dtype=torch.int64)
-    per = -(-(-(-size // parts)) // 4) * 4
-    for lo in range(0, size, per):
-        hi = min(lo + per, size)
-        c, j = cost[:, lo:hi].min(dim=1)
-        live = torch.isfinite(c)
-        k = pack_keys(c, j + lo)
-        keys = torch.where(live, torch.minimum(keys, k), keys)
-    ids, got = unpack_keys(keys)
+    ids, got = partitioned_argmin(lambda j0, j1: cost[:, j0:j1], size,
+                                  xr.shape[0], parts, cost.device)
     ids_ref, ref = nn_general_plain(states, S, torch.tensor(size,
                                                             dtype=torch.int32),
                                     xr, wrap_dim)

@@ -22,12 +22,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_nn_merge import partitioned_argmin
 from lqrrt_tpu_torch.models import boat
-from lqrrt_tpu_torch.ops.kernels.nn_hybrid import (ERROR, error_scale,
+from lqrrt_tpu_torch.ops.kernels.nn_hybrid import (ERROR, MODES,
+                                                   error_scale, expand_cost,
                                                    expand_prep,
                                                    nn_expand_plain, nn_exp,
                                                    nn_hybrid, nn_split3,
                                                    split_bf16)
+from lqrrt_tpu_torch.ops.kernels.nn_kernel import _mask
 
 torch.set_num_threads(2)
 
@@ -345,6 +348,39 @@ def test_root_pad_ties_resolve_to_row_zero(name, block):
     assert (ids == 0).all()
     ids, _ = _port(name, states, S, P, xrand, 2)
     assert (ids == 0).all()
+
+
+@pytest.mark.parametrize("parts", [1, 3, 7])
+@pytest.mark.parametrize("mode", MODES)
+def test_partitioned_key_merge_matches_chunk_order(mode, parts):
+    """The kernel's merge in plain PyTorch: each partition of [0, size)
+    keeps its first minimum of c (without |w|^2), the partitions merge by
+    the minimum of their (c, row) keys, and |w|^2 is added after; the
+    blocked scan merges its chunks in order.  With root-pad copies of row
+    0, NaN rows inside and past size, both give the same ids and costs bit
+    for bit, in every mode."""
+    size = 300
+    states, S, _ = _data(7, N_=512, B_=B)
+    states[1:40] = states[0]             # root pad: rows 1..39 copy row 0
+    xrand = states[100:100 + B] + np.float32(0.01)
+    xrand[:3] = states[0]                # ties among the copies of row 0
+    states[250] = np.nan                 # a NaN row inside size
+    states[size + 3:] = np.nan           # and past it
+    st, Sm, xr = (torch.from_numpy(a) for a in (states, S, xrand))
+    p = expand_prep(st, Sm, xr, 2)
+
+    def dist(j0, j1):
+        return _mask(expand_cost(p, j0, j1, mode, True), j0, j1, size)
+
+    ids, c = partitioned_argmin(dist, size, B, parts, st.device)
+    ids_ref, cost_ref = nn_expand_plain(
+        st, Sm, torch.tensor(size, dtype=torch.int32), xr, 2, mode,
+        block=128)
+    assert ids[:3].tolist() == [0, 0, 0]
+    assert (ids != 250).all() and (ids < size).all()
+    assert torch.equal(ids, ids_ref)
+    assert torch.equal((c + p.w2).view(torch.int32),
+                       cost_ref.view(torch.int32))
 
 
 def test_rejects_bad_inputs():
