@@ -8,7 +8,7 @@ exits non-zero:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: compile the CUDA kernels from ``lqrrt_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ``ptxas``'s resource lines; every
-   instance of kernels A and E without spills;
+   instance of kernels A, D and E without spills;
 3. kernel A (nn_const) vs its plain PyTorch version at N = 40960,
    B = 8192 with an fp64 brute-force anchor: the boat's n = 6 (wrap dim 2)
    at sizes 0 to 32768, the root-pad tie at sizes 1024 and 32768, NaN
@@ -39,8 +39,9 @@ exits non-zero:
    (``core.steer.make_steer``, after the index gather for the tree) at
    B = 8192, H = 100 on the boat, on a batch that reaches every branch of
    the step (goal stop, infeasible stop, length 0, the psi wrap, saturated
-   efforts): agreement of length, in_goal and reached, max |dx| and |du|
-   where lengths agree, the branch counts, and both times; then kernel D's
+   efforts): every field of the result bit for bit, agreement of length,
+   in_goal and reached, max |dx| and |du| where lengths agree, the branch
+   counts, and both times; then kernel D's
    main path, the experiment's entry point
    ``lqrrt_tpu_torch.tools.exp_steer_kernel.main`` at full width (B = 8192,
    a tree of N = 40960 rows), with the launch counts set to 0 just before
@@ -49,10 +50,13 @@ exits non-zero:
    rows give the same NaN rows on the card as in the plain version, bit for
    bit against the plain version on the card (the tree call under
    ``torch.cuda.set_sync_debug_mode("error")``), NaN for NaN against the
-   CPU;
+   CPU, with the boat's 7 circles and without obstacles;
 5e. kernel F: F1 (``make_steer_kernel_dv``, D's kernel in the double-vmap
-   layout, batch_tile 512 and 1024) vs the plain steer as in 5c, then its
-   entry point ``exp_steer_dv.main``; F2, every configuration of the stage
+   layout, batch_tile 512 and 1024) vs the plain steer as in 5c; ragged
+   batches: D flat and tree and F1 at B = 8191, F4's probes B and C at
+   B = 1027 and from an unaligned pointer, each bit for bit against its
+   plain version; D flat and tree and F1 at B = 8192 with 0, 10 and 64
+   circles, bit for bit; then F1's entry point ``exp_steer_dv.main``; F2, every configuration of the stage
    scaffold (``steer_stages.build``) vs its plain version at B = 8192,
    H = 100, bit for bit, then its entry point ``exp_steer_stages.main``
    (where kernel D's time goes); F3 and F4, the entry points
@@ -110,6 +114,8 @@ SIZES = (512, 8704, 32768)
 TOL_STEER = 1e-3       # |dx|, |du| of a rollout where lengths agree (the
                        # CPU tests'); lengths, in_goal, reached: >= 0.999
 B_REPAIR = 2048        # candidates of kernel D's repair phase (a CPU run)
+B_RAGGED = 8191        # the ragged batch of kernel D and F1
+B_PROBE_RAGGED = 1027  # and of F4's probes B and C (6B not a multiple of 4)
 
 
 def log(msg: str) -> None:
@@ -579,42 +585,18 @@ def phase_kernel_d():
     its own in each row (the boat's K scaled by 0.5-1.5), so that the
     in-kernel gather of K is checked too.  Returns per variant the numbers
     of the kernels line."""
-    from lqrrt_tpu_torch.core.steer import make_steer
-    from lqrrt_tpu_torch.models import boat
-    from lqrrt_tpu_torch.ops.kernels.steer_kernel import (
-        make_steer_kernel, make_steer_kernel_tree)
-    from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement, boat_K,
-                                                        branch_batch,
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement,
                                                         branch_counts,
-                                                        device_ms,
-                                                        steer_args)
+                                                        device_ms)
+    from lqrrt_tpu_torch.tools.kernel_times import (same_result, steer_bound,
+                                                    steer_calls, steer_inputs)
 
     dev = "cuda"
-    prob = boat.default_problem()
-    args, kw = steer_args(prob)
-    x0_np, xtar_np, _ = branch_batch(B_BENCH, 19, prob)
-    rng = np.random.default_rng(23)
-    states_np = rng.uniform(-1.0, 1.0, (N_BENCH, NS)).astype(np.float32)
-    pids_np = rng.permutation(N_BENCH)[:B_BENCH].astype(np.int32)
-    states_np[pids_np] = x0_np
-    x0, xtar, states, pids = (torch.as_tensor(a, device=dev) for a in
-                              (x0_np, xtar_np, states_np, pids_np))
-    K = torch.as_tensor(boat_K(prob), device=dev)
-    KB = K.expand(B_BENCH, 3, NS).contiguous()
-    KN = torch.as_tensor((boat_K(prob) * rng.uniform(
-        0.5, 1.5, (N_BENCH, 1, 1))).astype(np.float32), device=dev)
-    goal = torch.as_tensor(prob["goal"], device=dev)
-    ncirc = len(prob["constraints"].is_feasible.circles[1])
-    plain = make_steer(*args, **kw)
-    flat = make_steer_kernel(*args, **kw)
-    tree = make_steer_kernel_tree(*args, **kw)
-    idx = pids.long()
-    cases = {
-        "flat": (lambda: flat(x0, KB, xtar, goal),
-                 lambda: plain(x0, KB, xtar, goal)),
-        "tree": (lambda: tree(states, KN, pids, xtar, goal),
-                 lambda: plain(states[idx], KN[idx], xtar, goal)),
-    }
+    t = steer_inputs(dev, B_BENCH, 19, N_BENCH)
+    x0_np, xtar_np, pids, ncirc = (t["x0_np"], t["xtar_np"], t["pids"],
+                                   t["ncirc"])
+    calls = steer_calls(t)
+    cases = {v: calls[v] for v in ("flat", "tree")}
     # the kernel sums 6 terms in the order of PyTorch's CUDA reduction
     # (sum6 in csrc/steer_rollout.cu): the share of rows where it is
     # torch.sum's order, printed since bit-for-bit agreement rests on it
@@ -628,6 +610,7 @@ def phase_kernel_d():
         res, ref = kernel(), plain_fn()
         torch.cuda.synchronize()
         a = agreement(res, ref)
+        same = same_result(res, ref)
         counts = branch_counts(res, x0_np, xtar_np)
         counts_plain = branch_counts(ref, x0_np, xtar_np)
         finite = bool(torch.isfinite(res.x_seq).all()
@@ -642,7 +625,7 @@ def phase_kernel_d():
         bound_ms, bound_by, flops, nbytes = steer_bound(
             res, rows_read, ncirc, variant == "tree")
         log(f"kernel D steer_rollout[{variant}] B={B_BENCH} "
-            f"H={res.x_seq.shape[0]}: "
+            f"H={res.x_seq.shape[0]}: bit_exact={same} "
             f"len_eq={a['len_eq']:.6f} in_goal_eq={a['in_goal_eq']:.6f} "
             f"reached_eq={a['reached_eq']:.6f} max_abs_dx={a['max_dx']:.3e} "
             f"max_abs_du={a['max_du']:.3e} max_abs_dxnew={a['max_dxnew']:.3e} "
@@ -652,12 +635,13 @@ def phase_kernel_d():
             f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}; "
             f"{flops:.4g} fp32 flops, {nbytes:.4g} bytes) "
             "(no PyTorch call computes a closed-loop rollout)")
-        if not (finite and min(a["len_eq"], a["in_goal_eq"],
-                               a["reached_eq"]) >= 0.999
+        if not (same and finite and min(a["len_eq"], a["in_goal_eq"],
+                                        a["reached_eq"]) >= 0.999
                 and max(a["max_dx"], a["max_du"], a["max_dxnew"])
                 <= TOL_STEER and min(counts.values()) > 0):
             raise AssertionError(f"kernel D [{variant}] disagrees with its "
-                                 "plain version or misses a branch")
+                                 "plain version (every field bit for bit) "
+                                 "or misses a branch")
         out[variant] = dict(max_abs_err=max(a["max_dx"], a["max_du"]),
                             ms=ms, device_ms=alone_ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by)
@@ -686,33 +670,6 @@ def phase_exp_steer_kernel(smi):
     return res, launches
 
 
-def steer_bound(res, rows_read, ncirc, tree):
-    """(ms, what bounds it, flops, bytes) of one steer_rollout call, from
-    its inputs and its outputs (the work depends on the data: a rollout
-    runs the RK4 only until it is done).  Flops as the kernel does them:
-    every step the erf
-    (6 sub, the wrap: add, fmod, sub), the converged test (6 mul, 5 add,
-    sqrt, compare) and u = K e clamped (3 x (6 mul, 5 add, 2 clamp)): 61;
-    an active step adds the RK4 (4 f of 39: sin, cos, 6 for pdot, 7 for the
-    Coriolis terms, 15 for drag, 9 for nudot; 36 for the stage states, 42
-    for the sum) and 6 a circle; a committed step 21 for the goal test; 22
-    at the end.  Bytes: xtar, the start rows read (x0 and K, or the
-    distinct parents' rows and pids) and the small constants read once;
-    xs, us, length, xnew, reached and in_goal written once."""
-    from lqrrt_tpu_torch.tools.kernel_times import bound
-
-    H, n, B = res.x_seq.shape
-    m = res.u_seq.shape[1]
-    length = res.length.long()
-    active = torch.where(res.in_goal, length, (length + 1).clamp(max=H))
-    flops = (B * H * 61 + int(active.sum()) * (234 + 6 * ncirc)
-             + int(length.sum()) * 21 + B * 22)
-    nbytes = (4 * B * n + 4 * rows_read * (n + m * n) + (4 * B if tree else 0)
-              + 4 * (3 * n + 14 + 3 * ncirc)
-              + 4 * H * (n + m) * B + B * (4 + 4 * n + 2))
-    return (*bound({"fp32": flops}, nbytes), flops, nbytes)
-
-
 def pick(res, sel):
     """The candidates ``sel`` of a SteerResult."""
     from lqrrt_tpu_torch.core.steer import SteerResult
@@ -728,24 +685,33 @@ def phase_d_repairs():
     card and the plain version give the same NaN rows.  Tree (N_BENCH
     rows, B_REPAIR candidates of ``branch_batch``): pids -1, -N, N and
     N + 7, and one pid at a NaN row of the states; flat: two NaN rows of
-    x0.  The kernel is held bit for bit, NaN equal to NaN, against the
-    plain version on the card (``gather_rows`` and ``make_steer`` on CUDA
-    tensors: the CPU path's code), the tree call under sync-debug mode
-    'error'; and against the wrapper on the CPU: the bad rows bit for bit
-    (NaN x, u and xnew, length 0, not reached, not in the goal), the same
-    NaN entries everywhere, and the finite rows with the round-parity
+    x0.  On the boat's default problem (7 circles) and without obstacles
+    (0 circles: the all-true predicate passes a NaN state).  The kernel is
+    held bit for bit, NaN equal to NaN, against the plain version on the
+    card (``gather_rows`` and ``make_steer`` on CUDA tensors: the CPU
+    path's code), the tree call under sync-debug mode 'error'; and against
+    the wrapper on the CPU: the bad rows bit for bit (NaN x, u and xnew,
+    not reached, not in the goal; length 0 with circles, H without), the
+    same NaN entries everywhere, and the finite rows with the round-parity
     phase's share (0.99) and TOL_STEER on x; u within TOL_STEER plus |K|'s
     row sum times x's difference (the CPU sums and rounds sin and cos in
     its own way)."""
-    from lqrrt_tpu_torch.core.steer import make_steer
     from lqrrt_tpu_torch.models import boat
+
+    for label, prob in (("7 circles", boat.default_problem()),
+                        ("0 circles", boat.default_problem(obstacles=False))):
+        d_repairs(label, prob)
+
+
+def d_repairs(label, prob):
+    """``phase_d_repairs`` on one problem."""
+    from lqrrt_tpu_torch.core.steer import make_steer
     from lqrrt_tpu_torch.ops.kernels.steer_kernel import (
         gather_rows, make_steer_kernel, make_steer_kernel_tree)
-    from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement, boat_K,
-                                                        branch_batch,
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import (H, agreement,
+                                                        boat_K, branch_batch,
                                                         steer_args)
 
-    prob = boat.default_problem()
     args, kw = steer_args(prob)
     B, N = B_REPAIR, N_BENCH
     x0_np, xtar_np, _ = branch_batch(B, 37, prob)
@@ -763,6 +729,8 @@ def phase_d_repairs():
     plain = make_steer(*args, **kw)
     tree = make_steer_kernel_tree(*args, **kw)
     flat = make_steer_kernel(*args, **kw)
+    # a NaN state fails every circle and passes the all-true predicate
+    bad_length = 0 if len(prob["constraints"].is_feasible.circles[1]) else H
 
     def inputs(dev):
         return [torch.as_tensor(a, device=dev) for a in
@@ -781,6 +749,7 @@ def phase_d_repairs():
     floats, exact = ("x_seq", "u_seq", "xnew"), ("length", "reached",
                                                  "in_goal")
     for variant, (kernel, plain_fn, bad) in cases.items():
+        what = f"kernel D repairs [{variant}, {label}]"
         kernel(*gpu)             # the constants' first copy to the card
         torch.cuda.synchronize()
         if variant == "tree":
@@ -794,28 +763,28 @@ def phase_d_repairs():
         for f in floats:
             torch.testing.assert_close(getattr(res, f), getattr(ref, f),
                                        rtol=0, atol=0, equal_nan=True,
-                                       msg=f"kernel D repairs [{variant}] "
-                                       f"{f} vs the plain version")
+                                       msg=f"{what} {f} vs the plain "
+                                       "version")
         for f in exact:
             if not torch.equal(getattr(res, f), getattr(ref, f)):
-                raise AssertionError(f"kernel D repairs [{variant}]: {f} "
-                                     "differs from the plain version")
+                raise AssertionError(f"{what}: {f} differs from the plain "
+                                     "version")
         res = type(res)(*(t.cpu() for t in res))
         ref_cpu = kernel(*cpu)
         for f in floats:
             if not torch.equal(getattr(res, f).isnan(),
                                getattr(ref_cpu, f).isnan()):
-                raise AssertionError(f"kernel D repairs [{variant}]: {f} "
-                                     "is NaN elsewhere than on the CPU")
+                raise AssertionError(f"{what}: {f} is NaN elsewhere than "
+                                     "on the CPU")
         sel = torch.tensor(bad)
         for r in (res, ref_cpu):
             r = pick(r, sel)
-            if not (bool((r.length == 0).all()) and not r.reached.any()
-                    and not r.in_goal.any()
+            if not (bool((r.length == bad_length).all())
+                    and not r.reached.any() and not r.in_goal.any()
                     and all(bool(getattr(r, f).isnan().all())
                             for f in floats)):
-                raise AssertionError(f"kernel D repairs [{variant}]: a bad "
-                                     "row is not an empty NaN rollout")
+                raise AssertionError(f"{what}: a bad row is not a NaN "
+                                     f"rollout of length {bad_length}")
         bad_card, bad_cpu = pick(res, sel), pick(ref_cpu, sel)
         for f in floats + exact:
             torch.testing.assert_close(getattr(bad_card, f),
@@ -824,10 +793,10 @@ def phase_d_repairs():
         good = torch.ones(B, dtype=torch.bool)
         good[sel] = False
         a = agreement(pick(res, good), pick(ref_cpu, good))
-        log(f"kernel D repairs [{variant}] B={B} bad rows {bad}: card vs "
-            "the plain version on the card bit for bit, NaN equal: ok; "
-            "card vs the CPU: the same NaN entries, bad rows empty NaN "
-            f"rollouts on both; finite rows len_eq={a['len_eq']:.6f} "
+        log(f"{what} B={B} bad rows {bad}: card vs the plain version on "
+            "the card bit for bit, NaN equal: ok; card vs the CPU: the "
+            f"same NaN entries, bad rows NaN rollouts of length {bad_length}"
+            f" on both; finite rows len_eq={a['len_eq']:.6f} "
             f"in_goal_eq={a['in_goal_eq']:.6f} "
             f"reached_eq={a['reached_eq']:.6f} max_abs_dx={a['max_dx']:.3e} "
             f"max_abs_du={a['max_du']:.3e} (u carries x's difference times "
@@ -835,8 +804,8 @@ def phase_d_repairs():
         if not (min(a["len_eq"], a["in_goal_eq"], a["reached_eq"]) >= 0.99
                 and max(a["max_dx"], a["max_dxnew"]) <= TOL_STEER
                 and a["max_du"] <= TOL_STEER + ksum * a["max_dx"]):
-            raise AssertionError(f"kernel D repairs [{variant}]: the finite "
-                                 "rows disagree with the CPU")
+            raise AssertionError(f"{what}: the finite rows disagree with "
+                                 "the CPU")
 
 
 def phase_f1():
@@ -844,28 +813,22 @@ def phase_f1():
     a block), against the plain steer on
     ``branch_batch`` at B = 8192, H = 100, batch_tile 512 and 1024, with
     phase D's gates."""
-    from lqrrt_tpu_torch.core.steer import make_steer
-    from lqrrt_tpu_torch.models import boat
     from lqrrt_tpu_torch.ops.kernels.steer_kernel import make_steer_kernel_dv
     from lqrrt_tpu_torch.tools.exp_steer_dv import BATCH_TILES
-    from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement, boat_K,
-                                                        branch_batch,
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement,
                                                         branch_counts,
-                                                        device_ms,
-                                                        steer_args)
+                                                        device_ms)
+    from lqrrt_tpu_torch.tools.kernel_times import (same_result, steer_bound,
+                                                    steer_calls, steer_inputs)
 
     dev = "cuda"
-    prob = boat.default_problem()
-    args, kw = steer_args(prob)
-    x0_np, xtar_np, _ = branch_batch(B_BENCH, 19, prob)
-    x0, xtar = (torch.as_tensor(a, device=dev) for a in (x0_np, xtar_np))
-    KB = torch.as_tensor(boat_K(prob), device=dev).expand(
-        B_BENCH, 3, NS).contiguous()
-    goal = torch.as_tensor(prob["goal"], device=dev)
-    ncirc = len(prob["constraints"].is_feasible.circles[1])
-    plain = make_steer(*args, **kw)
-    ref = plain(x0, KB, xtar, goal)
-    plain_ms = cuda_ms(lambda: plain(x0, KB, xtar, goal), reps=3)
+    t = steer_inputs(dev, B_BENCH, 19, N_BENCH)
+    x0_np, xtar_np, ncirc = t["x0_np"], t["xtar_np"], t["ncirc"]
+    x0, xtar, KB, goal, args, kw = (t[k] for k in ("x0", "xtar", "KB",
+                                                  "goal", "args", "kw"))
+    plain = steer_calls(t)["flat"][1]
+    ref = plain()
+    plain_ms = cuda_ms(plain, reps=3)
     out = dict(batch_tile_ms={}, batch_tile_device_ms={}, max_abs_err=0.0,
                plain_ms=plain_ms)
     for bt in BATCH_TILES:
@@ -874,7 +837,7 @@ def phase_f1():
         torch.cuda.synchronize()
         a = agreement(res, ref)
         counts = branch_counts(res, x0_np, xtar_np)
-        same = all(torch.equal(p, q) for p, q in zip(res, ref))
+        same = same_result(res, ref)
         finite = bool(torch.isfinite(res.x_seq).all()
                       and torch.isfinite(res.u_seq).all())
         alone_ms = device_ms(lambda: dv(x0, KB, xtar, goal), 20)
@@ -889,12 +852,13 @@ def phase_f1():
             f"kernel_ms={ms:.4f} device_ms={alone_ms:.4f} (alone) "
             f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}; "
             f"{flops:.4g} fp32 flops, {nbytes:.4g} bytes)")
-        if not (finite and min(a["len_eq"], a["in_goal_eq"],
-                               a["reached_eq"]) >= 0.999
+        if not (same and finite and min(a["len_eq"], a["in_goal_eq"],
+                                        a["reached_eq"]) >= 0.999
                 and max(a["max_dx"], a["max_du"], a["max_dxnew"])
                 <= TOL_STEER and min(counts.values()) > 0):
             raise AssertionError(f"F1 [batch_tile={bt}] disagrees with the "
-                                 "plain steer or misses a branch")
+                                 "plain steer (every field bit for bit) or "
+                                 "misses a branch")
         out["batch_tile_ms"][bt] = ms
         out["batch_tile_device_ms"][bt] = alone_ms
         out["max_abs_err"] = max(out["max_abs_err"], a["max_dx"],
@@ -903,6 +867,80 @@ def phase_f1():
                device_ms=out["batch_tile_device_ms"][BATCH_TILES[0]],
                bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def phase_ragged():
+    """A ragged batch: kernel D flat and tree and F1 at batch tiles 512 and
+    1024 at B = B_RAGGED (``kernel_times.steer_inputs``, seed 19, a tree of
+    N_BENCH rows) against the plain steer on the card, every field bit for
+    bit; and F4's probes B and C at B = B_PROBE_RAGGED, and at the tool's
+    B = 1024 from a pointer 4 bytes past 16-byte alignment (no float4
+    path), against their plain versions, bit for bit.  These launches
+    check; they are not the main paths'."""
+    from lqrrt_tpu_torch.ops.kernels import scaffold_probes as P
+    from lqrrt_tpu_torch.tools.kernel_times import (same_result, steer_calls,
+                                                    steer_inputs)
+
+    t = steer_inputs("cuda", B_RAGGED, 19, N_BENCH)
+    failed = []
+    for label, (call, plain) in steer_calls(t).items():
+        res, ref = call(), plain()
+        torch.cuda.synchronize()
+        same = same_result(res, ref)
+        log(f"ragged steer_rollout[{label}] B={B_RAGGED}: bit_exact={same} "
+            f"lengths {int(res.length.min())}-{int(res.length.max())}, "
+            f"in_goal {int(res.in_goal.sum())}, reached "
+            f"{int(res.reached.sum())}")
+        if not same:
+            failed.append(label)
+    g = torch.Generator(device="cuda").manual_seed(43)
+    flat = torch.randn(NS * 1024 + 1, generator=g, device="cuda")
+    xs = {f"B={B_PROBE_RAGGED}": torch.randn(
+              (NS, B_PROBE_RAGGED), generator=g, device="cuda"),
+          "B=1024 unaligned": flat[1:].view(NS, 1024)}
+    for label, x in xs.items():
+        for name in ("B", "C"):
+            same = torch.equal(P.probe(name, x), P.plain(name, x))
+            log(f"ragged scaffold_probe[{P.NAMES[name]}] {label}: "
+                f"bit_exact={same}")
+            if not same:
+                failed.append(f"probe {name} {label}")
+    if failed:
+        raise AssertionError(f"ragged batches differ from their plain "
+                             f"versions: {failed}")
+
+
+def phase_circle_counts():
+    """Kernel D flat and tree and F1 at batch tiles 512 and 1024 at
+    B = B_BENCH against the plain steer on the card, every field bit for
+    bit, at the circle counts that take the other paths of the circles
+    test: 0 (no obstacles), 10 (``hard_problem``) and 64 (the most the
+    rollout takes), from ``kernel_times.circle_problems``.  These launches
+    check; they are not the main paths'."""
+    from lqrrt_tpu_torch.tools.kernel_times import (circle_problems,
+                                                    same_result, steer_calls,
+                                                    steer_inputs)
+
+    failed = []
+    for label, prob in circle_problems().items():
+        if label == "7 circles":   # phases D and F1
+            continue
+        t = steer_inputs("cuda", B_BENCH, 19, N_BENCH, prob)
+        for variant, (call, plain) in steer_calls(t).items():
+            res, ref = call(), plain()
+            torch.cuda.synchronize()
+            same = same_result(res, ref)
+            stops = int((~res.in_goal & ~res.reached
+                         & (res.length < res.x_seq.shape[0])).sum())
+            log(f"{label} steer_rollout[{variant}] B={B_BENCH}: "
+                f"bit_exact={same} lengths {int(res.length.min())}-"
+                f"{int(res.length.max())}, infeasible stops {stops}, "
+                f"in_goal {int(res.in_goal.sum())}")
+            if not same:
+                failed.append(f"{label} {variant}")
+    if failed:
+        raise AssertionError(f"the rollout differs from the plain steer: "
+                             f"{failed}")
 
 
 def phase_exp_steer_dv(smi):
@@ -1022,7 +1060,7 @@ def phase_f3_f4(smi):
     from lqrrt_tpu_torch.tools import dbg_steer_kernel, dbg_steer_scaffold
     from lqrrt_tpu_torch.tools.dbg_steer_kernel import branch_inputs, same
     from lqrrt_tpu_torch.tools.dbg_steer_scaffold import probe_args
-    from lqrrt_tpu_torch.tools.kernel_times import bound
+    from lqrrt_tpu_torch.tools.kernel_times import bound, probe_work
     from lqrrt_tpu_torch.tools.exp_steer_kernel import (GROUPS, branch_batch,
                                                         device_ms)
 
@@ -1096,19 +1134,6 @@ def phase_f3_f4(smi):
             f"bound_ms={probes[name]['bound'][0]:.6f} "
             f"({probes[name]['bound'][1]})")
     return l3, l4, stages, probes
-
-
-def probe_work(name, B, H):
-    """(fp32 flops, bytes) of one probe: x (6, B) read once, its
-    constant read once, the output written once; the flops of its
-    expression."""
-    out = {"B": H * NS * B, "C": H * NS * B, "D": B, "E": B}.get(name,
-                                                                NS * B)
-    aux = {"F": NS, "G": 14}.get(name, 0)
-    flops = {"A": NS * B, "B": 0, "C": H * NS * B, "D": 5 * B,
-             "E": H * B * (5 + 1 + NS), "F": NS * B,
-             "G": 13 + NS * B}[name]
-    return flops, 4 * (NS * B + aux + out)
 
 
 def f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3, f3_launches,
@@ -1444,13 +1469,17 @@ def main() -> int:
     ptxas = ptxas_summary(BODIES)
     for line in ptxas:
         log(f"  ptxas {line}")
-    # kernels A and E: every instance without spills
+    # kernels A, D and E: every instance without spills
     ae_ptxas = [line for line in ptxas
                 if line.startswith(("nn_const_kernel", "nn_expand_kernel"))]
-    spilled = [line for line in ae_ptxas if "spill 0/0 B" not in line]
-    if len(ae_ptxas) != 38 or spilled:
+    d_ptxas = [line for line in ptxas
+               if line.startswith("steer_rollout_kernel")]
+    spilled = [line for line in ae_ptxas + d_ptxas
+               if "spill 0/0 B" not in line]
+    if len(ae_ptxas) != 38 or len(d_ptxas) != 1 or spilled:
         raise AssertionError(f"ptxas: kernels A and E: {len(ae_ptxas)} "
-                             f"instances (38 expected), spilling {spilled}")
+                             f"instances (38 expected), D: {len(d_ptxas)} "
+                             f"(1 expected), spilling {spilled}")
 
     def timed(label, fn, *args, **kw):
         t = time.perf_counter()
@@ -1468,6 +1497,8 @@ def main() -> int:
                           smi)
     timed("kernel D repairs", phase_d_repairs)
     f1 = timed("F1", phase_f1)
+    timed("ragged batches", phase_ragged)
+    timed("circle counts", phase_circle_counts)
     f1_launches = timed("exp_steer_dv main", phase_exp_steer_dv, smi)
     f2 = timed("F2", phase_f2)
     f2_res, f2_launches = timed("exp_steer_stages main",

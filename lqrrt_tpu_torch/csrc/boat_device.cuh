@@ -66,6 +66,28 @@ __device__ __forceinline__ float wrap_angle(float a) {
   return sub(r, CUDART_PI_F);
 }
 
+// wrap_angle's value with fmodf only where |a + pi| >= 4 pi: below that,
+// fmodf(a + pi, 2 pi) is a + pi itself or a + pi -+ 2 pi, and that
+// subtraction is exact (Sterbenz), so the result has wrap_angle's bits.
+// NaN and inf take fmodf.  (fmodf is a loop; this is a compare.)
+__device__ __forceinline__ float wrap_angle_fast(float a) {
+  const float two_pi = 2.0f * CUDART_PI_F;
+  const float s = add(a, CUDART_PI_F), m = fabsf(s);
+  float r = m < two_pi                ? s
+            : m < 2.0f * two_pi       ? sub(s, copysignf(two_pi, s))
+                                      : fmodf(s, two_pi);
+  if (r < 0.f) r = add(r, two_pi);
+  return sub(r, CUDART_PI_F);
+}
+
+// erf with wrap_angle_fast: the same values
+__device__ __forceinline__ void erf_fast(const float* xgoal, const float* x,
+                                         float* e) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) e[i] = sub(xgoal[i], x[i]);
+  e[kPsi] = wrap_angle_fast(e[kPsi]);
+}
+
 // the boat's erf: e = xgoal - x, psi wrapped
 __device__ __forceinline__ void erf(const float* xgoal, const float* x,
                                     float* e) {
@@ -92,6 +114,45 @@ __device__ __forceinline__ void f(const float* p, const float* x,
                            mul(mul(p[kDQuad + k], nu), fabsf(nu)));
     xd[3 + k] = mul(p[kMinv + k], sub(add(u[k], cor[k]), drag));
   }
+}
+
+// boat.f split in two for the rollout (steer_rollout.cu), which takes the
+// four RK4 stages' trig after their velocity rows: f_vel gives rows 3-5 (no
+// trig), f_pos rows 0 and 1 from the cosine and sine of psi.  Together they
+// are f's operations in f's order; row 2 is w.
+__device__ __forceinline__ void f_vel(const float* p, const float* v,
+                                      const float* u, float* vd) {
+  const float vx = v[0], vy = v[1], w = v[2];
+  const float cor[kM] = {mul(mul(p[kSway], vy), w),
+                         mul(mul(-p[kMass], vx), w),
+                         mul(mul(sub(p[kMass], p[kSway]), vx), vy)};
+#pragma unroll
+  for (int k = 0; k < kM; ++k) {
+    const float nu = v[k];
+    const float drag = add(mul(p[kDLin + k], nu),
+                           mul(mul(p[kDQuad + k], nu), fabsf(nu)));
+    vd[k] = mul(p[kMinv + k], sub(add(u[k], cor[k]), drag));
+  }
+}
+
+__device__ __forceinline__ void f_pos(float c, float s, float vx, float vy,
+                                      float* pd) {
+  pd[0] = sub(mul(c, vx), mul(s, vy));
+  pd[1] = add(mul(s, vx), mul(c, vy));
+}
+
+// circles_free's test over circles first, ..., ncirc - 1: each circle's
+// distance is independent of the others' and the booleans are ANDed (the
+// same result as circles_free's chain)
+__device__ __forceinline__ bool circles_clear(const float* cs, int first,
+                                              int ncirc, float px, float py) {
+  bool ok = true;
+#pragma unroll 4
+  for (int k = first; k < ncirc; ++k) {
+    const float dx = sub(cs[3 * k], px), dy = sub(cs[3 * k + 1], py);
+    ok &= add(mul(dx, dx), mul(dy, dy)) > cs[3 * k + 2];
+  }
+  return ok;
 }
 
 // boat.saturate: u clamped to +-WRENCH_MAX

@@ -19,33 +19,52 @@
 // arrived or infeasible; with a goal box, stop after the first committed
 // in-goal step.  x and u are stored at every step, done or not: a finished
 // rollout holds its state, and its u is that of the held state, as in the
-// scan.  Once done, a thread skips only what cannot change the outputs (the
-// RK4, the circles, the goal test).  After the loop: length, xnew, reached
-// (the converged test on the final x) and in_goal.  Commits are a prefix, so
-// the wrapper derives the mask from length.
+// scan.  After the loop: length, xnew, reached (the converged test on the
+// final x) and in_goal.  Commits are a prefix, so the wrapper derives the
+// mask from length.
 //
-// Tree variant: with pids non-null, thread b reads its start state and gain
-// from rows pids[b] of the tree buffers directly.  (The Pallas kernel
+// Tree variant: with pids non-null, candidate b reads its start state and
+// gain from rows pids[b] of the tree buffers directly.  (The Pallas kernel
 // gathered them with a one-hot matmul over node blocks, since Mosaic has no
 // dynamic lane index.)
 //
 // Bound on the H100: bytes.  At B = 8192, H = 100 the outputs, (H, 6 + 3, B)
-// f32, are 29.5 MB and the inputs ~1 MB: ~9 us at 3.35 TB/s, against ~350
-// fp32 flops a candidate step, ~2.9e8 in all, ~4 us at 67 TFLOP/s.  Design:
-// one thread per candidate; the state, gain (3 x 6), target, goal, goal box
-// and tolerance in registers; the model's numbers and the circles (<= 64)
-// in shared memory, loaded once a block; xs[h, i, b] with b the fastest
-// index, so each store is coalesced across a warp.  What the simple design
-// leaves on the table is occupancy: 8192 threads are 256 warps, about two an
-// SM, each a serial chain of 100 RK4 steps with nothing to hide its
-// latency, so the kernel is latency-bound far above its byte bound.
-// Splitting a candidate's work across threads, or running more candidates a
-// launch, is later work; wgmma, TMA and CUDA-graph capture do not apply to
-// one launch of scalar chains.
+// f32, are 29.5 MB and the inputs ~1 MB: ~9 us at 3.35 TB/s, against ~2e8
+// fp32 flops for the boat's data, ~3 us at 67 TFLOP/s.  What holds a
+// rollout back is latency: each candidate is a serial chain of H steps, one
+// thread each, and a warp's 32 chains take as long at B = 1024 as at 8192
+// (one warp a scheduler at most), so the time is one warp's chain of ~500
+// instructions a step.  The design shortens that chain; the geometry
+// (threads a block, from B and the SM count: rollout_geometry in
+// ops/kernels/steer_kernel.py, not the Pallas tile) spreads the warps over
+// every SM.  A step's chain:
+// - the RK4's velocity rows take no trig and psi of each stage depends only
+//   on them, so the four stages' sincosf (one range reduction for both, the
+//   bits of sinf and cosf) depend on the velocity chain alone, not on each
+//   other;
+// - the erf's wrap takes fmodf (a loop) only where |e + pi| >= 4 pi
+//   (wrap_angle_fast: the same bits);
+// - the scalar converged test compares the sum of squares with the largest
+//   float whose rounded sqrt is <= tol (the wrapper's sqrt_threshold: the
+//   same boolean as sqrt(sum) <= tol, without the sqrt);
+// - the first 8 circles sit in registers and are tested independently and
+//   ANDed (the same boolean as circles_free's chain; a slot past ncirc
+//   passes, as no circle does for a NaN xn); the rest are read from shared
+//   memory (one loop over shared memory for all was slower at 7, 10 and 64
+//   circles: tools/exp_rollout_circles.py);
+// - the next step's erf, converged test and u are computed from xn beside
+//   the circles and the goal test, and taken if the step commits; a rollout
+//   that is done keeps its x and u and only stores them (once done, x never
+//   changes, so neither does u).
+// Spreading a candidate over 2 or 4 lanes (each stage's trig and the
+// circles on its own lane, joined by shuffles and a vote) was measured
+// slower at B = 1024-8192: every lane still runs the control and the
+// velocity chain.  wgmma, TMA and CUDA-graph capture do not apply to one
+// launch of scalar chains.
 //
 // Rounding: every operation rounds on its own, in the plain version's order
 // (the device functions of boat_device.cuh; sums of 6 follow PyTorch's CUDA
-// reduction), with precise sinf, cosf, fmodf and sqrtf (no
+// reduction), with precise sincosf, fmodf and sqrtf-equivalent tests (no
 // --use_fast_math), so that on the card the kernel reproduces the plain
 // steer's arithmetic: a rollout amplifies one ulp of x into ~1e-3 of u
 // through the gain K.  The saturation propagates NaN as torch.clamp does,
@@ -67,28 +86,88 @@ using boat::sub;
 using boat::sum6;
 
 constexpr int kMaxCircles = 64;   // MAX_CIRCLES in ops/kernels/steer_kernel.py
+constexpr int kMaxThreads = 128;  // MAX_THREADS there
+constexpr int kStages = 4;        // RK4
+constexpr int kRegCircles = 8;    // circles kept in registers
 
 // |e| <= tol: the 2-norm against a scalar (the scan's test, not the Pallas
-// kernel's sum <= tol^2), or every dim against its own
+// kernel's sum <= tol^2) as sum(e^2) <= tol's sqrt threshold, or every dim
+// against its own
 __device__ __forceinline__ bool converged(const float* e, const float* tol,
                                           bool per_dim) {
   if (per_dim) {
     bool ok = true;
 #pragma unroll
-    for (int i = 0; i < kN; ++i) ok = ok && fabsf(e[i]) <= tol[i];
+    for (int i = 0; i < kN; ++i) ok &= fabsf(e[i]) <= tol[i];
     return ok;
   }
   float sq[kN];
 #pragma unroll
   for (int i = 0; i < kN; ++i) sq[i] = mul(e[i], e[i]);
-  return sqrtf(sum6(sq)) <= tol[0];
+  return sum6(sq) <= tol[0];
 }
 
-// kWide: blocks of up to 1024 threads (F1's batch_tile 1024), with the
-// registers a thread may take capped to fit them; D's blocks of up to 512
-// take the 115 the kernel needs.  The arithmetic is the same in both.
-template <bool kWide>
-__global__ void __launch_bounds__(kWide ? 1024 : 512) steer_rollout_kernel(
+// the control of state x: u = K erf(xtar, x) saturated; returns the
+// converged test on the same e
+__device__ __forceinline__ bool control(const float* p, const float* tar,
+                                        const float* x,
+                                        const float (*K)[kN],
+                                        const float* tol, bool per_dim,
+                                        float* u) {
+  float e[kN];
+  boat::erf_fast(tar, x, e);
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+    float prod[kN];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) prod[j] = mul(K[i][j], e[j]);
+    u[i] = sum6(prod);
+  }
+  boat::saturate(p, u);
+  return converged(e, tol, per_dim);
+}
+
+// rk4_f of boat_device.cuh reordered: the velocity rows and psi of the four
+// stages first (t2 = x + hh k1, t3 = x + hh k2, t4 = x + h k3; k[2] is the
+// stage's w), then each stage's trig and position rows, then xn as rk4's
+// last line
+__device__ __forceinline__ void rk4_split(const float* p, const float* x,
+                                          const float* u, float hh, float h,
+                                          float h6, float* xn) {
+  float v[kStages][kM], kv[kStages][kM], psi[kStages], kp[kStages][2];
+  const float step[kStages] = {0.f, hh, hh, h};
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    if (s == 0) {
+#pragma unroll
+      for (int i = 0; i < kM; ++i) v[s][i] = x[3 + i];
+      psi[s] = x[2];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kM; ++i)
+        v[s][i] = add(x[3 + i], mul(step[s], kv[s - 1][i]));
+      psi[s] = add(x[2], mul(step[s], v[s - 1][2]));
+    }
+    boat::f_vel(p, v[s], u, kv[s]);
+  }
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    float c, sn;
+    sincosf(psi[s], &sn, &c);   // the bits of sinf and cosf
+    boat::f_pos(c, sn, v[s][0], v[s][1], kp[s]);
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    float k[kStages];
+#pragma unroll
+    for (int s = 0; s < kStages; ++s)
+      k[s] = i < 2 ? kp[s][i] : i == 2 ? v[s][2] : kv[s][i - 3];
+    xn[i] = add(x[i], mul(h6, add(add(add(k[0], mul(2.0f, k[1])),
+                                      mul(2.0f, k[2])), k[3])));
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
     const float* __restrict__ rows, const float* __restrict__ gains,
     const int* __restrict__ pids, int R, const float* __restrict__ xtar,
     const float* __restrict__ goal, const float* __restrict__ params,
@@ -127,53 +206,69 @@ __global__ void __launch_bounds__(kWide ? 1024 : 512) steer_rollout_kernel(
 #pragma unroll
     for (int j = 0; j < kN; ++j)
       K[i][j] = valid ? gains[((size_t)r * kM + i) * kN + j] : CUDART_NAN_F;
+  // the first kRegCircles circles in registers, the rest read from shared
+  // memory each step
+  float cr[kRegCircles][3];
+#pragma unroll
+  for (int k = 0; k < kRegCircles; ++k)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) cr[k][j] = k < ncirc ? cs[3 * k + j] : 0.f;
 
+  // u and arrived always belong to the current x
+  float u[kM];
+  bool arrived = control(p, tar, x, K, tl, per_dim, u);
   bool done = false, hit = false;
   int len = 0;
   for (int step = 0; step < H; ++step) {
-    float e[kN], u[kM];
-    boat::erf(tar, x, e);
-    const bool arrived = converged(e, tl, per_dim);
+    float ustep[kM];   // u of the state this step starts from: stored
 #pragma unroll
-    for (int i = 0; i < kM; ++i) {
-      float prod[kN];
-#pragma unroll
-      for (int j = 0; j < kN; ++j) prod[j] = mul(K[i][j], e[j]);
-      u[i] = sum6(prod);
-    }
-    boat::saturate(p, u);
+    for (int i = 0; i < kM; ++i) ustep[i] = u[i];
     if (!done) {
-      float xn[kN];
-      boat::rk4_f(p, x, u, hh, h, h6, xn);
-      const bool feas = boat::circles_free(cs, ncirc, xn);
-      const bool commit = !arrived && feas;
-      done = arrived || !feas;
-      if (commit) {
+      if (arrived) {
+        done = true;
+      } else {
+        float xn[kN], un[kM];
+        rk4_split(p, x, u, hh, h, h6, xn);
+        bool feas = boat::circles_clear(cs, kRegCircles, ncirc, xn[0], xn[1]);
 #pragma unroll
-        for (int i = 0; i < kN; ++i) x[i] = xn[i];
-        ++len;
+        for (int k = 0; k < kRegCircles; ++k) {
+          // a missing circle passes whatever xn is, NaN included
+          const float dx = sub(cr[k][0], xn[0]), dy = sub(cr[k][1], xn[1]);
+          feas &= k >= ncirc || add(mul(dx, dx), mul(dy, dy)) > cr[k][2];
+        }
+        // the next step's control, taken if this step commits
+        const bool arrived_n = control(p, tar, xn, K, tl, per_dim, un);
+        bool in = has_goal;
         if (has_goal) {   // the first committed in-goal step ends it
           float eg[kN];
-          boat::erf(g, xn, eg);
-          bool in = true;
+          boat::erf_fast(g, xn, eg);
 #pragma unroll
-          for (int i = 0; i < kN; ++i) in = in && fabsf(eg[i]) <= gb[i];
-          hit = hit || in;
-          done = done || in;
+          for (int i = 0; i < kN; ++i) in &= fabsf(eg[i]) <= gb[i];
+        }
+        if (feas) {
+#pragma unroll
+          for (int i = 0; i < kN; ++i) x[i] = xn[i];
+#pragma unroll
+          for (int i = 0; i < kM; ++i) u[i] = un[i];
+          arrived = arrived_n;
+          ++len;
+          hit = in;
+          done = in;
+        } else {
+          done = true;
         }
       }
     }
 #pragma unroll
     for (int i = 0; i < kN; ++i) xs[((size_t)step * kN + i) * B + b] = x[i];
 #pragma unroll
-    for (int i = 0; i < kM; ++i) us[((size_t)step * kM + i) * B + b] = u[i];
+    for (int i = 0; i < kM; ++i)
+      us[((size_t)step * kM + i) * B + b] = ustep[i];
   }
-  float e[kN];
-  boat::erf(tar, x, e);
   length[b] = len;
 #pragma unroll
   for (int i = 0; i < kN; ++i) xnew[(size_t)b * kN + i] = x[i];
-  reached[b] = converged(e, tl, per_dim);
+  reached[b] = arrived;
   in_goal[b] = hit;
 }
 
@@ -181,24 +276,25 @@ __global__ void __launch_bounds__(kWide ? 1024 : 512) steer_rollout_kernel(
 
 // rows (R, 6) and gains (R, 3, 6): the candidates' own x0 and K (pids null,
 // R = B) or the tree's states and K (pids (B,) parent rows).  goal and gbuf
-// are both null without a goal box.  tol is (6,) with per_dim, else (1,).
-// circles (ncirc, 3).  Outputs: xs (H, 6, B), us (H, 3, B), length, xnew
-// (B, 6), reached and in_goal (B,) bool.  threads: candidates a block.
+// are both null without a goal box.  tol is (6,) with per_dim, else (1,):
+// the largest sum of squares whose rounded sqrt is <= error_tol.  circles
+// (ncirc, 3).  Outputs: xs (H, 6, B), us (H, 3, B), length, xnew (B, 6),
+// reached and in_goal (B,) bool.  Geometry (rollout_geometry in
+// ops/kernels/steer_kernel.py): threads (a multiple of 32, at most 128) a
+// block, blocks covering B, one thread a candidate.
 extern "C" int lqrrt_steer_rollout(
     const float* rows, const float* gains, const int* pids, int R,
     const float* xtar, const float* goal, const float* params,
     const float* tol, const float* gbuf, const float* circles, int ncirc,
     float* xs, float* us, int* length, float* xnew, bool* reached,
     bool* in_goal, int B, int H, int per_dim, float hh, float h, float h6,
-    int threads, void* stream) {
+    int threads, int blocks, void* stream) {
   if (ncirc < 0 || ncirc > kMaxCircles || threads < 32 ||
-      threads > 1024 || threads % 32 != 0)
+      threads > kMaxThreads || threads % 32 != 0 ||
+      (long long)blocks * threads < B)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + threads - 1) / threads);
-  auto kernel = threads > 512 ? steer_rollout_kernel<true>
-                               : steer_rollout_kernel<false>;
-  kernel<<<grid, threads, 0, s>>>(
+  steer_rollout_kernel<<<blocks, threads, 0, s>>>(
       rows, gains, pids, R, xtar, goal, params, tol, gbuf, circles, ncirc, xs,
       us, length, xnew, reached, in_goal, B, H, per_dim, hh, h, h6);
   return static_cast<int>(cudaGetLastError());

@@ -37,6 +37,7 @@ merge their first minima on ``pack_keys``' keys.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -302,6 +303,12 @@ def _launch(fn, *args):
             *[a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args], stream)
     _build.check(err, fn)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (the kernels' launch geometry)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _aligned(t):

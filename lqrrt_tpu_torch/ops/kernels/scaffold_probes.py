@@ -18,6 +18,9 @@ library call itself.  ``probe(name, *args)`` takes the tool's arguments:
 
 CPU tensors take the plain version, CUDA tensors the kernel; there is no
 other path.  ``LAUNCHES`` counts the kernel's launches by probe.
+``probe_geometry`` picks each launch's grid: B and C, which write
+(H, 6, B), spread over the card by B and its SM count; the others one
+thread a column, ``BLOCK`` a block.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import itertools
 
 import torch
 
-from .nn_kernel import _launch
+from .nn_kernel import _launch, sm_count
 
 H, NS, BLOCK = 100, 6, 256
 NAMES = {"A": "A 2d-copy", "B": "B 3d-static-write", "C": "C fori-ds-store",
@@ -60,6 +63,33 @@ PLAIN = {
 _AUX = {"F": (NS,), "G": (7, 2)}
 
 
+def probe_geometry(name: str, B: int, sms: int, aligned: bool = True):
+    """(threads, blocks_x, blocks_y, h_per, vec) of probe ``name``'s
+    launch on (6, B) inputs, on a card of ``sms`` SMs.
+
+    - B: thread e of grid row y stores x's element e (vec floats: 4 where
+      6B is a multiple of 4 and ``aligned``, else 1) at steps
+      [y h_per, (y + 1) h_per) of H; about 4 blocks an SM;
+    - C: thread e runs the chain of x's element e over all H steps, 256
+      threads a block or fewer (a multiple of 32) where that leaves an SM
+      without a block;
+    - the others: thread b takes column b, ``BLOCK`` a block."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    n = NS * B
+    if name == "B":
+        vec = 4 if aligned and n % 4 == 0 else 1
+        threads = BLOCK
+        bx = cdiv(n // vec, threads)
+        h_per = cdiv(H, min(H, max(1, cdiv(4 * sms, max(bx, 1)))))
+        return threads, bx, cdiv(H, h_per), h_per, vec
+    if name == "C":
+        threads = max(32, min(BLOCK, n // max(sms, 1) // 32 * 32))
+        return threads, cdiv(n, threads), 1, H, 1
+    return BLOCK, cdiv(B, BLOCK), 1, H, 1
+
+
 def plain(name: str, *args):
     """The probe's plain PyTorch version, on any device."""
     return PLAIN[name](*args)
@@ -67,8 +97,7 @@ def plain(name: str, *args):
 
 def probe(name: str, *args):
     """The probe ``name`` on the tool's arguments: the plain version for
-    CPU tensors, the kernel for CUDA tensors (BLOCK columns a block, the
-    tool's tile)."""
+    CPU tensors, the kernel for CUDA tensors (``probe_geometry``)."""
     if name not in PLAIN:
         raise ValueError(f"probe: unknown probe {name!r}; one of {PROBES}")
     aux, x = (args if name in _AUX else (None, *args))
@@ -93,7 +122,8 @@ def probe(name: str, *args):
     y = torch.empty(shape, dtype=torch.int32 if name == "E" else torch.float32,
                     device=x.device)
     if B:
+        aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
         _launch("lqrrt_scaffold_probe", x, aux, y, PROBES.index(name), B, H,
-                BLOCK)
+                *probe_geometry(name, B, sm_count(x.device), aligned))
         LAUNCHES[name] += 1
     return y

@@ -16,11 +16,15 @@ length``.
   tree row pids[b]: x0 = states[pids], K0 = K[pids]
   (``steer.takes_tree = True``); a pid outside [0, N) gives a NaN start
   row and gain (``gather_rows``);
-- ``make_steer_kernel_dv(...)`` -> ``make_steer_kernel``'s steer with
-  ``batch_tile`` as the block's thread count, counted as "dv".  The Pallas
-  kernel's double vmap writes (H, n, 1, B) and squeezes it; on the card
-  that is the same memory as (H, n, B), so F1's counterpart is kernel D
-  under F1's factory.
+- ``make_steer_kernel_dv(...)`` -> ``make_steer_kernel``'s steer, counted
+  as "dv".  The Pallas kernel's double vmap writes (H, n, 1, B) and
+  squeezes it; on the card that is the same memory as (H, n, B), so F1's
+  counterpart is kernel D under F1's factory.
+
+The kernel chooses its own launch geometry from B and the card's SM count
+(``rollout_geometry``: threads a block, blocks); the factories' ``block``
+and ``batch_tile``, the Pallas kernels' tile, are checked as before and
+change nothing on the card.
 
 A CUDA kernel cannot trace Python callbacks, so the kernel
 (``csrc/steer_rollout.cu``) carries the model's callbacks written out as
@@ -46,11 +50,40 @@ import torch
 from ..._const import Const
 from ...core.steer import SteerResult, make_steer
 from ...models import boat
-from .nn_kernel import _launch
+from .nn_kernel import _launch, sm_count
 
 VARIANTS = ("flat", "tree", "dv")
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
 MAX_CIRCLES = 64          # kMaxCircles in csrc/steer_rollout.cu
+MAX_THREADS = 128         # kMaxThreads there
+
+
+def rollout_geometry(B: int, sms: int):
+    """(threads, blocks) of one rollout launch over B candidates on a card
+    of ``sms`` SMs: thread t of the grid takes candidate t.  Threads:
+    MAX_THREADS, or fewer (a multiple of 32) where MAX_THREADS would leave
+    an SM without a block: the time is one warp's chain of H steps
+    (csrc/steer_rollout.cu), so the warps should spread over every SM."""
+    threads = max(32, min(MAX_THREADS, B // max(sms, 1) // 32 * 32))
+    return threads, -(-B // threads)
+
+
+def sqrt_threshold(tol) -> np.float32:
+    """The largest float32 s whose rounded square root is <= tol: for
+    s >= 0 (or NaN), sqrt(s) <= tol exactly when s <= this, since the
+    rounded sqrt is monotone.  The kernel's scalar converged test compares
+    the sum of squares with it, without the sqrt."""
+    t = np.float32(tol)
+    if not t >= 0:                     # negative or NaN: never converged
+        return np.float32(-np.inf)
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    s = np.float32(t) * np.float32(t)
+    with np.errstate(over="ignore"):
+        while np.sqrt(np.nextafter(s, up)) <= t and s < up:
+            s = np.nextafter(s, up)
+        while np.sqrt(s) > t:
+            s = np.nextafter(s, down)
+    return s
 
 
 def boat_params() -> np.ndarray:
@@ -122,13 +155,16 @@ class _Spec:
         if not (32 <= block <= 1024 and block % 32 == 0):
             raise ValueError(f"steer kernel: block must be a multiple of 32 "
                              f"in [32, 1024], got {block}")
-        self.block, self.ncirc = block, len(r2)
+        self.ncirc = len(r2)
         self.H = int(horizon_steps)
         # rk4_step's step sizes, each rounded once to float32 as the plain
         # version's Python floats are
         self.steps = (0.5 * dt, float(dt), dt / 6.0)
         self.params = Const(model["params"]())
-        self.tol = Const(tol.reshape(-1))
+        # per dim: tol itself; scalar: its sqrt threshold (the kernel tests
+        # the sum of squares)
+        self.tol = Const(tol if self.per_dim
+                         else np.array([sqrt_threshold(tol)], np.float32))
         self.gbuf = Const(np.asarray(goal_buffer if self.has_goal
                                      else np.zeros(self.n), np.float32))
         self.circles = Const(np.concatenate(
@@ -138,8 +174,8 @@ class _Spec:
                                 dt, error_tol, saturate, goal_buffer)
 
     def launch(self, rows, gains, pids, xtar, goal, variant):
-        """Launch ``lqrrt_steer_rollout`` on CUDA tensors; returns the
-        SteerResult."""
+        """Launch ``lqrrt_steer_rollout`` on CUDA tensors in
+        ``rollout_geometry``; returns the SteerResult."""
         B, (n, m), H = xtar.shape[0], (self.n, self.m), self.H
         dev = xtar.device
         xs = torch.empty((H, n, B), dtype=torch.float32, device=dev)
@@ -155,7 +191,7 @@ class _Spec:
                     self.gbuf.like(xtar) if self.has_goal else None,
                     self.circles.like(xtar), self.ncirc, xs, us, length,
                     xnew, reached, in_goal, B, H, int(self.per_dim),
-                    *self.steps, self.block)
+                    *self.steps, *rollout_geometry(B, sm_count(dev)))
             LAUNCHES[variant] += 1
         mask = torch.arange(H, device=dev)[:, None] < length[None, :]
         return SteerResult(xs, us, mask, length, xnew, reached, in_goal)
@@ -214,8 +250,9 @@ def make_steer_kernel(dynamics, erf, is_feasible, horizon_steps: int,
                       block: int = 64):
     """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal (n,)]).
 
-    ``block``: candidates (threads) a block of the kernel, a multiple of 32
-    (the counterpart of the Pallas kernel's ``batch_tile``)."""
+    ``block``: the Pallas kernel's ``batch_tile``, a multiple of 32 in
+    [32, 1024]; checked, and not the card's geometry
+    (``rollout_geometry``)."""
     return _flat_steer(_Spec(dynamics, erf, is_feasible, horizon_steps, dt,
                              error_tol, saturate, goal_buffer, block), "flat",
                        "steer_rollout")
@@ -262,9 +299,9 @@ def make_steer_kernel_dv(dynamics, erf, is_feasible, horizon_steps: int,
                          dt: float, error_tol, saturate=None,
                          goal_buffer=None, batch_tile: int = 512):
     """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal (n,)]), the
-    counterpart of ``make_steer_pallas_dv``: kernel D with ``batch_tile``
-    candidates (threads) a block, a multiple of 32 up to 1024, counted as
-    "dv".  The Pallas kernel tests sum(e * e) <= tol^2; this one keeps the
+    counterpart of ``make_steer_pallas_dv``: kernel D, counted as "dv";
+    ``batch_tile``, a multiple of 32 up to 1024, is checked as ``block``
+    is.  The Pallas kernel tests sum(e * e) <= tol^2; this one keeps the
     scan's norm (ROADMAP section 3)."""
     return _flat_steer(_Spec(dynamics, erf, is_feasible, horizon_steps, dt,
                              error_tol, saturate, goal_buffer, batch_tile),

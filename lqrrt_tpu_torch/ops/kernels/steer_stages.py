@@ -26,8 +26,9 @@ six stages do the same with 1-D outputs and a body that gives (x_out, inc).
   undefined, in the kernel as in the tool).
 - ``LAUNCHES`` counts the kernel's launches by stage, where they happen.
 
-The kernel runs ``BLOCK`` = 64 threads a block, kernel D's default, so that
-the stages' times split D's.
+The kernel runs ``BLOCK`` = 64 threads a block, the block of kernel D's
+first design, so that the stages' times split that design's (kernel D now
+picks its own geometry).
 """
 from __future__ import annotations
 

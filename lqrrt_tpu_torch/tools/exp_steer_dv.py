@@ -8,7 +8,8 @@ tools/exp_steer_dv_v5.py, its bench :208-241).
 box and ``saturate``; x0 the problem's x0 tiled over B candidates, the
 boat's constant K tiled, xtar ~ 5 N(0, 1) from a seeded numpy generator.
 For each ``batch_tile`` of the tool's sweep (512, 1024) it builds
-``make_steer_kernel_dv``, prints the first call's agreement with the plain
+``make_steer_kernel_dv`` (the kernel picks its own launch geometry, so both
+tiles time the same launch), prints the first call's agreement with the plain
 steer (``core.steer.make_steer``), then times the tool's chained call (x0
 <- the result's xnew, xtar <- xtar + 1e-6) over ``REPS`` calls after one
 warm-up, as ms a call, and on the card the kernel alone (``device_ms``,

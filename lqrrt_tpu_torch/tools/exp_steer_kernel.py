@@ -10,8 +10,9 @@ steps of dt = 0.05, error_tol 0.05, the goal box and ``saturate``; x0
 uniform in [-1, 1], the boat's constant K tiled, xtar uniform in the sample
 space.  It times the plain steer (``core.steer.make_steer``, the tool's
 "scan" line), then the kernel (``make_steer_kernel``) at each block size of
-``BLOCKS``, the sweep that takes the place of the tool's batch-tile sweep,
-and prints each one's ``len_eq`` (the share of candidates whose lengths
+``BLOCKS``, the sweep that takes the place of the tool's batch-tile sweep
+(the kernel picks its own launch geometry, so every block size times the
+same launch), and prints each one's ``len_eq`` (the share of candidates whose lengths
 agree with the plain steer's) and max|dx| (over those candidates).  The
 tool's ``unroll`` sweep is dropped: it probed Mosaic's ``fori_loop``, which
 takes only a rolled or a fully unrolled loop; nvcc unrolls the kernel's

@@ -1,7 +1,8 @@
-"""Kernels A, B, C and E alone on the card, at the planner's shapes.
+"""Kernels A, B, C, D and E and F4's probes B and C alone on the card, at
+the planner's and the experiments' shapes.
 
     python -m lqrrt_tpu_torch.tools.kernel_times [--reps 20]
-        [--only A,B,C,E] [--wrappers-only | --launches-only]
+        [--only A,B,C,D,E,F4] [--wrappers-only | --launches-only]
 
 B, the block-column write (``block_write``), on an edge buffer dst
 (100, C, 40960) with src (100, C, 8192) at start 8704, for C = 6 and 3,
@@ -36,18 +37,34 @@ launch there is its two kernels on features prepared once; see
 ``expand_launcher``).  Then A's and E's registers, shared memory and
 spills, as ``ptxas -v`` gave them when the library was built.
 
+D, the fused steer rollout (``steer_kernel``), on ``chip_smoke.py``'s
+phase D data (``steer_inputs``: ``branch_batch`` at B = 8192, seed 19, H =
+100, a tree of N = 40960 rows): flat and tree at block 64 and F1
+(``make_steer_kernel_dv``) at batch tiles 512 and 1024, each alone and
+with its dispatch beside its share of the bound (``steer_bound``), and
+whether it equals the plain steer on the card bit for bit; then the
+rollout's registers and spills.  F4, the scaffold probes B and C (``scaffold_probes.probe``) at
+the tool's B = 1024 and at B = 1027, alone and with dispatch, beside
+their plain versions (B's is the one PyTorch call
+``x.expand(H, 6, B).contiguous()``, C's a Python loop of H multiplies)
+and their bounds (``probe_work``), with the same bit-for-bit check.
+``--wrappers-only`` also runs D and F4 on an older tree.
+
 Every line names the card (``nvidia-smi`` name and power limit).  The
 device is the card: there is no CPU path.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import re
 import subprocess
 
 import torch
+
+import numpy as np
 
 from ..ops.kernels import nn_hybrid
 from ..ops.kernels.nn_kernel import nn_const, nn_general
@@ -333,12 +350,205 @@ def time_expand(mode: str, wrap, reps: int, dev="cuda",
         expand_bound(mode, states.shape[1], wrap is not None)[0])
 
 
-def main(reps: int = 20, only=("A", "B", "C", "E"), parts=PARTS) -> dict:
+def many_circles(k: int = 64, seed: int = 53):
+    """(centers (k, 2), radii (k,)) float32: k - 7 seeded circles of radius
+    0.2-0.5 m with centres in x [-10, 50] m, y [-30, 30] m, then the boat's
+    default 7 buoys."""
+    from ..models import boat
+
+    centers, radii = boat.default_problem()["obstacles"]
+    rng = np.random.default_rng(seed)
+    more = np.column_stack([rng.uniform(-10.0, 50.0, k - len(radii)),
+                            rng.uniform(-30.0, 30.0, k - len(radii))])
+    return (np.concatenate([more, centers]).astype(np.float32),
+            np.concatenate([rng.uniform(0.2, 0.5, k - len(radii)),
+                            radii]).astype(np.float32))
+
+
+def many_circles_problem(k: int = 64, seed: int = 53):
+    """The boat's default problem with the circles of ``many_circles``
+    (margin 1 m): the default buoys come last, so that ``branch_batch``'s
+    buoy group stops on circles past the first 8."""
+    from ..models import boat
+    from ..ops import collision
+
+    prob = boat.default_problem()
+    constraints = copy.copy(prob["constraints"])
+    constraints.set_feasibility_function(
+        collision.circles_free(*many_circles(k, seed), margin=1.0))
+    return dict(prob, constraints=constraints)
+
+
+def circle_problems() -> dict:
+    """{label: the boat's problem} at 0 circles (no obstacles: the all-true
+    predicate), 7 (the default), 10 (``hard_problem``) and 64 (the most
+    the rollout takes, ``many_circles_problem``)."""
+    from ..models import boat
+
+    return {"0 circles": boat.default_problem(obstacles=False),
+            "7 circles": boat.default_problem(),
+            "10 circles": boat.hard_problem(),
+            "64 circles": many_circles_problem()}
+
+
+def steer_inputs(dev, B: int = B, seed: int = 19, n_rows: int = N,
+                 prob=None):
+    """Kernel D's inputs, as ``chip_smoke.py``'s phase D makes them: the
+    boat's problem (``prob``, by default ``default_problem()``),
+    ``branch_batch(B, seed)`` (every branch of the step reached), its K
+    tiled (KB), and a tree of ``n_rows`` rows holding the batch's x0 at
+    distinct random rows (pids), each row with its own gain (the boat's K
+    scaled by 0.5-1.5, KN).  A dict of device tensors, with the numpy x0
+    and xtar and the circles' count."""
+    from ..models import boat
+    from .exp_steer_kernel import boat_K, branch_batch, steer_args
+
+    prob = boat.default_problem() if prob is None else prob
+    args, kw = steer_args(prob)
+    x0, xtar, _ = branch_batch(B, seed, prob)
+    rng = np.random.default_rng(seed + 4)
+    states = rng.uniform(-1.0, 1.0, (n_rows, 6)).astype(np.float32)
+    pids = rng.permutation(n_rows)[:B].astype(np.int32)
+    states[pids] = x0
+    KN = (boat_K(prob) * rng.uniform(0.5, 1.5, (n_rows, 1, 1))).astype(
+        np.float32)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+        x0=x0, xtar=xtar, states=states, pids=pids, KN=KN,
+        goal=prob["goal"]).items()}
+    t["KB"] = torch.as_tensor(boat_K(prob), device=dev).expand(
+        B, 3, 6).contiguous()
+    return dict(t, args=args, kw=kw, x0_np=x0, xtar_np=xtar,
+                ncirc=len(prob["constraints"].is_feasible.circles[1]))
+
+
+def steer_bound(res, rows_read, ncirc, tree):
+    """(ms, what bounds it, flops, bytes) of one steer_rollout call, from
+    its inputs and its outputs (the work depends on the data: a rollout
+    runs until it is done).  Flops: the control of each state the rollout
+    visits (length + 1 of them): the erf (6 sub, the wrap: add, fmod, sub),
+    the converged test (6 mul, 5 add, sqrt, compare) and u = K e clamped
+    (3 x (6 mul, 5 add, 2 clamp)): 61; each active step the RK4 (4 f of
+    39: sin, cos, 6 for pdot, 7 for the Coriolis terms, 15 for drag, 9 for
+    nudot; 36 for the stage states, 42 for the sum) and 6 a circle; each
+    committed step 21 for the goal test.  Bytes: xtar, the start rows read
+    (x0 and K, or the distinct parents' rows and pids) and the small
+    constants read once; xs, us, length, xnew, reached and in_goal written
+    once."""
+    H, n, nb = res.x_seq.shape
+    m = res.u_seq.shape[1]
+    length = res.length.long()
+    active = torch.where(res.in_goal, length, (length + 1).clamp(max=H))
+    flops = (int((length + 1).sum()) * 61
+             + int(active.sum()) * (234 + 6 * ncirc)
+             + int(length.sum()) * 21)
+    nbytes = (4 * nb * n + 4 * rows_read * (n + m * n)
+              + (4 * nb if tree else 0) + 4 * (3 * n + 14 + 3 * ncirc)
+              + 4 * H * (n + m) * nb + nb * (4 + 4 * n + 2))
+    return (*bound({"fp32": flops}, nbytes), flops, nbytes)
+
+
+def probe_work(name, b, H):
+    """(fp32 flops, bytes) of one scaffold probe on (6, b): x read once,
+    its constant read once, the output written once; the flops of its
+    expression."""
+    ns = 6
+    out = {"B": H * ns * b, "C": H * ns * b, "D": b, "E": b}.get(name,
+                                                                 ns * b)
+    aux = {"F": ns, "G": 14}.get(name, 0)
+    flops = {"A": ns * b, "B": 0, "C": H * ns * b, "D": 5 * b,
+             "E": H * b * (5 + 1 + ns), "F": ns * b,
+             "G": 13 + ns * b}[name]
+    return flops, 4 * (ns * b + aux + out)
+
+
+def same_result(res, ref) -> bool:
+    """Every field of two SteerResults equal (torch.equal)."""
+    return all(torch.equal(a, b) for a, b in zip(res, ref))
+
+
+def steer_calls(t):
+    """{label: (the wrapper's call, the plain steer's call)} of kernel D
+    on ``steer_inputs``: flat and tree at block 64, F1 at batch tiles 512
+    and 1024."""
+    from ..core.steer import make_steer
+    from ..ops.kernels.steer_kernel import (make_steer_kernel,
+                                            make_steer_kernel_dv,
+                                            make_steer_kernel_tree)
+
+    args, kw = t["args"], t["kw"]
+    plain = make_steer(*args, **kw)
+    flat = make_steer_kernel(*args, block=64, **kw)
+    tree = make_steer_kernel_tree(*args, block=64, **kw)
+    x0, KB, xtar, goal = t["x0"], t["KB"], t["xtar"], t["goal"]
+    idx = t["pids"].long()
+
+    def plain_flat():
+        return plain(x0, KB, xtar, goal)
+
+    calls = {"flat": (lambda: flat(x0, KB, xtar, goal), plain_flat),
+             "tree": (lambda: tree(t["states"], t["KN"], t["pids"], xtar,
+                                   goal),
+                      lambda: plain(t["states"][idx], t["KN"][idx], xtar,
+                                    goal))}
+    for bt in (512, 1024):
+        dv = make_steer_kernel_dv(*args, batch_tile=bt, **kw)
+        calls[f"dv{bt}"] = ((lambda dv=dv: dv(x0, KB, xtar, goal)),
+                            plain_flat)
+    return calls
+
+
+def time_steer(reps: int, dev="cuda") -> dict:
+    """Kernel D's and F1's calls (``steer_calls``) alone and with their
+    dispatch, each with its bound's share and its bit-for-bit check."""
+    t = steer_inputs(dev)
+    out = {}
+    for label, (call, plain_call) in steer_calls(t).items():
+        res, ref = call(), plain_call()
+        rows = (int(torch.unique(t["pids"]).numel()) if label == "tree"
+                else B)
+        bms, by = steer_bound(res, rows, t["ncirc"], label == "tree")[:2]
+        r = dict(device_ms=device_ms(call, reps),
+                 wall_ms=timed_ms(call, torch.device(dev), reps),
+                 bound_ms=bms, bit_exact=float(same_result(res, ref)))
+        r["of_bound"] = bms / r["device_ms"]
+        out[label] = r
+    return out
+
+
+def time_probes(reps: int, dev="cuda") -> dict:
+    """F4's probes B and C at B = 1024 and 1027, alone and with dispatch,
+    beside their plain versions, each with its bound (``probe_work``) and
+    the bit-for-bit check."""
+    from ..ops.kernels import scaffold_probes as P
+
+    out = {}
+    for b in (1024, 1027):
+        x = torch.randn((6, b), generator=torch.Generator(device=dev)
+                        .manual_seed(b), device=dev)
+        for name in ("B", "C"):
+            bms = bound(None, probe_work(name, b, P.H)[1])[0]
+            for who, fn in (("kernel", P.probe), ("plain", P.plain)):
+                def call(fn=fn, name=name):
+                    return fn(name, x)
+
+                r = dict(device_ms=device_ms(call, reps),
+                         wall_ms=timed_ms(call, torch.device(dev), reps),
+                         bound_ms=bms)
+                r["of_bound"] = bms / r["device_ms"]
+                if who == "kernel":
+                    r["bit_exact"] = float(torch.equal(P.probe(name, x),
+                                                       P.plain(name, x)))
+                out[f"{name} B={b} {who}"] = r
+    return out
+
+
+def main(reps: int = 20, only=("A", "B", "C", "D", "E", "F4"),
+         parts=PARTS) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times: needs a CUDA card")
     card = smi_line()
     res = {"card": card, "write": {}, "nn_general": {}, "nn_const": {},
-           "nn_expand": {}}
+           "nn_expand": {}, "steer_rollout": {}, "scaffold_probes": {}}
 
     def show(label, r):
         print(f"{label} [{card}]: "
@@ -379,6 +589,17 @@ def main(reps: int = 20, only=("A", "B", "C", "E"), parts=PARTS) -> dict:
         print(f"nn_general n={n} size={SIZE} [{card}]: alone "
               f"{r['device_ms']:.4f} ms, with dispatch {r['wall_ms']:.4f} "
               "ms", flush=True)
+    if "D" in only:
+        res["steer_rollout"] = time_steer(reps)
+        for label, r in res["steer_rollout"].items():
+            show(f"steer_rollout {label} B={B} H=100 ms", r)
+        for line in ptxas_summary():
+            if line.startswith("steer_rollout_kernel"):
+                print(f"ptxas {line}", flush=True)
+    if "F4" in only:
+        res["scaffold_probes"] = time_probes(reps)
+        for label, r in res["scaffold_probes"].items():
+            show(f"scaffold_probe {label} H=100 ms", r)
     print(json.dumps(res), flush=True)
     return res
 
@@ -386,11 +607,12 @@ def main(reps: int = 20, only=("A", "B", "C", "E"), parts=PARTS) -> dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", default="A,B,C,E",
+    ap.add_argument("--only", default="A,B,C,D,E,F4",
                     help="kernels to time, comma-separated")
     only_one = ap.add_mutually_exclusive_group()
     only_one.add_argument("--wrappers-only", action="store_true",
-                          help="A, E: time the wrappers' public calls only")
+                          help="A, E: time the wrappers' public calls only "
+                          "(D and F4 time only those)")
     only_one.add_argument("--launches-only", action="store_true",
                           help="A, E: time the launches alone only")
     a = ap.parse_args()

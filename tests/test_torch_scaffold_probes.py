@@ -16,16 +16,27 @@ import torch
 from test_torch_steer_stages import load_tool
 
 from lqrrt_tpu_torch.ops.kernels import scaffold_probes
-from lqrrt_tpu_torch.ops.kernels.scaffold_probes import PROBES, plain, probe
+from lqrrt_tpu_torch.ops.kernels.scaffold_probes import (H, PROBES, plain,
+                                                         probe,
+                                                         probe_geometry)
 from lqrrt_tpu_torch.tools import dbg_steer_scaffold
 from lqrrt_tpu_torch.tools.dbg_steer_scaffold import probe_args
 
 
+B_RAGGED = 1027      # not a multiple of 4, nor of the tool's tile
+SMS = 132            # the H100's SMs
+
+
 @functools.lru_cache(maxsize=None)
-def tool():
+def tool(B=1024):
     """tools/dbg_steer_scaffold.py, which runs its seven probes when it is
-    loaded; their outputs are in ``.recorded``."""
-    return load_tool("dbg_steer_scaffold.py")
+    loaded; their outputs are in ``.recorded``.  At another B than its
+    1024 the tool's tile is the whole batch (one block, as its grid
+    B // Bt needs)."""
+    if B == 1024:
+        return load_tool("dbg_steer_scaffold.py")
+    return load_tool("dbg_steer_scaffold.py", replace={
+        "H, n, B, Bt = 100, 6, 1024, 256": f"H, n, B, Bt = 100, 6, {B}, {B}"})
 
 
 @pytest.mark.parametrize("i,name", list(enumerate(PROBES)))
@@ -36,6 +47,42 @@ def test_probe_matches_tool_interpret(i, name):
     assert scaffold_probes.LAUNCHES == launches   # the CPU launches nothing
     assert y.dtype == ref.dtype and y.shape == ref.shape
     np.testing.assert_array_equal(y, ref)
+
+
+@pytest.mark.parametrize("i,name", list(enumerate(PROBES)))
+def test_probe_matches_tool_interpret_ragged(i, name):
+    """The same at B = 1027, the ragged batch of chip_smoke.py's phase."""
+    ref = np.asarray(tool(B_RAGGED).recorded[i])
+    y = probe(name, *probe_args(name, "cpu", B_RAGGED)).numpy()
+    assert y.dtype == ref.dtype and y.shape == ref.shape
+    assert ref.shape[-1] == B_RAGGED
+    np.testing.assert_array_equal(y, ref)
+
+
+@pytest.mark.parametrize("B", [1, 31, 1024, 1027, 8191, 8192])
+@pytest.mark.parametrize("name,aligned", [("B", True), ("B", False),
+                                          ("C", True)])
+def test_probe_geometry_covers_each_element_once(name, aligned, B):
+    """probe_geometry's grid for the two probes that write (H, 6, B):
+    thread e of grid row y takes elements [vec e, vec (e + 1)) of x at
+    steps [y h_per, (y + 1) h_per); every (step, element) exactly once,
+    float4s only where 6B is a multiple of 4 and the pointers aligned, no
+    block without work, and the blocks reach every SM where there is work
+    enough."""
+    threads, bx, by, h_per, vec = probe_geometry(name, B, SMS, aligned)
+    n = 6 * B
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert vec == (4 if name == "B" and aligned and n % 4 == 0 else 1)
+    hits = np.zeros((H, n), np.int64)
+    e = np.arange(bx * threads)
+    e = e[e * vec < n]
+    cols = (e[:, None] * vec + np.arange(vec)).ravel()
+    for y in range(by):
+        hits[y * h_per:min(H, (y + 1) * h_per), cols] += 1
+    np.testing.assert_array_equal(hits, 1)
+    assert (bx - 1) * threads * vec < n and (by - 1) * h_per < H
+    if name == "C" or n >= SMS * 32:
+        assert bx * by >= min(SMS, -(-n // 32))
 
 
 @pytest.mark.parametrize("name", PROBES)

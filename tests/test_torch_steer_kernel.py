@@ -35,6 +35,7 @@ import jax.numpy as jnp
 
 from lqrrt_tpu.core.steer import make_steer as jmake_steer
 from lqrrt_tpu.models import boat as jboat
+from lqrrt_tpu.ops import collision as jcollision
 from lqrrt_tpu_torch.constraints import _all_true
 from lqrrt_tpu_torch.core.steer import SteerResult, make_steer
 from lqrrt_tpu_torch.models import boat, car, quadrotor
@@ -42,10 +43,15 @@ from lqrrt_tpu_torch.ops import collision
 from lqrrt_tpu_torch.ops.angles import make_erf
 from lqrrt_tpu_torch.ops.kernels import steer_kernel
 from lqrrt_tpu_torch.ops.kernels.steer_kernel import (MAX_CIRCLES,
+                                                      MAX_THREADS,
                                                       boat_params,
                                                       make_steer_kernel,
-                                                      make_steer_kernel_tree)
+                                                      make_steer_kernel_tree,
+                                                      rollout_geometry,
+                                                      sqrt_threshold)
 from lqrrt_tpu_torch.tools import exp_steer_kernel
+from lqrrt_tpu_torch.tools.kernel_times import (circle_problems,
+                                                many_circles)
 from lqrrt_tpu_torch.tools.exp_steer_kernel import (DT, GROUPS, H, TOL,
                                                     boat_K, branch_batch,
                                                     branch_counts,
@@ -172,6 +178,108 @@ def test_plain_steer_matches_jax_scan(goal_box, per_dim):
     assert bool(counts["goal stop"]) == goal_box
 
 
+def _assert_held_tail(x_seq, u_seq, length):
+    """For every rollout that stops (length < H): the stored x constant
+    from step max(length - 1, 0) on, the stored u from step length on --
+    the commits are a prefix, and a state that no longer changes gives the
+    same u.  (The kernel stores that tail without recomputing it.)"""
+    x_seq, u_seq = np.asarray(x_seq), np.asarray(u_seq)
+    stopped = 0
+    for b, L in enumerate(np.asarray(length)):
+        if L == H:
+            continue
+        stopped += 1
+        x0 = max(int(L) - 1, 0)
+        np.testing.assert_array_equal(
+            x_seq[x0:, :, b], np.broadcast_to(x_seq[x0, :, b], (H - x0, 6)),
+            err_msg=f"x of candidate {b} (length {L})")
+        np.testing.assert_array_equal(
+            u_seq[L:, :, b], np.broadcast_to(u_seq[L, :, b], (H - L, 3)),
+            err_msg=f"u of candidate {b} (length {L})")
+    assert stopped >= B // 3
+
+
+@pytest.mark.parametrize("impl", ["port", "jax"])
+@pytest.mark.parametrize("goal_box,per_dim", [(True, False), (True, True),
+                                              (False, False)],
+                         ids=["goal-norm", "goal-per-dim", "no-goal-norm"])
+def test_stopped_rollout_holds_its_tail(goal_box, per_dim, impl):
+    """The held tail, on the port's steer and on the JAX scan, on
+    ``branch_batch`` data (goal, arrived and infeasible stops, length 0)."""
+    tol = np.full(6, TOL, np.float32) if per_dim else TOL
+    x0, K, xtar, *_ = _inputs(3 + per_dim)
+    gb = PROB["constraints"].goal_buffer if goal_box else None
+    goal = [GOAL] if goal_box else []
+    if impl == "port":
+        args, kw = _port_args(tol)
+        res = make_steer(*args, saturate=kw["saturate"], goal_buffer=gb)(
+            *_t(x0, K, xtar, *goal))
+    else:
+        jargs, jkw = _jargs(tol)
+        res = jax.jit(jmake_steer(*jargs, goal_buffer=gb, layout="tm",
+                                  **jkw))(x0, K, xtar, *goal)
+    _assert_held_tail(res.x_seq, res.u_seq, res.length)
+
+
+@pytest.mark.parametrize("B", [1, 31, 8191, 8192])
+def test_rollout_geometry_covers_each_candidate_once(B):
+    """rollout_geometry's grid: thread t takes candidate t; each candidate
+    exactly once, no block without a candidate, blocks of a multiple of 32
+    threads up to MAX_THREADS, and at B = 8192 at least one block an SM of
+    the H100."""
+    sms = 132
+    threads, blocks = rollout_geometry(B, sms)
+    assert threads % 32 == 0 and 32 <= threads <= MAX_THREADS
+    t = np.arange(blocks * threads)
+    assert np.array_equal(np.bincount(t[t < B], minlength=B),
+                          np.ones(B, np.int64))
+    assert (blocks - 1) * threads < B
+    if B == 8192:
+        assert blocks >= sms
+
+
+def test_launch_geometry_ignores_block_and_batch_tile(monkeypatch):
+    """Every factory's block and batch_tile (the Pallas tile) launch the
+    same geometry, rollout_geometry's for B and the SM count."""
+    seen = []
+    monkeypatch.setattr(steer_kernel, "_launch",
+                        lambda name, *a: seen.append(a[-2:]))
+    monkeypatch.setattr(steer_kernel, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(steer_kernel, "LAUNCHES",
+                        dict.fromkeys(steer_kernel.VARIANTS, 0))
+    x0, K, xtar = _t(*_inputs(0)[:3])
+    args, kw = steer_args(PROB)
+    for block in (32, 64, 256, 512, 1024):
+        spec = steer_kernel._Spec(*args, **kw, block=block)
+        spec.launch(x0, K, None, xtar, torch.from_numpy(GOAL), "flat")
+    assert seen == [rollout_geometry(B, 132)] * 5
+
+
+@pytest.mark.parametrize("tol", [0.05, 0.5, 1.0, 3.0, 1e-20, 0.0, 1e19,
+                                 3e38, -1.0, np.inf, np.nan])
+def test_sqrt_threshold_gives_the_norm_test(tol):
+    """The kernel's scalar converged test, sum <= sqrt_threshold(tol), is
+    sqrt(sum) <= tol for every float32 sum near the threshold, at 0, at
+    inf and NaN, and on random sums (numpy's float32 sqrt is IEEE's, as
+    torch's is on either device)."""
+    T = sqrt_threshold(tol)
+    t = np.float32(tol)
+    near, lo = [T] if np.isfinite(T) else [np.float32(0)], [T]
+    with np.errstate(over="ignore"):
+        for _ in range(64):
+            near.append(np.nextafter(near[-1], np.float32(np.inf)))
+            lo.append(np.nextafter(lo[-1], np.float32(-np.inf)))
+    rng = np.random.default_rng(1)
+    s = np.concatenate([
+        np.asarray(near + lo, np.float32),
+        np.float32([0.0, -0.0, np.inf, np.nan, 3.4e38, 1e-45]),
+        (rng.random(4096) * max(float(t) ** 2 * 4, 1.0)).astype(np.float32)
+        if np.isfinite(t) and t > 0 else np.zeros(0, np.float32)])
+    s = s[~(s < 0)]
+    with np.errstate(invalid="ignore"):
+        np.testing.assert_array_equal(s <= T, np.sqrt(s) <= t)
+
+
 def test_flat_wrapper_matches_pallas_interpret():
     """make_steer_kernel on CPU tensors against make_steer_pallas in
     interpret mode (the tool's configuration: goal box, scalar tol)."""
@@ -253,6 +361,88 @@ def test_tree_pids_out_of_range_give_nan_rows():
     jres = _jax_tree(states, KN, pids, xtar)
     np.testing.assert_array_equal(np.asarray(jres.x_seq)[..., bad], 0.0)
     np.testing.assert_array_equal(np.asarray(jres.length)[bad], H)
+
+
+@pytest.mark.parametrize("variant", ["flat", "tree"])
+def test_nan_start_rows_without_obstacles_run_the_horizon(variant):
+    """Without obstacles the predicate is all-true, so a NaN start row (a
+    NaN x0, or a pid outside [0, N)) is never infeasible: the rollout
+    commits NaN at every step (length H, NaN x and u, not reached, not in
+    the goal), which the card must give too (``chip_smoke.py``'s D repairs
+    at 0 circles).  The flat rows against the JAX scan on the same
+    problem: the same lengths and NaN entries, the finite rows within the
+    tolerances of ``_assert_same``."""
+    prob, jprob = (boat.default_problem(obstacles=False),
+                   jboat.default_problem(obstacles=False))
+    x0, K, xtar, states, KN, pids = _inputs(0)
+    args, kw = steer_args(prob)
+    bad = slice(0, 4)
+    if variant == "flat":
+        x0[bad] = np.nan
+        port = make_steer_kernel(*args, **kw)(*_t(x0, K, xtar, GOAL))
+    else:
+        pids[bad] = (-1, -N, N, N + 7)
+        port = make_steer_kernel_tree(*args, **kw)(
+            *_t(states, KN, pids, xtar, GOAL))
+    rows = _rows(port, bad)
+    assert torch.equal(rows.length, torch.full((4,), H, dtype=torch.int32))
+    assert not rows.reached.any() and not rows.in_goal.any()
+    for field in (rows.x_seq, rows.u_seq, rows.xnew):
+        assert field.isnan().all()
+    assert not port.x_seq[..., 4:].isnan().any()
+    if variant == "flat":
+        jsteer = jax.jit(jmake_steer(
+            jprob["dynamics"], jprob["erf"],
+            jprob["constraints"].is_feasible, H, DT, TOL,
+            goal_buffer=jprob["constraints"].goal_buffer, layout="tm",
+            saturate=jprob["saturate"]))
+        jres = jsteer(x0, K, xtar, GOAL)
+        np.testing.assert_array_equal(port.length.numpy(),
+                                      np.asarray(jres.length))
+        for field in ("x_seq", "u_seq", "xnew"):
+            np.testing.assert_array_equal(
+                getattr(port, field).isnan().numpy(),
+                np.isnan(np.asarray(getattr(jres, field))), err_msg=field)
+        good = slice(4, None)
+        _assert_same(_rows(port, good), jsteer(x0[good], K[good],
+                                               xtar[good], GOAL),
+                     x0[good], K[good])
+
+
+@pytest.mark.parametrize("label", ["0 circles", "7 circles", "10 circles",
+                                   "64 circles"])
+def test_circle_problems_match_jax_scan(label):
+    """``kernel_times.circle_problems``, which the card's checks run at
+    each path of the circles test: the circle count, the default buoys
+    last at 64 (``branch_batch``'s buoy group stops on circles past the
+    first 8), the factories take each, and the port's steer on each
+    matches the JAX scan with the same circles (``_assert_same``)."""
+    prob = circle_problems()[label]
+    circles = prob["constraints"].is_feasible.circles
+    k = int(label.split()[0])
+    assert len(circles[1]) == k <= MAX_CIRCLES
+    jprob = {"0 circles": lambda: jboat.default_problem(obstacles=False),
+             "7 circles": lambda: JPROB, "10 circles": jboat.hard_problem,
+             "64 circles": lambda: JPROB}[label]()
+    jfeas = jprob["constraints"].is_feasible
+    if k == 64:
+        centers, radii = many_circles()
+        np.testing.assert_array_equal(centers[-7:], PROB["obstacles"][0])
+        np.testing.assert_array_equal(circles[0], centers)
+        jfeas = jcollision.circles_free(centers, radii, margin=1.0)
+    x0, xtar, _ = branch_batch(B, 3, prob)
+    K = np.broadcast_to(boat_K(prob), (B, 3, 6)).copy()
+    args, kw = steer_args(prob)
+    make_steer_kernel(*args, **kw)
+    make_steer_kernel_tree(*args, **kw)
+    port = make_steer(*args, **kw)(*_t(x0, K, xtar, GOAL))
+    jres = jax.jit(jmake_steer(
+        jprob["dynamics"], jprob["erf"], jfeas, H, DT, TOL,
+        goal_buffer=jprob["constraints"].goal_buffer, layout="tm",
+        saturate=jprob["saturate"]))(x0, K, xtar, GOAL)
+    _assert_same(port, jres, x0, K)
+    counts = branch_counts(port, x0, xtar)
+    assert bool(counts["infeasible stop"]) == bool(k)
 
 
 def test_dead_nan_rows_drop_only_themselves():

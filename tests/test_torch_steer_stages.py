@@ -86,9 +86,10 @@ def _interpret_pallas(recorded):
     return ns
 
 
-def load_tool(name, stop=None):
+def load_tool(name, stop=None, replace=None):
     """tools/<name> as a module: its source up to the first line that
-    starts with ``stop`` (the rest benches at import), without its
+    starts with ``stop`` (the rest benches at import), each line that is a
+    key of ``replace`` replaced by its value (a size), without its
     ``from jax.experimental import pallas as pl`` and its ``sys.path``
     and one-line cache set-up lines, run in a fresh module whose ``pl`` is
     ``_interpret_pallas`` (its outputs in ``.recorded``).  A cache call
@@ -101,6 +102,9 @@ def load_tool(name, stop=None):
     if stop is not None:
         lines = lines[:next(i for i, line in enumerate(lines)
                             if line.startswith(stop))]
+    replace = replace or {}
+    lines = [replace[line.rstrip("\n")] + "\n"
+             if line.rstrip("\n") in replace else line for line in lines]
     source = "".join(
         line for line in lines
         if line.strip() != "from jax.experimental import pallas as pl"
