@@ -8,7 +8,8 @@ exits non-zero:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: compile the CUDA kernels from ``lqrrt_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ``ptxas``'s resource lines; every
-   instance of kernels A, D and E without spills;
+   instance of kernels A, D and E and all 15 of the stage scaffold's
+   ``stage_kernel`` (F2, F3) without spills;
 3. kernel A (nn_const) vs its plain PyTorch version at N = 40960,
    B = 8192 with an fp64 brute-force anchor: the boat's n = 6 (wrap dim 2)
    at sizes 0 to 32768, the root-pad tie at sizes 1024 and 32768, NaN
@@ -53,9 +54,11 @@ exits non-zero:
    CPU, with the boat's 7 circles and without obstacles;
 5e. kernel F: F1 (``make_steer_kernel_dv``, D's kernel in the double-vmap
    layout, batch_tile 512 and 1024) vs the plain steer as in 5c; ragged
-   batches: D flat and tree and F1 at B = 8191, F4's probes B and C at
-   B = 1027 and from an unaligned pointer, each bit for bit against its
-   plain version; D flat and tree and F1 at B = 8192 with 0, 10 and 64
+   batches: D flat and tree and F1 at B = 8191, F2's twelve stages at
+   B = 8191 on the tool's data, F3's six at B = 1027 on all ones and on
+   ``branch_inputs``, F4's probes B and C at B = 1027 and from an
+   unaligned pointer, each bit for bit against its plain version; D flat
+   and tree and F1 at B = 8192 with 0, 10 and 64
    circles, bit for bit; then F1's entry point ``exp_steer_dv.main``; F2, every configuration of the stage
    scaffold (``steer_stages.build``) vs its plain version at B = 8192,
    H = 100, bit for bit, then its entry point ``exp_steer_stages.main``
@@ -115,7 +118,9 @@ TOL_STEER = 1e-3       # |dx|, |du| of a rollout where lengths agree (the
                        # CPU tests'); lengths, in_goal, reached: >= 0.999
 B_REPAIR = 2048        # candidates of kernel D's repair phase (a CPU run)
 B_RAGGED = 8191        # the ragged batch of kernel D and F1
-B_PROBE_RAGGED = 1027  # and of F4's probes B and C (6B not a multiple of 4)
+B_PROBE_RAGGED = 1027  # and of F3's stages and F4's probes B and C (6B not
+                       # a multiple of 4)
+N_STAGE_KERNELS = 15   # stage_kernel instances: 14 bodies, identity twice
 
 
 def log(msg: str) -> None:
@@ -875,11 +880,17 @@ def phase_ragged():
     N_BENCH rows) against the plain steer on the card, every field bit for
     bit; and F4's probes B and C at B = B_PROBE_RAGGED, and at the tool's
     B = 1024 from a pointer 4 bytes past 16-byte alignment (no float4
-    path), against their plain versions, bit for bit.  These launches
-    check; they are not the main paths'."""
+    path), against their plain versions, bit for bit; F2's twelve stages
+    at B = B_RAGGED on the tool's data and F3's six at B = B_PROBE_RAGGED
+    on all ones and on ``branch_inputs`` against their plain versions on
+    the card, bit for bit.  These launches check; they are not the main
+    paths'."""
     from lqrrt_tpu_torch.ops.kernels import scaffold_probes as P
-    from lqrrt_tpu_torch.tools.kernel_times import (same_result, steer_calls,
-                                                    steer_inputs)
+    from lqrrt_tpu_torch.ops.kernels import steer_stages as S
+    from lqrrt_tpu_torch.tools.dbg_steer_kernel import branch_inputs
+    from lqrrt_tpu_torch.tools.exp_steer_stages import stage_inputs
+    from lqrrt_tpu_torch.tools.kernel_times import (same_result, stage_exact,
+                                                    steer_calls, steer_inputs)
 
     t = steer_inputs("cuda", B_RAGGED, 19, N_BENCH)
     failed = []
@@ -905,6 +916,21 @@ def phase_ragged():
                 f"bit_exact={same}")
             if not same:
                 failed.append(f"probe {name} {label}")
+    b3 = B_PROBE_RAGGED
+    stage_ins = [(S.build, S.F2, "tool data", stage_inputs(B_RAGGED, 0,
+                                                          "cuda")),
+                 (S.run_stage, S.F3, "ones", [
+                     torch.ones(sh, device="cuda")
+                     for sh in ((NS, b3), (3, NS, b3), (NS, b3))]),
+                 (S.run_stage, S.F3, "branches", branch_inputs(b3, 0,
+                                                                "cuda"))]
+    for wrap, stages, what, ins in stage_ins:
+        bad = [st for st in stages
+               if not stage_exact(st, wrap(st)(*ins), S.plain(st, *ins))]
+        log(f"ragged steer_stage B={ins[0].shape[1]} on {what}: "
+            f"{len(stages) - len(bad)} of {len(stages)} stages bit for bit"
+            + (f", differing: {bad}" if bad else ""))
+        failed += [f"stage {st} B={ins[0].shape[1]} {what}" for st in bad]
     if failed:
         raise AssertionError(f"ragged batches differ from their plain "
                              f"versions: {failed}")
@@ -963,20 +989,6 @@ def phase_exp_steer_dv(smi):
     return launches["dv"]
 
 
-def stage_bound(stage, B, H):
-    """(ms, what bounds it) of one launch of a scaffold stage: the inputs
-    x0T, KT and tarT read once, xs (and F2's us) stored every step (only
-    the final step's without per-step stores), length written once; the
-    flops of the stage's body (``steer_stages.FLOPS``) every step."""
-    from lqrrt_tpu_torch.ops.kernels import steer_stages as S
-    from lqrrt_tpu_torch.tools.kernel_times import bound
-
-    rows = NS + (3 if S.STAGES[stage].tool == "F2" else 0)
-    steps = 1 if stage == "identity_nostore" else H
-    nbytes = 4 * B * (NS + 3 * NS + NS) + 4 * steps * rows * B + 4 * B
-    return bound({"fp32": S.FLOPS[stage] * B * H}, nbytes)
-
-
 def phase_f2():
     """Every configuration of the stage scaffold (F2,
     ``steer_stages.build``) against its plain version on the card at
@@ -986,10 +998,12 @@ def phase_f2():
     kernel rounds every operation alone in the plain version's order.
     ``full`` sums e * e over the 6 state rows as torch.sum over dim 0 does
     on the card (``sum6_rows``); the share of columns on which that order
-    is torch's is printed.  Returns, per stage, the largest difference and
-    the plain version's ms."""
+    is torch's is printed.  Returns, per stage, the largest difference,
+    the plain version's ms and the bound of this data's work
+    (``kernel_times.stage_bound`` over ``stage_steps``)."""
     from lqrrt_tpu_torch.ops.kernels import steer_stages as S
     from lqrrt_tpu_torch.tools.exp_steer_stages import stage_inputs
+    from lqrrt_tpu_torch.tools.kernel_times import stage_bound, stage_steps
 
     x0T, KT, tarT = stage_inputs(B_BENCH, 0, "cuda")
     a = torch.randn((6, 65536), generator=torch.Generator(device="cuda")
@@ -1002,6 +1016,7 @@ def phase_f2():
         xs, us, length = S.build(stage)(x0T, KT, tarT)
         rxs, rus, rlength = S.plain(stage, x0T, KT, tarT)
         torch.cuda.synchronize()
+        bound = stage_bound(stage, B_BENCH, S.H, stage_steps(stage, x0T, xs))
         sl = slice(0, 1) if stage == "identity_nostore" else slice(None)
         xs, us, rxs, rus = xs[sl], us[sl], rxs[sl], rus[sl]
         len_eq = torch.equal(length, rlength)
@@ -1017,7 +1032,7 @@ def phase_f2():
             + ("" if ok else " FAILED"))
         if not ok:
             failed.append(stage)
-        out[stage] = dict(max_abs_err=err, plain_ms=plain_ms)
+        out[stage] = dict(max_abs_err=err, plain_ms=plain_ms, bound=bound)
     if failed:
         raise AssertionError(f"F2: stages disagree with their plain "
                              f"versions: {failed}")
@@ -1026,8 +1041,9 @@ def phase_f2():
 
 def phase_exp_steer_stages(smi):
     """F2's main path: the experiment's entry point at full width (B =
-    8192, H = 100, block 64), with the launch counts set to 0 just before
-    and read just after.  Returns its stage times and the launches."""
+    8192, H = 100, D's geometry), with the launch counts set to 0 just
+    before and read just after.  Returns its stage times and the
+    launches."""
     from lqrrt_tpu_torch.ops.kernels import steer_stages as S
     from lqrrt_tpu_torch.tools import exp_steer_stages
 
@@ -1060,7 +1076,8 @@ def phase_f3_f4(smi):
     from lqrrt_tpu_torch.tools import dbg_steer_kernel, dbg_steer_scaffold
     from lqrrt_tpu_torch.tools.dbg_steer_kernel import branch_inputs, same
     from lqrrt_tpu_torch.tools.dbg_steer_scaffold import probe_args
-    from lqrrt_tpu_torch.tools.kernel_times import bound, probe_work
+    from lqrrt_tpu_torch.tools.kernel_times import (bound, probe_work,
+                                                    stage_bound, stage_steps)
     from lqrrt_tpu_torch.tools.exp_steer_kernel import (GROUPS, branch_batch,
                                                         device_ms)
 
@@ -1098,9 +1115,10 @@ def phase_f3_f4(smi):
         ms = cuda_ms(lambda: fn(*ones))
         alone_ms = device_ms(lambda: fn(*ones), 20)
         plain_ms = cuda_ms(lambda: S.plain(stage, *ones), reps=1)
+        steps = stage_steps(stage, ones[0], fn(*ones)[0])
         stages[stage] = dict(max_abs_err=(xs - ref).abs().max().item(),
                              ms=ms, device_ms=alone_ms, plain_ms=plain_ms,
-                             bound=stage_bound(stage, B, S.H))
+                             bound=stage_bound(stage, B, S.H, steps))
         log(f"F3 steer_stage[{stage}] B={B} H={S.H}: bit_exact=True on "
             f"branch_inputs, (length 0, stopped, H) by group "
             f"{lengths[stage]}; kernel_ms={ms:.4f} device_ms={alone_ms:.4f} "
@@ -1137,10 +1155,17 @@ def phase_f3_f4(smi):
 
 
 def f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3, f3_launches,
-              f4, f4_launches):
+              f4, f4_launches, f_ptxas):
     """The kernels line's entries of kernel F's four functions (F1-F4),
-    from their phases' results and their main paths' launches."""
+    from their phases' results and their main paths' launches; F2's and
+    F3's with their launch geometry (threads, blocks) and the ptxas lines
+    of the stage kernel's instances."""
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import sm_count
+    from lqrrt_tpu_torch.ops.kernels.steer_kernel import rollout_geometry
+    from lqrrt_tpu_torch.tools.dbg_steer_scaffold import B as F3_B
     from lqrrt_tpu_torch.tools.kernel_times import bound
+
+    sms = sm_count(torch.device("cuda"))
 
     out = []
     out.append(dict(
@@ -1152,7 +1177,7 @@ def f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3, f3_launches,
     # row's time; every stage's beside it, from the experiment's run (its
     # ``ms`` is the kernel alone, its ``wall_ms`` the call)
     stages = f2_res["stages"]
-    full_bound = stage_bound("full", B_BENCH, f2_res["H"])
+    full_bound = f2["full"]["bound"]
     out.append(dict(
         name="steer_stages", route="cuda",
         source="lqrrt_tpu_torch/csrc/steer_stages.cu",
@@ -1165,10 +1190,13 @@ def f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3, f3_launches,
         plain_ms=f2["full"]["plain_ms"],
         stages_plain_ms={k: v["plain_ms"] for k, v in f2.items()},
         bound_ms=full_bound[0], bound_by=full_bound[1],
-        stages_bound_ms={k: stage_bound(k, B_BENCH, f2_res["H"])[0]
-                         for k in stages},
+        stages_bound_ms={k: v["bound"][0] for k, v in f2.items()},
+        stages_of_bound={k: f2[k]["bound"][0] / v["ms"]
+                         for k, v in stages.items()},
+        geometry=rollout_geometry(B_BENCH, sms),
         steer_rollout_ms=f2_res["steer_rollout_wall_ms"],
-        steer_rollout_device_ms=f2_res["steer_rollout_ms"], library_ms=None))
+        steer_rollout_device_ms=f2_res["steer_rollout_ms"], library_ms=None,
+        ptxas=f_ptxas))
     out.append(dict(
         name="steer_stage_dbg", route="cuda",
         source="lqrrt_tpu_torch/csrc/steer_stages.cu",
@@ -1180,7 +1208,12 @@ def f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3, f3_launches,
         stages_device_ms={k: v["device_ms"] for k, v in f3.items()},
         plain_ms=f3["dbg_full"]["plain_ms"],
         bound_ms=f3["dbg_full"]["bound"][0],
-        bound_by=f3["dbg_full"]["bound"][1], library_ms=None))
+        bound_by=f3["dbg_full"]["bound"][1],
+        stages_bound_ms={k: v["bound"][0] for k, v in f3.items()},
+        stages_of_bound={k: v["bound"][0] / v["device_ms"]
+                         for k, v in f3.items()},
+        geometry=rollout_geometry(F3_B, sms),
+        library_ms=None))
     # F4: the seven probes one after another; each probe's plain version is
     # the library call itself
     p_bound = bound({"fp32": sum(v["flops"] for v in f4.values())},
@@ -1474,12 +1507,17 @@ def main() -> int:
                 if line.startswith(("nn_const_kernel", "nn_expand_kernel"))]
     d_ptxas = [line for line in ptxas
                if line.startswith("steer_rollout_kernel")]
-    spilled = [line for line in ae_ptxas + d_ptxas
+    # and the stage scaffold (F2, F3): every stage_kernel instance
+    f_ptxas = [line for line in ptxas if line.startswith("stage_kernel")]
+    spilled = [line for line in ae_ptxas + d_ptxas + f_ptxas
                if "spill 0/0 B" not in line]
-    if len(ae_ptxas) != 38 or len(d_ptxas) != 1 or spilled:
+    if (len(ae_ptxas) != 38 or len(d_ptxas) != 1
+            or len(f_ptxas) != N_STAGE_KERNELS or spilled):
         raise AssertionError(f"ptxas: kernels A and E: {len(ae_ptxas)} "
                              f"instances (38 expected), D: {len(d_ptxas)} "
-                             f"(1 expected), spilling {spilled}")
+                             f"(1 expected), stage_kernel: {len(f_ptxas)} "
+                             f"({N_STAGE_KERNELS} expected), spilling "
+                             f"{spilled}")
 
     def timed(label, fn, *args, **kw):
         t = time.perf_counter()
@@ -1599,7 +1637,7 @@ def main() -> int:
             replaces=replaces, launches=d_launches[variant],
             **d[variant], library_ms=None))
     kernels += f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3,
-                         f3_launches, f4, f4_launches)
+                         f3_launches, f4, f4_launches, f_ptxas)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

@@ -1,12 +1,15 @@
 // The boat's callbacks as device functions, shared by kernel D
-// (steer_rollout.cu) and the stage scaffold (steer_stages.cu).
+// (steer_rollout.cu) and the stage scaffold (steer_stages.cu): one form of
+// each.
 //
 // Each is written in the order of the PyTorch expression it stands for
 // (lqrrt_tpu_torch/models/boat.py, ops/angles.py, ops/integrate.py), and
 // every operation rounds on its own: add/sub/mul below are never contracted
-// into FMAs, and sinf, cosf, fmodf and sqrtf are the precise ones (no
-// --use_fast_math).  So on the card a kernel built from them reproduces the
-// plain PyTorch version's arithmetic bit for bit.
+// into FMAs, and sincosf (whose sine and cosine have the bits of sinf and
+// cosf), the fmodf that wrap_angle_fast takes where |a + pi| >= 8 pi, and
+// sqrtf are the precise ones (no --use_fast_math).  So on the card a kernel
+// built from them reproduces the plain PyTorch version's arithmetic bit for
+// bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,6 +20,8 @@ namespace boat {
 constexpr int kN = 6;             // boat state: px, py, psi, vx, vy, w
 constexpr int kM = 3;             // boat wrench: Fx, Fy, Mz
 constexpr int kPsi = 2;           // the erf's wrapped dim (angle_dims)
+constexpr int kStages = 4;        // RK4
+constexpr int kRegCircles = 8;    // circles a kernel keeps in registers
 // The boat's numbers, in the order of boat_params() in
 // ops/kernels/steer_kernel.py: M_MASS, M_SWAY, 1 / (M_MASS, M_SWAY, I_YAW),
 // D_LIN, D_QUAD, WRENCH_MAX.
@@ -57,30 +62,27 @@ __device__ __forceinline__ float sum6_rows(const float* a) {
 }
 
 // a - 2pi floor((a + pi) / 2pi), in [-pi, pi), as torch.remainder computes
-// the floor-mod: fmodf, then the divisor's sign (fmodf alone keeps the
-// dividend's sign and is wrong here)
-__device__ __forceinline__ float wrap_angle(float a) {
-  const float two_pi = 2.0f * CUDART_PI_F;
-  float r = fmodf(add(a, CUDART_PI_F), two_pi);
-  if (r < 0.f) r = add(r, two_pi);
-  return sub(r, CUDART_PI_F);
-}
-
-// wrap_angle's value with fmodf only where |a + pi| >= 4 pi: below that,
-// fmodf(a + pi, 2 pi) is a + pi itself or a + pi -+ 2 pi, and that
-// subtraction is exact (Sterbenz), so the result has wrap_angle's bits.
-// NaN and inf take fmodf.  (fmodf is a loop; this is a compare.)
+// the floor-mod (ops/angles.py wrap_angle: fmod, then the divisor's sign;
+// fmod keeps the dividend's), with fmodf only where |a + pi| >= 8 pi.
+// Below that, fmodf(s, 2 pi) is s - n 2 pi with n < 4, which two selects
+// reach without a branch: s -+ 4 pi where |s| >= 4 pi, then -+ 2 pi where
+// what is left is >= 2 pi.  Each subtracts y (the float 2 pi times a power
+// of two, exact) from an r with y <= |r| < 2 y, so each is exact
+// (Sterbenz), and the result has fmodf's bits; a zero may lose fmodf's
+// sign, which the sign step and the final subtraction make the same -pi.
+// NaN and inf take fmodf.  (fmodf is a loop, and a branch that some lanes
+// of a warp take; these are selects.)
 __device__ __forceinline__ float wrap_angle_fast(float a) {
-  const float two_pi = 2.0f * CUDART_PI_F;
-  const float s = add(a, CUDART_PI_F), m = fabsf(s);
-  float r = m < two_pi                ? s
-            : m < 2.0f * two_pi       ? sub(s, copysignf(two_pi, s))
-                                      : fmodf(s, two_pi);
+  const float two_pi = 2.0f * CUDART_PI_F, four_pi = 2.0f * two_pi;
+  const float s = add(a, CUDART_PI_F);
+  float r = fabsf(s) >= four_pi ? sub(s, copysignf(four_pi, s)) : s;
+  r = fabsf(r) >= two_pi ? sub(r, copysignf(two_pi, r)) : r;
+  if (!(fabsf(s) < 2.0f * four_pi)) r = fmodf(s, two_pi);
   if (r < 0.f) r = add(r, two_pi);
   return sub(r, CUDART_PI_F);
 }
 
-// erf with wrap_angle_fast: the same values
+// the boat's erf: e = xgoal - x, psi wrapped
 __device__ __forceinline__ void erf_fast(const float* xgoal, const float* x,
                                          float* e) {
 #pragma unroll
@@ -88,38 +90,11 @@ __device__ __forceinline__ void erf_fast(const float* xgoal, const float* x,
   e[kPsi] = wrap_angle_fast(e[kPsi]);
 }
 
-// the boat's erf: e = xgoal - x, psi wrapped
-__device__ __forceinline__ void erf(const float* xgoal, const float* x,
-                                    float* e) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) e[i] = sub(xgoal[i], x[i]);
-  e[kPsi] = wrap_angle(e[kPsi]);
-}
-
-// boat.f: 3-DOF vessel, body-frame velocities
-__device__ __forceinline__ void f(const float* p, const float* x,
-                                  const float* u, float* xd) {
-  const float c = cosf(x[2]), s = sinf(x[2]);
-  const float vx = x[3], vy = x[4], w = x[5];
-  xd[0] = sub(mul(c, vx), mul(s, vy));
-  xd[1] = add(mul(s, vx), mul(c, vy));
-  xd[2] = w;
-  const float cor[kM] = {mul(mul(p[kSway], vy), w),
-                         mul(mul(-p[kMass], vx), w),
-                         mul(mul(sub(p[kMass], p[kSway]), vx), vy)};
-#pragma unroll
-  for (int k = 0; k < kM; ++k) {
-    const float nu = x[3 + k];
-    const float drag = add(mul(p[kDLin + k], nu),
-                           mul(mul(p[kDQuad + k], nu), fabsf(nu)));
-    xd[3 + k] = mul(p[kMinv + k], sub(add(u[k], cor[k]), drag));
-  }
-}
-
-// boat.f split in two for the rollout (steer_rollout.cu), which takes the
-// four RK4 stages' trig after their velocity rows: f_vel gives rows 3-5 (no
-// trig), f_pos rows 0 and 1 from the cosine and sine of psi.  Together they
-// are f's operations in f's order; row 2 is w.
+// boat.f (3-DOF vessel, body-frame velocities) in two parts, so that a
+// caller can take the trig after the velocity rows: f_vel gives rows 3-5
+// (no trig) from v = (vx, vy, w), f_pos rows 0 and 1 from the cosine and
+// sine of psi.  Together they are boat.f's operations in its order; row 2
+// is w.
 __device__ __forceinline__ void f_vel(const float* p, const float* v,
                                       const float* u, float* vd) {
   const float vx = v[0], vy = v[1], w = v[2];
@@ -141,9 +116,10 @@ __device__ __forceinline__ void f_pos(float c, float s, float vx, float vy,
   pd[1] = add(mul(s, vx), mul(c, vy));
 }
 
-// circles_free's test over circles first, ..., ncirc - 1: each circle's
-// distance is independent of the others' and the booleans are ANDed (the
-// same result as circles_free's chain)
+// circles_free's test (collision.circles_free on (px, py): outside every
+// circle (cx, cy, (r + margin)^2)) over circles first, ..., ncirc - 1 in
+// memory: each circle's distance is independent of the others' and the
+// booleans are ANDed
 __device__ __forceinline__ bool circles_clear(const float* cs, int first,
                                               int ncirc, float px, float py) {
   bool ok = true;
@@ -151,6 +127,32 @@ __device__ __forceinline__ bool circles_clear(const float* cs, int first,
   for (int k = first; k < ncirc; ++k) {
     const float dx = sub(cs[3 * k], px), dy = sub(cs[3 * k + 1], py);
     ok &= add(mul(dx, dx), mul(dy, dy)) > cs[3 * k + 2];
+  }
+  return ok;
+}
+
+// the first kRegCircles circles of cs (ncirc of them) into registers cr;
+// a slot past ncirc is never read as a circle
+__device__ __forceinline__ void load_circles(const float* cs, int ncirc,
+                                             float (*cr)[3]) {
+#pragma unroll
+  for (int k = 0; k < kRegCircles; ++k)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) cr[k][j] = k < ncirc ? cs[3 * k + j] : 0.f;
+}
+
+// circles_free's boolean on (px, py): the first kRegCircles circles from
+// the registers of load_circles, each tested on its own and ANDed (a slot
+// past ncirc passes whatever (px, py) is, NaN included, as no circle does),
+// the rest from memory (circles_clear)
+__device__ __forceinline__ bool circles_ok(const float (*cr)[3],
+                                           const float* cs, int ncirc,
+                                           float px, float py) {
+  bool ok = circles_clear(cs, kRegCircles, ncirc, px, py);
+#pragma unroll
+  for (int k = 0; k < kRegCircles; ++k) {
+    const float dx = sub(cr[k][0], px), dy = sub(cr[k][1], py);
+    ok &= k >= ncirc || add(mul(dx, dx), mul(dy, dy)) > cr[k][2];
   }
   return ok;
 }
@@ -183,25 +185,48 @@ __device__ __forceinline__ void rk4(F fn, const float* x, const float* u,
                                       mul(2.0f, k3[i])), k4[i])));
 }
 
-// boat.dynamics: the RK4 of boat.f (f_saturated's clamp of an already
-// saturated u changes nothing)
-__device__ __forceinline__ void rk4_f(const float* p, const float* x,
-                                      const float* u, float hh, float h,
-                                      float h6, float* xn) {
-  rk4([p](const float* a, const float* v, float* d) { f(p, a, v, d); },
-      x, u, hh, h, h6, xn);
-}
-
-// collision.circles_free on (px, py): outside every circle, each circle
-// (cx, cy, (r + margin)^2)
-__device__ __forceinline__ bool circles_free(const float* cs, int ncirc,
-                                             const float* x) {
-  bool feas = true;
-  for (int k = 0; k < ncirc; ++k) {
-    const float dx = sub(cs[3 * k], x[0]), dy = sub(cs[3 * k + 1], x[1]);
-    feas = feas && add(mul(dx, dx), mul(dy, dy)) > cs[3 * k + 2];
+// boat.dynamics, the RK4 of boat.f (f_saturated's clamp of an already
+// saturated u changes nothing; rk4_step(boat.f, ...) is the same RK4), as
+// rk4 computes it with the rows reordered: the velocity rows and psi of the
+// four stages first (each stage state x + step * k, step 0, hh, hh, h, as
+// rk4's t; k[2] is the stage's w), then the four stages' sincosf, which
+// depend on the velocity chain alone and not on each other, and their
+// position rows, then xn as rk4's last line.  The position rows of a stage
+// state are never read (f takes none).
+__device__ __forceinline__ void rk4_split(const float* p, const float* x,
+                                          const float* u, float hh, float h,
+                                          float h6, float* xn) {
+  float v[kStages][kM], kv[kStages][kM], psi[kStages], kp[kStages][2];
+  const float step[kStages] = {0.f, hh, hh, h};
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    if (s == 0) {
+#pragma unroll
+      for (int i = 0; i < kM; ++i) v[s][i] = x[3 + i];
+      psi[s] = x[2];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kM; ++i)
+        v[s][i] = add(x[3 + i], mul(step[s], kv[s - 1][i]));
+      psi[s] = add(x[2], mul(step[s], v[s - 1][2]));
+    }
+    f_vel(p, v[s], u, kv[s]);
   }
-  return feas;
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    float c, sn;
+    sincosf(psi[s], &sn, &c);   // the bits of sinf and cosf
+    f_pos(c, sn, v[s][0], v[s][1], kp[s]);
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    float k[kStages];
+#pragma unroll
+    for (int s = 0; s < kStages; ++s)
+      k[s] = i < 2 ? kp[s][i] : i == 2 ? v[s][2] : kv[s][i - 3];
+    xn[i] = add(x[i], mul(h6, add(add(add(k[0], mul(2.0f, k[1])),
+                                      mul(2.0f, k[2])), k[3])));
+  }
 }
 
 }  // namespace boat

@@ -42,13 +42,14 @@
 //   on them, so the four stages' sincosf (one range reduction for both, the
 //   bits of sinf and cosf) depend on the velocity chain alone, not on each
 //   other;
-// - the erf's wrap takes fmodf (a loop) only where |e + pi| >= 4 pi
-//   (wrap_angle_fast: the same bits);
+// - the erf's wrap is two selects, with fmodf (a loop, and a branch some
+//   lanes take) only where |e + pi| >= 8 pi (wrap_angle_fast: the same
+//   bits; tools/exp_wrap_forms.py times it against the other forms);
 // - the scalar converged test compares the sum of squares with the largest
 //   float whose rounded sqrt is <= tol (the wrapper's sqrt_threshold: the
 //   same boolean as sqrt(sum) <= tol, without the sqrt);
 // - the first 8 circles sit in registers and are tested independently and
-//   ANDed (the same boolean as circles_free's chain; a slot past ncirc
+//   ANDed (the same boolean as collision.circles_free; a slot past ncirc
 //   passes, as no circle does for a NaN xn); the rest are read from shared
 //   memory (one loop over shared memory for all was slower at 7, 10 and 64
 //   circles: tools/exp_rollout_circles.py);
@@ -63,8 +64,9 @@
 // launch of scalar chains.
 //
 // Rounding: every operation rounds on its own, in the plain version's order
-// (the device functions of boat_device.cuh; sums of 6 follow PyTorch's CUDA
-// reduction), with precise sincosf, fmodf and sqrtf-equivalent tests (no
+// (the device functions of boat_device.cuh, which the stage scaffold
+// steer_stages.cu shares; sums of 6 follow PyTorch's CUDA reduction), with
+// precise sincosf, fmodf and sqrtf-equivalent tests (no
 // --use_fast_math), so that on the card the kernel reproduces the plain
 // steer's arithmetic: a rollout amplifies one ulp of x into ~1e-3 of u
 // through the gain K.  The saturation propagates NaN as torch.clamp does,
@@ -77,18 +79,14 @@
 
 namespace {
 
-using boat::add;
 using boat::kM;
 using boat::kN;
 using boat::kParams;
 using boat::mul;
-using boat::sub;
 using boat::sum6;
 
 constexpr int kMaxCircles = 64;   // MAX_CIRCLES in ops/kernels/steer_kernel.py
 constexpr int kMaxThreads = 128;  // MAX_THREADS there
-constexpr int kStages = 4;        // RK4
-constexpr int kRegCircles = 8;    // circles kept in registers
 
 // |e| <= tol: the 2-norm against a scalar (the scan's test, not the Pallas
 // kernel's sum <= tol^2) as sum(e^2) <= tol's sqrt threshold, or every dim
@@ -125,46 +123,6 @@ __device__ __forceinline__ bool control(const float* p, const float* tar,
   }
   boat::saturate(p, u);
   return converged(e, tol, per_dim);
-}
-
-// rk4_f of boat_device.cuh reordered: the velocity rows and psi of the four
-// stages first (t2 = x + hh k1, t3 = x + hh k2, t4 = x + h k3; k[2] is the
-// stage's w), then each stage's trig and position rows, then xn as rk4's
-// last line
-__device__ __forceinline__ void rk4_split(const float* p, const float* x,
-                                          const float* u, float hh, float h,
-                                          float h6, float* xn) {
-  float v[kStages][kM], kv[kStages][kM], psi[kStages], kp[kStages][2];
-  const float step[kStages] = {0.f, hh, hh, h};
-#pragma unroll
-  for (int s = 0; s < kStages; ++s) {
-    if (s == 0) {
-#pragma unroll
-      for (int i = 0; i < kM; ++i) v[s][i] = x[3 + i];
-      psi[s] = x[2];
-    } else {
-#pragma unroll
-      for (int i = 0; i < kM; ++i)
-        v[s][i] = add(x[3 + i], mul(step[s], kv[s - 1][i]));
-      psi[s] = add(x[2], mul(step[s], v[s - 1][2]));
-    }
-    boat::f_vel(p, v[s], u, kv[s]);
-  }
-#pragma unroll
-  for (int s = 0; s < kStages; ++s) {
-    float c, sn;
-    sincosf(psi[s], &sn, &c);   // the bits of sinf and cosf
-    boat::f_pos(c, sn, v[s][0], v[s][1], kp[s]);
-  }
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    float k[kStages];
-#pragma unroll
-    for (int s = 0; s < kStages; ++s)
-      k[s] = i < 2 ? kp[s][i] : i == 2 ? v[s][2] : kv[s][i - 3];
-    xn[i] = add(x[i], mul(h6, add(add(add(k[0], mul(2.0f, k[1])),
-                                      mul(2.0f, k[2])), k[3])));
-  }
 }
 
 __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
@@ -208,11 +166,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
       K[i][j] = valid ? gains[((size_t)r * kM + i) * kN + j] : CUDART_NAN_F;
   // the first kRegCircles circles in registers, the rest read from shared
   // memory each step
-  float cr[kRegCircles][3];
-#pragma unroll
-  for (int k = 0; k < kRegCircles; ++k)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) cr[k][j] = k < ncirc ? cs[3 * k + j] : 0.f;
+  float cr[boat::kRegCircles][3];
+  boat::load_circles(cs, ncirc, cr);
 
   // u and arrived always belong to the current x
   float u[kM];
@@ -228,14 +183,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
         done = true;
       } else {
         float xn[kN], un[kM];
-        rk4_split(p, x, u, hh, h, h6, xn);
-        bool feas = boat::circles_clear(cs, kRegCircles, ncirc, xn[0], xn[1]);
-#pragma unroll
-        for (int k = 0; k < kRegCircles; ++k) {
-          // a missing circle passes whatever xn is, NaN included
-          const float dx = sub(cr[k][0], xn[0]), dy = sub(cr[k][1], xn[1]);
-          feas &= k >= ncirc || add(mul(dx, dx), mul(dy, dy)) > cr[k][2];
-        }
+        boat::rk4_split(p, x, u, hh, h, h6, xn);
+        const bool feas = boat::circles_ok(cr, cs, ncirc, xn[0], xn[1]);
         // the next step's control, taken if this step commits
         const bool arrived_n = control(p, tar, xn, K, tl, per_dim, un);
         bool in = has_goal;

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "lqrrt_steer_rollout": [_P, _P, _P, _I] + [_P] * 6 + [_I] + [_P] * 6
                            + [_I, _I, _I, _F, _F, _F, _I, _I, _P],
     "lqrrt_steer_stage": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 5
-                         + [_I, _I, _F, _F, _F, _I, _P],
+                         + [_I, _I, _F, _F, _F, _I, _I, _P],
     "lqrrt_scaffold_probe": [_P, _P, _P] + [_I] * 8 + [_P],
 }
 

@@ -26,9 +26,12 @@ six stages do the same with 1-D outputs and a body that gives (x_out, inc).
   undefined, in the kernel as in the tool).
 - ``LAUNCHES`` counts the kernel's launches by stage, where they happen.
 
-The kernel runs ``BLOCK`` = 64 threads a block, the block of kernel D's
-first design, so that the stages' times split that design's (kernel D now
-picks its own geometry).
+The kernel runs kernel D's step forms (``csrc/boat_device.cuh``) in D's
+launch geometry (``steer_kernel.rollout_geometry``: threads a block from B
+and the card's SM count), so that the stages' times split D's.  The
+stages that keep x on a failed step (full, dbg_feasibility, dbg_full)
+only store once a step has failed, as D does once done: every later step
+would repeat it (``csrc/steer_stages.cu``).
 """
 from __future__ import annotations
 
@@ -42,11 +45,10 @@ from ..._const import Const
 from ...models import boat
 from ..angles import wrap_angle
 from ..integrate import rk4_step
-from .nn_kernel import _launch
-from .steer_kernel import boat_params
+from .nn_kernel import _launch, sm_count
+from .steer_kernel import boat_params, rollout_geometry
 
 H, NS, NC, DT = 100, 6, 3, 0.05     # the tools' horizon, n, m and dt
-BLOCK = 64                          # threads a block of the kernel
 _DLIN = Const(boat.D_LIN[:, None])
 _MINV = Const(boat._Minv[:, None])
 
@@ -318,7 +320,8 @@ def _launch_stage(stage, x0T, KT, tarT):
         _launch("lqrrt_steer_stage", x0T, KT, tarT, st.sid,
                 p["params"].like(x0T), p["circles"].like(x0T), p["ncirc"],
                 p["goal"].like(x0T), p["gbuf"].like(x0T), xs, us, length, B,
-                H, 0.5 * DT, DT, DT / 6.0, BLOCK)
+                H, 0.5 * DT, DT, DT / 6.0,
+                *rollout_geometry(B, sm_count(dev)))
         LAUNCHES[stage] += 1
     return xs, us, length
 

@@ -32,38 +32,32 @@ from .kernel_times import (B, N, circle_problems, ptxas_summary,
 
 # (text of csrc/steer_rollout.cu, its replacement): the other form
 OTHER = [
-    ("""  // the first kRegCircles circles in registers, the rest read from shared
-  // memory each step
-  float cr[kRegCircles][3];
-#pragma unroll
-  for (int k = 0; k < kRegCircles; ++k)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) cr[k][j] = k < ncirc ? cs[3 * k + j] : 0.f;
+    ("""  float cr[boat::kRegCircles][3];
+  boat::load_circles(cs, ncirc, cr);
 """, ""),
-    ("""        bool feas = boat::circles_clear(cs, kRegCircles, ncirc, xn[0], xn[1]);
-#pragma unroll
-        for (int k = 0; k < kRegCircles; ++k) {
-          // a missing circle passes whatever xn is, NaN included
-          const float dx = sub(cr[k][0], xn[0]), dy = sub(cr[k][1], xn[1]);
-          feas &= k >= ncirc || add(mul(dx, dx), mul(dy, dy)) > cr[k][2];
-        }
+    ("""        const bool feas = boat::circles_ok(cr, cs, ncirc, xn[0], xn[1]);
 """, """        const bool feas = boat::circles_clear(cs, 0, ncirc, xn[0], xn[1]);
 """),
 ]
 
 
-def source_copy(name: str, patches=()):
-    """A copy of ``csrc/`` under ``_build/exp_<name>/`` with ``patches``
-    applied to steer_rollout.cu (each text found exactly once)."""
+# the committed sources, which every copy starts from (the tools point
+# _build.CSRC at a copy while they build it)
+COMMITTED = _build.CSRC
+
+
+def source_copy(name: str, patches=(), file: str = "steer_rollout.cu"):
+    """A copy of the committed ``csrc/`` under ``_build/exp_<name>/`` with
+    ``patches`` applied to ``file`` (each text found exactly once)."""
     dst = _build.BUILD_DIR / f"exp_{name}"
     shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(_build.CSRC, dst)
-    src = dst / "steer_rollout.cu"
+    shutil.copytree(COMMITTED, dst)
+    src = dst / file
     text = src.read_text()
     for old, new in patches:
         if text.count(old) != 1:
-            raise RuntimeError(f"exp_rollout_circles: the patch's text is "
-                               f"not in steer_rollout.cu once:\n{old}")
+            raise RuntimeError(f"source_copy: the patch's text is not in "
+                               f"{file} once:\n{old}")
         text = text.replace(old, new)
     src.write_text(text)
     return dst

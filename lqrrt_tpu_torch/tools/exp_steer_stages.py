@@ -10,10 +10,12 @@ The tool's data, from a seeded numpy generator: x0 ~ N(0, 1) (6, B), K ~
 twelve configurations (``steer_stages.F2``: identity, identity_nostore,
 erf, matvec, saturate, dynamics, full, then sin_whole, sincos8_row,
 rk4_lin_rows, euler_full, rk4_trig_rows) it times ``steer_stages.build``
-(block 64, D's default; median of ``REPS`` calls after a warm-up) and
-prints the kernel's time and its difference from the configuration
-before.  Then kernel D's flat rollout (``make_steer_kernel``, the boat
-problem, block 64) on the same x0, K and xtar, for reference.  The tool
+(median of ``REPS`` calls after a warm-up) and prints the kernel's time
+and its difference from the configuration before.  Then kernel D's flat
+rollout (``make_steer_kernel``, the boat problem) on the same x0, K and
+xtar, for reference.  Both launch in D's geometry
+(``steer_kernel.rollout_geometry``, from B and the SM count; D ignores
+its ``block``), which the first line prints on the card.  The tool
 chained its calls through the state; each call here is timed alone.
 Clocks: on the card, CUDA events around the kernel alone (``device_ms``:
 the stream spins while the host dispatches the call) and, beside it,
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from ..models import boat
-from ..ops.kernels.steer_kernel import make_steer_kernel
+from ..ops.kernels.nn_kernel import sm_count
+from ..ops.kernels.steer_kernel import make_steer_kernel, rollout_geometry
 from ..ops.kernels.steer_stages import F2, H, build
 from .exp_steer_kernel import device_ms, steer_args, timed_ms
 
@@ -56,14 +59,17 @@ def main(device: str = "cuda", B: int = 8192, seed: int = 0) -> dict:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     x0T, KT, tarT = stage_inputs(B, seed, dev)
     clock = "CUDA events" if dev.type == "cuda" else "host clock"
-    print(f"exp_steer_stages on {name}: B={B} H={H} seed={seed} block=64 "
-          f"({clock}, median of {REPS})", flush=True)
+    geometry = (rollout_geometry(B, sm_count(dev)) if dev.type == "cuda"
+                else None)
+    print(f"exp_steer_stages on {name}: B={B} H={H} seed={seed} "
+          f"(threads, blocks)={geometry} ({clock}, median of {REPS})",
+          flush=True)
 
     def times(fn):
         wall = timed_ms(fn, dev, REPS)
         return (device_ms(fn, REPS) if dev.type == "cuda" else wall), wall
 
-    out = dict(device=name, B=B, H=H, stages={})
+    out = dict(device=name, B=B, H=H, geometry=geometry, stages={})
     prev = None
     for stage in F2:
         steer = build(stage)

@@ -1,8 +1,8 @@
-"""Kernels A, B, C, D and E and F4's probes B and C alone on the card, at
-the planner's and the experiments' shapes.
+"""Kernels A, B, C, D and E, F2's and F3's stages and F4's probes B and C
+alone on the card, at the planner's and the experiments' shapes.
 
     python -m lqrrt_tpu_torch.tools.kernel_times [--reps 20]
-        [--only A,B,C,D,E,F4] [--wrappers-only | --launches-only]
+        [--only A,B,C,D,E,F2,F3,F4] [--wrappers-only | --launches-only]
 
 B, the block-column write (``block_write``), on an edge buffer dst
 (100, C, 40960) with src (100, C, 8192) at start 8704, for C = 6 and 3,
@@ -49,6 +49,17 @@ their plain versions (B's is the one PyTorch call
 ``x.expand(H, 6, B).contiguous()``, C's a Python loop of H multiplies)
 and their bounds (``probe_work``), with the same bit-for-bit check.
 ``--wrappers-only`` also runs D and F4 on an older tree.
+
+F2 and F3, the stage scaffold (``steer_stages.build`` and ``run_stage``):
+each of F2's twelve stages at B = 8192 on the tool's data
+(``exp_steer_stages.stage_inputs``, seed 0) and each of F3's six at
+B = 1024 on all ones and on ``dbg_steer_kernel.branch_inputs`` (seed 0),
+alone and with its dispatch, beside its bound (``stage_bound``: its bytes
+and ``steer_stages.FLOPS`` over the steps this data needs,
+``stage_steps``) and its share of it, with the bit-for-bit check against
+the plain version on the card; then the registers and spills of every
+``stage_kernel`` instance.  There is only the wrapper's call to time, so
+every mode times the same, and it also runs on an older tree.
 
 Every line names the card (``nvidia-smi`` name and power limit).  The
 device is the card: there is no CPU path.
@@ -461,6 +472,117 @@ def probe_work(name, b, H):
     return flops, 4 * (ns * b + aux + out)
 
 
+# the stages whose select can keep x (full, dbg_feasibility, dbg_full):
+# once a step fails, every later step repeats it
+HELD = ("full", "dbg_feasibility", "dbg_full")
+
+
+def first_hold(x0T, xs):
+    """(B,) int64: each candidate's first step whose stored x is the x it
+    started from (H if none), where a stage of ``HELD`` failed and held x;
+    x0T (n, B), xs (H, n, B)."""
+    H = xs.shape[0]
+    same = (xs == torch.cat([x0T[None], xs[:-1]])).all(1)
+    return torch.where(same.any(0), same.int().argmax(0),
+                       torch.full_like(same[0], H, dtype=torch.long))
+
+
+def stage_steps(stage, x0T, xs) -> int:
+    """The candidate-steps one call of a scaffold stage computes on these
+    inputs: H a candidate, but in the stages of ``HELD`` each candidate's
+    steps up to its first failed one (``first_hold``), which every later
+    step repeats."""
+    H, _, nb = xs.shape
+    if stage not in HELD:
+        return H * nb
+    return int((first_hold(x0T, xs) + 1).clamp(max=H).sum())
+
+
+def stage_bound(stage, B, H=100, steps=None):
+    """(ms, what bounds it) of one call of a scaffold stage (F2, F3): the
+    inputs x0T, KT and tarT read once, xs (and F2's us) written every step
+    (only the final step's without per-step stores), length written once;
+    the flops of the stage's body (``steer_stages.FLOPS``) in each of
+    ``steps`` candidate-steps (``stage_steps``; by default B H)."""
+    from ..ops.kernels import steer_stages as S
+
+    rows = 6 + (3 if S.STAGES[stage].tool == "F2" else 0)
+    stored = 1 if stage == "identity_nostore" else H
+    nbytes = 4 * B * (6 + 3 * 6 + 6) + 4 * stored * rows * B + 4 * B
+    return bound({"fp32": S.FLOPS[stage] * (B * H if steps is None
+                                            else steps)}, nbytes)
+
+
+def stage_geometry(b: int):
+    """(threads, blocks) of the scaffold's launch at B = b on the card: D's
+    ``rollout_geometry``, or an older tree's fixed ``BLOCK``."""
+    from ..ops.kernels import steer_stages as S
+    from ..ops.kernels.nn_kernel import sm_count
+    from ..ops.kernels.steer_kernel import rollout_geometry
+
+    if hasattr(S, "BLOCK"):
+        return S.BLOCK, -(-b // S.BLOCK)
+    return rollout_geometry(b, sm_count(torch.device("cuda")))
+
+
+def stage_calls(dev, only=("F2", "F3")):
+    """{label: (stage, the wrapper, its inputs)} of the scaffold: F2's
+    stages at B = 8192 on the tool's data (``stage_inputs``, seed 0), F3's
+    at B = 1024 on all ones and on ``branch_inputs`` (seed 0)."""
+    from ..ops.kernels import steer_stages as S
+    from .dbg_steer_kernel import branch_inputs
+    from .exp_steer_stages import stage_inputs
+
+    out = {}
+    if "F2" in only:
+        ins = stage_inputs(B, 0, dev)
+        for stage in S.F2:
+            out[f"F2 {stage} B={B}"] = (stage, S.build(stage), ins)
+    if "F3" in only:
+        b3 = 1024
+        f3_ins = {"ones": [torch.ones(sh, device=dev) for sh in
+                           ((6, b3), (3, 6, b3), (6, b3))],
+                  "branches": branch_inputs(b3, 0, dev)}
+        for stage in S.F3:
+            for what, ins in f3_ins.items():
+                out[f"F3 {stage} {what} B={b3}"] = (stage, S.run_stage(stage),
+                                                   ins)
+    return out
+
+
+def stage_exact(stage, res, ref) -> bool:
+    """A stage's outputs on the card equal its plain version's, bit for
+    bit (NaN equal to NaN): xs, F2's us and the length; only index 0 of xs
+    and us for identity_nostore, which stores nothing else."""
+    from .dbg_steer_kernel import same
+
+    sl = slice(0, 1) if stage == "identity_nostore" else slice(None)
+    pairs = [(res[0][sl], ref[0][sl]), (res[-1], ref[2])]
+    if len(res) == 3:
+        pairs.append((res[1][sl], ref[1][sl]))
+    return all(same(a, b) for a, b in pairs)
+
+
+def time_stages(reps: int, dev="cuda", only=("F2", "F3")) -> dict:
+    """F2's and F3's stages (``stage_calls``) alone and with their
+    dispatch, each beside its bound and share of it, with the bit-for-bit
+    check against the plain version on the card."""
+    from ..ops.kernels import steer_stages as S
+
+    out = {}
+    for label, (stage, fn, ins) in stage_calls(dev, only).items():
+        res, ref = fn(*ins), S.plain(stage, *ins)
+        nb = ins[0].shape[1]
+        bms = stage_bound(stage, nb, S.H, stage_steps(stage, ins[0],
+                                                      res[0]))[0]
+        r = dict(device_ms=device_ms(lambda: fn(*ins), reps),
+                 wall_ms=timed_ms(lambda: fn(*ins), torch.device(dev), reps),
+                 bound_ms=bms, bit_exact=float(stage_exact(stage, res, ref)))
+        r["of_bound"] = bms / r["device_ms"]
+        out[label] = r
+    return out
+
+
 def same_result(res, ref) -> bool:
     """Every field of two SteerResults equal (torch.equal)."""
     return all(torch.equal(a, b) for a, b in zip(res, ref))
@@ -542,13 +664,14 @@ def time_probes(reps: int, dev="cuda") -> dict:
     return out
 
 
-def main(reps: int = 20, only=("A", "B", "C", "D", "E", "F4"),
+def main(reps: int = 20, only=("A", "B", "C", "D", "E", "F2", "F3", "F4"),
          parts=PARTS) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times: needs a CUDA card")
     card = smi_line()
     res = {"card": card, "write": {}, "nn_general": {}, "nn_const": {},
-           "nn_expand": {}, "steer_rollout": {}, "scaffold_probes": {}}
+           "nn_expand": {}, "steer_rollout": {}, "steer_stages": {},
+           "scaffold_probes": {}}
 
     def show(label, r):
         print(f"{label} [{card}]: "
@@ -596,6 +719,19 @@ def main(reps: int = 20, only=("A", "B", "C", "D", "E", "F4"),
         for line in ptxas_summary():
             if line.startswith("steer_rollout_kernel"):
                 print(f"ptxas {line}", flush=True)
+    if "F2" in only or "F3" in only:
+        from ..ops.kernels.steer_stages import BODIES
+
+        res["steer_stages"] = time_stages(reps, only=only)
+        for label, r in res["steer_stages"].items():
+            show(f"steer_stage {label} H=100 ms", r)
+        res["steer_stages_geometry"] = {b: stage_geometry(b)
+                                        for b in (B, 1024)}
+        print(f"steer_stage (threads, blocks) by B: "
+              f"{res['steer_stages_geometry']}", flush=True)
+        for line in ptxas_summary(BODIES):
+            if line.startswith("stage_kernel"):
+                print(f"ptxas {line}", flush=True)
     if "F4" in only:
         res["scaffold_probes"] = time_probes(reps)
         for label, r in res["scaffold_probes"].items():
@@ -607,12 +743,12 @@ def main(reps: int = 20, only=("A", "B", "C", "D", "E", "F4"),
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", default="A,B,C,D,E,F4",
+    ap.add_argument("--only", default="A,B,C,D,E,F2,F3,F4",
                     help="kernels to time, comma-separated")
     only_one = ap.add_mutually_exclusive_group()
     only_one.add_argument("--wrappers-only", action="store_true",
                           help="A, E: time the wrappers' public calls only "
-                          "(D and F4 time only those)")
+                          "(D, F2, F3 and F4 time only those)")
     only_one.add_argument("--launches-only", action="store_true",
                           help="A, E: time the launches alone only")
     a = ap.parse_args()

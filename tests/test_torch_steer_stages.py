@@ -18,6 +18,17 @@
 - F3: ``steer_stages.run_stage``'s six stages against the tool's
   ``run_stage`` (tools/dbg_steer_kernel.py) on its all-ones inputs (B =
   1024): length exact, xs within ATOL.
+- The hold of the kernel's full, dbg_feasibility and dbg_full bodies,
+  which only store once a step has failed: on the plain scaffold and on
+  the tools' scaffolds in interpret mode (``build(s_full)``, and
+  ``run_stage`` with ``branch_inputs`` in place of all ones), a failed step
+  keeps x, and every later x, u and length equal the held ones.
+- The stages' launch geometry (D's ``rollout_geometry``) covers every
+  candidate once, from the arguments the wrapper passes to the kernel.
+- The device wrap (``wrap_angle_fast`` in csrc/boat_device.cuh: two exact
+  subtractions by selects, fmodf past 8 pi) emulated in float32 numpy has
+  ``ops/angles.py`` ``wrap_angle``'s bits; the patches of the experiments
+  that build other forms of the sources find their text once.
 
 The tools are scripts, not a package (``load_tool``): their source is run
 in a fresh module with ``pallas_call`` in interpret mode.  The CUDA kernels
@@ -40,10 +51,13 @@ from lqrrt_tpu_torch.ops.kernels import steer_kernel, steer_stages
 from lqrrt_tpu_torch.ops.kernels.steer_kernel import make_steer_kernel_dv
 from lqrrt_tpu_torch.ops.kernels.steer_stages import (F2, F3, build, plain,
                                                       run_stage)
-from lqrrt_tpu_torch.tools import (dbg_steer_kernel, exp_steer_dv,
-                                   exp_steer_stages)
+from lqrrt_tpu_torch.ops.angles import wrap_angle
+from lqrrt_tpu_torch.tools import (dbg_steer_kernel, exp_rollout_circles,
+                                   exp_steer_dv, exp_steer_stages,
+                                   exp_wrap_forms)
 from lqrrt_tpu_torch.tools.exp_steer_kernel import (DT, H, TOL, boat_K,
                                                     branch_batch, steer_args)
+from lqrrt_tpu_torch.tools.kernel_times import first_hold
 from lqrrt_tpu_torch.models import boat
 
 torch.set_num_threads(2)
@@ -86,15 +100,16 @@ def _interpret_pallas(recorded):
     return ns
 
 
-def load_tool(name, stop=None, replace=None):
+def load_tool(name, stop=None, replace=None, namespace=None):
     """tools/<name> as a module: its source up to the first line that
     starts with ``stop`` (the rest benches at import), each line that is a
-    key of ``replace`` replaced by its value (a size), without its
-    ``from jax.experimental import pallas as pl`` and its ``sys.path``
-    and one-line cache set-up lines, run in a fresh module whose ``pl`` is
-    ``_interpret_pallas`` (its outputs in ``.recorded``).  A cache call
-    that spans lines is a no-op while the source runs, and ``sys.path``
-    and JAX's config are put back afterwards."""
+    key of ``replace`` replaced by its value (a size, an input), without
+    its ``from jax.experimental import pallas as pl`` and its ``sys.path``
+    and one-line cache set-up lines, run in a fresh module that holds
+    ``namespace``'s names and whose ``pl`` is ``_interpret_pallas`` (its
+    outputs in ``.recorded``).  A cache call that spans lines is a no-op
+    while the source runs, and ``sys.path`` and JAX's config are put back
+    afterwards."""
     import lqrrt_tpu.utils.cache as cache
 
     path = REPO / "tools" / name
@@ -112,6 +127,7 @@ def load_tool(name, stop=None, replace=None):
                                  "enable_persistent_cache(\"")))
     mod = types.ModuleType(path.stem)
     mod.__file__ = str(path)
+    mod.__dict__.update(namespace or {})
     mod.recorded = []
     mod.pl = _interpret_pallas(mod.recorded)
     saved_path, saved_cfg = list(sys.path), dict(jax.config.values)
@@ -147,6 +163,22 @@ def stages_tool():
 def dbg_tool():
     """dbg_steer_kernel.py, which runs its six stages when loaded."""
     return load_tool("dbg_steer_kernel.py")
+
+
+HOLD_B = 512   # the batch of the hold tests (the stages tool's B)
+
+
+@functools.lru_cache(maxsize=None)
+def dbg_tool_branches():
+    """dbg_steer_kernel.py at B = Bt = HOLD_B with its six stages run on
+    ``dbg_steer_kernel.branch_inputs`` (seed 0) in place of all ones."""
+    ins = dbg_steer_kernel.branch_inputs(HOLD_B, 0, "cpu")
+    return load_tool("dbg_steer_kernel.py", replace={
+        "H, n, m, B, Bt = 100, 6, 3, 1024, 256":
+            f"H, n, m, B, Bt = 100, 6, 3, {HOLD_B}, {HOLD_B}",
+        "        )(jnp.ones((n, B)), jnp.ones((m, n, B)), jnp.ones((n, B)), "
+        "*const_in)": "        )(*INPUTS, *const_in)"},
+        namespace={"INPUTS": [jnp.asarray(a.numpy()) for a in ins]})
 
 
 def _t(*arrays):
@@ -370,3 +402,116 @@ def test_entry_points_main_on_cpu(monkeypatch, capsys):
                  dbg_steer_kernel.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(device="cuda")
+
+
+@pytest.mark.parametrize("stage", ["full", "dbg_feasibility", "dbg_full"])
+@pytest.mark.parametrize("who", ["plain", "tool"])
+def test_failed_step_holds(stage, who):
+    """Once a step of full, dbg_feasibility or dbg_full fails (the select
+    keeps x), every later step repeats it: x, u and the length stay the
+    held ones, which the kernel then only stores (``kernel_times.
+    first_hold`` finds the failed step).  On the port's plain
+    scaffold and on the tool's scaffold in interpret mode (F2's
+    ``build(s_full)``; F3's ``run_stage`` on ``branch_inputs``, whose
+    lengths the port's equal), at B = HOLD_B on ``branch_inputs``, where
+    the goal-box, buoy and near groups fail at their first steps or
+    later, and others never."""
+    ins = dbg_steer_kernel.branch_inputs(HOLD_B, 0, "cpu")
+    f2 = steer_stages.STAGES[stage].tool == "F2"
+    if who == "plain":
+        xs, us, length = plain(stage, *ins)
+        xs, length = xs.numpy(), length.numpy()
+        us = None if us is None else us.numpy()
+    elif f2:
+        st = stages_tool()
+        xs, us, length = map(np.asarray, st.build(st.s_full)(
+            *[jnp.asarray(a.numpy()) for a in ins]))
+    else:
+        xs, length = map(np.asarray, dbg_tool_branches().recorded[
+            F3.index(stage)])
+        us = None
+        # and the port's lengths on the same data
+        np.testing.assert_array_equal(plain(stage, *ins)[2].numpy(), length)
+    assert xs.shape == (H, 6, HOLD_B)
+    h0 = first_hold(ins[0], torch.from_numpy(xs)).numpy()
+    held = h0 < H
+    assert held.sum() >= 8 and (h0[held] > 0).any() and (~held).any()
+    for h in range(H):
+        later = h0 <= h
+        np.testing.assert_array_equal(xs[h][:, later],
+                                      xs[h0[later], :, np.nonzero(later)[0]].T)
+        if us is not None:
+            np.testing.assert_array_equal(
+                us[h][:, later], us[h0[later], :, np.nonzero(later)[0]].T)
+    np.testing.assert_array_equal(length.reshape(-1),
+                                  np.full(HOLD_B, H) if f2 else h0)
+
+
+@pytest.mark.parametrize("B", [1, 31, 1024, 1027, 8191, 8192])
+def test_stage_geometry_covers_every_candidate_once(B, monkeypatch):
+    """The threads and blocks the wrapper passes to ``lqrrt_steer_stage``
+    (D's ``rollout_geometry``) on cards of 132, 114 and 16 SMs: a multiple
+    of 32 in [32, 128] threads a block, and thread t of the grid takes
+    candidate t, so every candidate is taken once and no block is idle."""
+    calls = []
+    monkeypatch.setattr(steer_stages, "_launch",
+                        lambda fn, *args: calls.append(args))
+    monkeypatch.setattr(steer_stages, "LAUNCHES",
+                        dict(steer_stages.LAUNCHES))
+    x0T, KT, tarT = (torch.zeros(s) for s in ((6, B), (3, 6, B), (6, B)))
+    for sms in (132, 114, 16):
+        monkeypatch.setattr(steer_stages, "sm_count", lambda dev: sms)
+        for stage in ("full", "dbg_full"):
+            steer_stages._launch_stage(stage, x0T, KT, tarT)
+            threads, blocks = calls[-1][-2:]
+            assert 32 <= threads <= 128 and threads % 32 == 0
+            taken = np.arange(blocks * threads)
+            taken = taken[taken < B]
+            assert (np.bincount(taken, minlength=B) == 1).all()
+            assert (blocks - 1) * threads < B
+
+
+def test_wrap_selects_have_wrap_angle_bits():
+    """``wrap_angle_fast``'s two selects, one float32 rounding an
+    operation as on the card, give ``wrap_angle``'s bits on 1e6 uniform
+    angles in [-60, 60] (the selects below 8 pi, fmodf past it) and at
+    every multiple of 2 pi minus pi from -9 to 9 and its two neighbours,
+    where a subtraction leaves zero; NaN for NaN and inf."""
+    f = np.float32
+    pi = f(np.pi)
+    two_pi = f(2) * pi
+    four_pi = f(2) * two_pi
+    edges = [v for k in range(-9, 10) for v in (
+        f(k) * two_pi - pi, np.nextafter(f(k) * two_pi - pi, f(np.inf)),
+        np.nextafter(f(k) * two_pi - pi, f(-np.inf)))]
+    a = np.concatenate([
+        np.random.default_rng(0).uniform(-60, 60, 10 ** 6).astype(f),
+        np.array(edges + [np.nan, np.inf, -np.inf, 0.0, -0.0], f)])
+    with np.errstate(invalid="ignore"):
+        s = a + pi
+        r = np.where(np.abs(s) >= four_pi, s - np.copysign(four_pi, s), s)
+        r = np.where(np.abs(r) >= two_pi, r - np.copysign(two_pi, r), r)
+        past = ~(np.abs(s) < f(2) * four_pi)
+        r = np.where(past, np.fmod(s, two_pi), r)
+        out = np.where(r < 0, r + two_pi, r) - pi
+    ref = wrap_angle(torch.from_numpy(a)).numpy()
+    assert out.dtype == ref.dtype == np.float32
+    assert 0 < past.sum() < a.size - 5
+    np.testing.assert_array_equal(out.view(np.int32)[~np.isnan(ref)],
+                                  ref.view(np.int32)[~np.isnan(ref)])
+    assert np.array_equal(np.isnan(out), np.isnan(ref))
+
+
+def test_experiment_patches_find_their_text():
+    """The source patches of the experiments that build other forms of
+    csrc/ (``exp_rollout_circles.OTHER`` on steer_rollout.cu, each of
+    ``exp_wrap_forms.FORMS`` on boat_device.cuh) are found exactly once in
+    the committed sources, so those builds differ only where they mean
+    to."""
+    csrc = REPO / "lqrrt_tpu_torch" / "csrc"
+    rollout = (csrc / "steer_rollout.cu").read_text()
+    for old, _ in exp_rollout_circles.OTHER:
+        assert rollout.count(old) == 1, old
+    assert (csrc / "boat_device.cuh").read_text().count(
+        exp_wrap_forms.SELECTS) == 1
+    assert set(exp_wrap_forms.FORMS) >= set(exp_wrap_forms.TURNS)
