@@ -77,7 +77,19 @@ exits non-zero:
    checked for goal, feasibility, goal box and dynamic consistency, with
    the kernels' launch counts set to 0 just before the replan and read just
    after; then one restart chunk of each under
-   ``torch.cuda.set_sync_debug_mode("error")``.
+   ``torch.cuda.set_sync_debug_mode("error")``;
+9. the new paths at full width: the grid boat
+   (``boat.default_problem(obstacle_model="grid")``, 2.0 s, as 8); the
+   boat's host loop (``refine=False``, 1.0 s, which fills the tree and
+   stops there; then ``max_nodes=16384`` with one round a chunk, held to
+   ``nodes <= max_nodes + batch * rounds_per_chunk``); the double
+   integrator with a moving buoy (``circles_free_data``, two 2.0 s replans
+   around ``Constraints.set_feasibility_data``: the goal and a clearance >
+   0 in each, no new chunk, the data tensors at the same addresses),
+   through kernel A with no wrap dim; kernel A alone at the double
+   integrator's shapes (n = 4 unwrapped, its S, N = 40960, size 32768,
+   B = 8192) against its plain version, with its times and bound; and a
+   small replan with an untagged erf, which takes the scan.
 
 The last two lines are a JSON object with the kernels' checks and times and
 ``{"ok": true, "device": {...}}``.  In the kernels line every ``ms``,
@@ -1368,7 +1380,10 @@ def phase_round_parity(name, prob, nearest_fn):
                              "CPU's")
 
 
-def check_plan(prob, planner):
+def check_plan(prob, planner, feas=None, goal_box=True):
+    """Finite, of the right shapes, from x0, feasible under ``feas`` (the
+    problem's predicate by default) at every state, in the goal box when
+    ``goal_box``, and dynamically consistent."""
     n, m = prob["constraints"].nstates, prob["constraints"].ncontrols
     x_seq, u_seq = planner.x_seq, planner.u_seq
     if not (np.all(np.isfinite(x_seq)) and np.all(np.isfinite(u_seq))
@@ -1376,14 +1391,15 @@ def check_plan(prob, planner):
         raise AssertionError("plan has the wrong shape or non-finite values")
     if not np.allclose(x_seq[0], prob["x0"], atol=1e-5):
         raise AssertionError("plan does not start at x0")
-    feas = prob["constraints"].is_feasible(torch.as_tensor(x_seq[1:]),
-                                           torch.as_tensor(u_seq))
-    if not bool(feas.all()):
+    feas = feas or prob["constraints"].is_feasible
+    if not bool(feas(torch.as_tensor(x_seq[1:]),
+                     torch.as_tensor(u_seq)).all()):
         raise AssertionError("plan infeasible at some step")
     wrap = list(prob["wrap_dims"])
     e = prob["goal"] - x_seq[-1]
     e[wrap] = (e[wrap] + np.pi) % (2 * np.pi) - np.pi
-    if not np.all(np.abs(e) <= prob["constraints"].goal_buffer + 0.1):
+    if goal_box and not np.all(
+            np.abs(e) <= prob["constraints"].goal_buffer + 0.1):
         raise AssertionError(f"plan ends outside the goal box: {e}")
     xn = prob["dynamics"](torch.as_tensor(x_seq[:-1]), torch.as_tensor(u_seq),
                           prob["dt"]).numpy()
@@ -1413,25 +1429,20 @@ def replan(name, prob, planner, bias, budget, smi, counters):
         f"rounds={st['rounds']} restarts={st['restarts']} "
         f"elapsed_s={st['elapsed_s']:.4f} total_s={st['total_s']:.4f} "
         f"plan_duration_s={st['plan_duration_s']:.2f} "
-        f"nodes={st['nodes']} peak_mem_GiB={peak:.2f} launches={launches}")
+        f"nodes={st['nodes']} tree_rows={st['tree_rows']} "
+        f"peak_mem_GiB={peak:.2f} launches={launches}")
     return reached, launches
 
 
 def phase_main_path(name, prob, smi, bias, budget, nn, extra_budgets=()):
     """The replan at full width through nn (the kernel the planner must
     pick), then one chunk under sync-debug mode 'error'."""
-    import lqrrt_tpu_torch
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const, nn_general
     from lqrrt_tpu_torch.ops.kernels.write_kernel import block_write
 
     counters = {nn: {"nn_const": nn_const, "nn_general": nn_general}[nn],
                 "block_write": block_write}
-    planner = lqrrt_tpu_torch.Planner(
-        prob["dynamics"], prob["lqr"], prob["constraints"],
-        horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
-        erf=prob["erf"], printing=True, batch_size=8192, capacity=32768,
-        wrap_dims=prob["wrap_dims"], saturate=prob["saturate"],
-        device="cuda", seed=0)
+    planner = full_width_planner(prob)
     t0 = time.perf_counter()
     planner.warmup(prob["x0"], prob["sample_space"], goal_bias=bias)
     torch.cuda.synchronize()
@@ -1476,6 +1487,198 @@ def phase_main_path(name, prob, smi, bias, budget, nn, extra_budgets=()):
         f"sync_debug_mode='error': ok, enqueue_s={enqueue:.3f} "
         f"total_s={total:.3f}")
     return launches
+
+
+def full_width_planner(prob, constraints=None, **kw):
+    import lqrrt_tpu_torch
+
+    args = dict(horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
+                erf=prob["erf"], printing=True, batch_size=8192,
+                capacity=32768, wrap_dims=prob["wrap_dims"],
+                saturate=prob["saturate"], device="cuda", seed=0)
+    args.update(kw)
+    return lqrrt_tpu_torch.Planner(prob["dynamics"], prob["lqr"],
+                                   constraints or prob["constraints"], **args)
+
+
+def planner_counters():
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const
+    from lqrrt_tpu_torch.ops.kernels.write_kernel import block_write
+
+    return {"nn_const": nn_const, "block_write": block_write}
+
+
+def phase_host_loop(prob, smi, bias):
+    """The boat through the host loop (grow chunks on one tree) at full
+    width: ``refine=False``, a 1.0 s replan, whose first chunk of 8 rounds
+    fills the 32768 rows, so the loop stops at capacity; then
+    ``max_nodes=16384`` with one round a chunk, so that the bound ``nodes
+    <= max_nodes + batch * rounds_per_chunk`` (stats one chunk stale)
+    bites.  Each: no restart, a grow chunk, a plan from x0, feasible and
+    dynamically consistent (in the goal box if the goal was reached),
+    kernels A and B launched.  Returns each replan's launches."""
+    counters = planner_counters()
+    out = {}
+    for label, kw in (("refine=False", dict(refine=False)),
+                      ("max_nodes=16384", dict(max_nodes=16384,
+                                               rounds_per_chunk=1))):
+        planner = full_width_planner(prob, **kw)
+        planner.warmup(prob["x0"], prob["sample_space"], goal_bias=bias)
+        name = f"boat host loop {label}"
+        reached, launches = replan(name, prob, planner, bias, 1.0, smi,
+                                   counters)
+        st = planner.stats
+        kinds = [k[3] for k in planner._chunk_cache]
+        bound = planner.max_nodes + planner.batch_size * \
+            planner.rounds_per_chunk
+        if st["restarts"] or kinds != ["grow"]:
+            raise AssertionError(f"{name}: not the host loop: {kinds}, "
+                                 f"{st['restarts']} restarts")
+        if "refine" in kw and st["tree_rows"] != planner.capacity:
+            raise AssertionError(f"{name}: stopped at {st['tree_rows']} "
+                                 f"rows, not at capacity {planner.capacity}")
+        if "max_nodes" in kw and not st["nodes"] <= bound:
+            raise AssertionError(f"{name}: {st['nodes']} nodes > {bound}")
+        check_plan(prob, planner, goal_box=reached)
+        if min(launches.values()) < 1:
+            raise AssertionError(f"{name}: a kernel was not launched: "
+                                 f"{launches}")
+        log(f"{name} checks: host loop (grow chunk, no restart), "
+            f"tree_rows={st['tree_rows']} nodes={st['nodes']} (bound "
+            f"{bound}), plan from x0, feasible, dynamically consistent, "
+            f"goal={reached}")
+        out[label] = launches
+    return out
+
+
+def phase_dynamic_obstacles(smi):
+    """The double integrator with a moving buoy at full width, the shapes of
+    tests/test_planner_e2e.py:334-381: ``circles_free_data(margin=0.05)``
+    over one circle, a 2.0 s replan, ``set_feasibility_data`` with the buoy
+    moved, a second 2.0 s replan.  Each replan: the goal, a plan clear of
+    the field then in force (feasible under it, clearance > 0), dynamically
+    consistent, kernels A (no wrap dim: the erf is ``torch.subtract``) and
+    B launched; between them the chunk cache gains no entry and the data
+    tensors keep their addresses.  Returns both replans' launches."""
+    from lqrrt_tpu_torch import Constraints
+    from lqrrt_tpu_torch.models import double_integrator as di
+    from lqrrt_tpu_torch.ops.collision import circles_free_data
+
+    prob = di.default_problem(obstacles=False)
+    fields = [{"centers": np.array([[1.5, 0.0]], np.float32),
+               "radii": np.array([0.6], np.float32)},
+              {"centers": np.array([[1.5, 0.35]], np.float32),
+               "radii": np.array([0.7], np.float32)}]
+    pred = circles_free_data(margin=0.05)
+    cons = Constraints(nstates=4, ncontrols=2,
+                       goal_buffer=prob["constraints"].goal_buffer,
+                       is_feasible=pred, feasibility_data=fields[0])
+    planner = full_width_planner(prob, cons)
+    if planner.erf is not torch.subtract:
+        raise AssertionError("the double integrator's erf is not subtract")
+    planner.warmup(prob["x0"], prob["sample_space"], goal_bias=0.2)
+    counters = planner_counters()
+    out, keys, ptrs = [], None, None
+    for i, data in enumerate(fields):
+        cons.set_feasibility_data(data)
+        name = f"double integrator moving buoy, field {i}"
+        reached, launches = replan(name, prob, planner, 0.2, 2.0, smi,
+                                   counters)
+        bufs = planner._feas_bufs[planner._feas_sig]
+        now = {k: v.data_ptr() for k, v in bufs.items()}
+        if keys is not None and (list(planner._chunk_cache) != keys
+                                 or now != ptrs):
+            raise AssertionError(f"{name}: the data update built a chunk "
+                                 f"or moved a tensor: "
+                                 f"{list(planner._chunk_cache)}")
+        keys, ptrs = list(planner._chunk_cache), now
+        c, r = data["centers"][0], float(data["radii"][0])
+        clearance = float((np.linalg.norm(planner.x_seq[:, :2] - c, axis=1)
+                           - r).min())
+        field = {k: torch.as_tensor(v) for k, v in data.items()}
+        if not reached or clearance <= 0.0 or planner.nn_selected != \
+                "nn_const" or min(launches.values()) < 1:
+            raise AssertionError(f"{name}: goal={reached} clearance="
+                                 f"{clearance} nn={planner.nn_selected} "
+                                 f"launches={launches}")
+        check_plan(prob, planner, lambda x, u: pred(x, u, field))
+        log(f"{name} checks: goal, clearance={clearance:.4f} m, feasible "
+            f"under the field, dynamically consistent, nn_const unwrapped, "
+            f"chunks={len(keys)}, data tensors in place")
+        out.append(launches)
+    return out
+
+
+def phase_kernel_a_unwrapped():
+    """Kernel A at the double integrator's full-width shapes: n = 4 with no
+    wrap dim, its constant S, N = 40960 rows uniform in its sample space,
+    B = 8192 candidates from the same box, at sizes 1, 4097 and 32768,
+    against its plain version with ``check_nn``'s gates (id match >= 0.999,
+    fp64 excess, anchors); then at size 32768 the wrapper's time with its
+    dispatch and alone, the launch alone and the plain version's time."""
+    from lqrrt_tpu_torch.models import double_integrator as di
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import (nn_const,
+                                                       nn_const_plain)
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import device_ms
+    from lqrrt_tpu_torch.tools.kernel_times import const_launcher
+
+    prob = di.default_problem()
+    ss = torch.as_tensor(prob["sample_space"], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(41)
+
+    def uniform(rows):
+        return ss[:, 0] + torch.rand((rows, 4), generator=g,
+                                     device="cuda") * (ss[:, 1] - ss[:, 0])
+
+    states, xr = uniform(N_BENCH), uniform(B_BENCH)
+    S = prob["lqr"](states[0], torch.zeros(2, device="cuda"))[0]
+    S = S.contiguous()
+    fns = ("kernel A nn_const", nn_const, nn_const_plain)
+    out = {"id_match": {}}
+    max_err = 0.0
+    for size in (1, 4097, 32768):
+        _, out["id_match"][size], err = check_nn(
+            fns, "double integrator n=4 unwrapped", states, S, xr, size,
+            None, gate_ids=True)
+        max_err = max(max_err, err)
+    sz = torch.tensor(32768, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: nn_const(states, S, sz, xr, wrap_dim=None))
+    plain_ms = cuda_ms(lambda: nn_const_plain(states, S, sz, xr,
+                                              wrap_dim=None), reps=5)
+    alone = device_ms(lambda: nn_const(states, S, sz, xr, None), 20)
+    launch, refill = const_launcher(states, S, xr, sz, None)
+    launch_alone = device_ms(launch, 20, refill)
+    log(f"kernel A nn_const double integrator n=4 unwrapped size=32768: "
+        f"kernel_ms={ms:.4f} device_ms={alone:.4f} (alone, the prep "
+        f"included) launch_device_ms={launch_alone:.4f} "
+        f"plain_ms={plain_ms:.4f}")
+    out.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               device_ms=alone, launch_device_ms=launch_alone)
+    return out
+
+
+def phase_untagged_erf(smi):
+    """Fault 18 on the card: the double integrator with an erf that is
+    neither ``torch.subtract`` nor tagged by ``make_erf`` under
+    ``nn_impl="auto"`` takes the plain blocked scan, as the JAX planner
+    does; a small replan (B = 512, capacity 4096, 1.0 s) reaches the goal
+    with a checked plan and launches no kernel A."""
+    from lqrrt_tpu_torch.models import double_integrator as di
+
+    prob = di.default_problem()
+    planner = full_width_planner(prob, erf=lambda a, b: a - b,
+                                 batch_size=512, capacity=4096)
+    planner.warmup(prob["x0"], prob["sample_space"], goal_bias=0.2)
+    counters = planner_counters()
+    reached, launches = replan("double integrator untagged erf", prob,
+                               planner, 0.2, 1.0, smi, counters)
+    if not reached or planner.nn_selected != "scan" or \
+            launches["nn_const"] != 0:
+        raise AssertionError(f"untagged erf: goal={reached} "
+                             f"nn={planner.nn_selected} launches={launches}")
+    check_plan(prob, planner)
+    log("double integrator untagged erf checks: nn=scan, goal, plan from "
+        "x0, feasible, in the goal box, dynamically consistent")
 
 
 def main() -> int:
@@ -1556,6 +1759,23 @@ def main() -> int:
                   [0.3, 0.3, 0, 0], 2.0, "nn_general")
     l_quad = timed("quadrotor main path", phase_main_path, "quadrotor",
                    quad_p, smi, [0.3] * 3 + [0.0] * 9, 3.0, "nn_general")
+    boat_bias = [0.3, 0.3, 0, 0, 0, 0]
+    l_grid = timed("grid boat main path", phase_main_path, "grid boat",
+                   boat.default_problem(obstacle_model="grid"), smi,
+                   boat_bias, 2.0, "nn_const")
+    l_host = timed("boat host loop", phase_host_loop, boat_p, smi, boat_bias)
+    l_dyn = timed("double integrator moving buoy", phase_dynamic_obstacles,
+                  smi)
+    a4 = timed("kernel A unwrapped", phase_kernel_a_unwrapped)
+    timed("untagged erf", phase_untagged_erf, smi)
+    # every planner path's launches of A and B, the paths of 8 and 9
+    paths = {"boat": l_boat, "car": l_car, "quadrotor": l_quad,
+             "grid boat": l_grid,
+             **{f"boat host loop {k}": v for k, v in l_host.items()},
+             **{f"double integrator field {i}": v
+                for i, v in enumerate(l_dyn)}}
+    a_paths = {k: v["nn_const"] for k, v in paths.items() if "nn_const" in v}
+    b_paths = {k: v["block_write"] for k, v in paths.items()}
     # bounds of the timed calls, from this run's shapes (size 32768 live
     # rows of N, B candidates): flops a live pair by type, and the inputs
     # read once plus the (ids, cost) written once
@@ -1569,6 +1789,8 @@ def main() -> int:
 
     # A: 3n + 3 flops a pair, wrapped (``kernel_times.const_flops``)
     a_bound = const_bound(NS, True, size, B_BENCH)
+    # A at the double integrator's n = 4, unwrapped: 3n - 1 flops a pair
+    a4_bound = const_bound(4, False, size, B_BENCH)
     # B: src read and dst columns written, (100, 6, B) f32 each
     b_bound = bound(None, 2 * 100 * 6 * B_BENCH * 4)
     # C at n = 12: e (n sub), the wrap (mul, rint, fma), and the quadratic
@@ -1585,18 +1807,25 @@ def main() -> int:
         dict(name="nn_const", route="cuda",
              source="lqrrt_tpu_torch/csrc/nn_const.cu",
              replaces="lqrrt_tpu/ops/pallas/nn_kernel.py:415",
-             launches=l_boat["nn_const"], max_abs_err=a["max_abs_err"],
+             launches=sum(a_paths.values()), launches_by_path=a_paths,
+             max_abs_err=max(a["max_abs_err"], a4["max_abs_err"]),
              ms=a["ms"], device_ms=a["device_ms"],
              launch_device_ms=a["launch_device_ms"],
              prep_device_ms=a["prep_device_ms"], plain_ms=a["plain_ms"],
              bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=None,
              id_match={str(k): v for k, v in a["id_match"].items()},
+             n4_unwrapped=dict(
+                 ms=a4["ms"], device_ms=a4["device_ms"],
+                 launch_device_ms=a4["launch_device_ms"],
+                 plain_ms=a4["plain_ms"], bound_ms=a4_bound[0],
+                 bound_by=a4_bound[1],
+                 id_match={str(k): v for k, v in a4["id_match"].items()}),
              ptxas=[line for line in ae_ptxas
                     if line.startswith("nn_const_kernel")]),
         dict(name="block_write", route="cuda",
              source="lqrrt_tpu_torch/csrc/block_write.cu",
              replaces="lqrrt_tpu/ops/pallas/write_kernel.py:26",
-             launches=sum(l["block_write"] for l in (l_boat, l_car, l_quad)),
+             launches=sum(b_paths.values()), launches_by_path=b_paths,
              max_abs_err=b["max_abs_err"], ms=b["ms"],
              device_ms=b["device_ms"], plain_ms=b["plain_ms"],
              bound_ms=b_bound[0], bound_by=b_bound[1],

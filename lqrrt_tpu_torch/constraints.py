@@ -2,7 +2,7 @@
 
 A numpy record: goal/search buffers are backend-neutral numpy arrays, and
 ``is_feasible`` is a batch-leading predicate ``(x[..., n], u[..., m]) ->
-bool[...]``.
+bool[...]``, or ``(x, u, data) -> bool[...]`` with ``feasibility_data``.
 """
 from __future__ import annotations
 
@@ -58,8 +58,14 @@ class Constraints:
             self, "_feasibility_version", -1) + 1
 
     def set_feasibility_data(self, data):
-        """Swap the obstacle data of a 3-arg predicate (the planner of this
-        package does not take such predicates yet; see ROADMAP)."""
+        """Swap the obstacle DATA of a 3-arg predicate ``is_feasible(x, u,
+        data)`` without rebuilding the planner's chunks.
+
+        ``data`` is a dict, list or tuple of arrays (or one array) whose
+        shapes stay fixed across updates, e.g. a fixed-size occupancy grid,
+        or (K, 2) circle centers with (K,) radii, unused slots padded with
+        radius < 0.  The planner copies each update into the same device
+        tensors; a change of shape builds new chunks."""
         if self.feasibility_data is None:
             raise ValueError(
                 "constraints were built without feasibility_data; construct "

@@ -100,8 +100,9 @@ def commit_candidates(spec: RoundSpec, tree: TreeArrays,
     """Commit a round's candidates (dense commit-all; in place)."""
     if spec.slack < c.pids.shape[0]:
         raise NotImplementedError(
-            "only the dense commit-all path is ported (slack >= batch); the "
-            "scatter and sorted commits are ROADMAP queue 1, item 12")
+            "only the dense commit-all path is ported (slack >= batch, which "
+            "every single-device Planner has); the scatter and sorted "
+            "commits serve the mesh rounds, ROADMAP queue 1, item 16")
     return commit_batch_dense_all(
         tree, spec.dt, spec.capacity, c.pids, c.length, c.x_seq, c.u_seq,
         c.xnew, c.S_new, c.K_new, c.in_goal, c.gcost)

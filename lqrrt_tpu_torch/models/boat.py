@@ -71,11 +71,9 @@ def make_lqr(q=(1.0, 1.0, 2.0, 0.1, 0.1, 0.2), r=(2e-5, 2e-5, 2e-5)):
     return constant_lqr(S, K)
 
 
-def _problem(centers, radii, goal, sample_space, obstacles=True):
+def _problem(goal, sample_space, obstacles, is_feasible):
     from ..constraints import Constraints
 
-    is_feasible = (collision.circles_free(centers, radii, margin=1.0)
-                   if obstacles else None)
     constraints = Constraints(
         nstates=NSTATES, ncontrols=NCONTROLS,
         goal_buffer=np.array([1.5, 1.5, 0.3, 0.8, 0.8, 0.5], np.float32),
@@ -84,32 +82,53 @@ def _problem(centers, radii, goal, sample_space, obstacles=True):
     return dict(dynamics=dynamics, lqr=make_lqr(), erf=erf,
                 constraints=constraints, x0=np.zeros(6, np.float32),
                 goal=goal, sample_space=sample_space, horizon=5.0, dt=0.05,
-                obstacles=(centers, radii), saturate=saturate,
-                wrap_dims=(2,))
+                obstacles=obstacles, saturate=saturate, wrap_dims=(2,))
 
 
 _SEARCH = [[-5.0, 5.0], [-5.0, 5.0], [-np.pi, np.pi],
            [-1.0, 2.0], [-0.5, 0.5], [-0.5, 0.5]]
 
 
+def buoy_grid(centers, radii, resolution: float = 0.25):
+    """The buoy field rasterised as the JAX model does it: cells of
+    ``resolution`` metres over x in [-4, 46), y in [-12, 12), occupied
+    where the cell centre lies within radius + 1.0 m of a buoy (96 x 200
+    cells at 0.25 m)."""
+    origin = np.array([-4.0, -12.0], np.float32)
+    W = int(round((46.0 - origin[0]) / resolution))  # noqa: N806
+    H = int(round((12.0 - origin[1]) / resolution))  # noqa: N806
+    gx = origin[0] + (np.arange(W) + 0.5) * resolution
+    gy = origin[1] + (np.arange(H) + 0.5) * resolution
+    X, Y = np.meshgrid(gx, gy)                       # noqa: N806 (H, W)
+    occ = np.zeros((H, W), bool)
+    for c, r in zip(centers, radii):
+        occ |= (X - c[0]) ** 2 + (Y - c[1]) ** 2 <= (r + 1.0) ** 2
+    return collision.OccupancyGrid(occ, origin, resolution)
+
+
 def default_problem(obstacles: bool = True, obstacle_model: str = "circles",
                     grid_resolution: float = 0.25):
-    """Benchmark scenario: 40 m transit through a buoy field."""
-    del grid_resolution
-    if obstacle_model == "grid":
-        raise NotImplementedError(
-            "the 'grid' obstacle model needs OccupancyGrid, which is not "
-            "ported yet (ROADMAP queue 1, item 12)")
-    if obstacle_model != "circles":
-        raise ValueError(f"unknown obstacle_model {obstacle_model!r}")
+    """Benchmark scenario: 40 m transit through a buoy field.
+
+    obstacle_model: "circles" (the reference-demo model) or "grid", the
+    same field rasterised into an ``OccupancyGrid`` (``buoy_grid``), the
+    deployment-grade feasibility the WAM-V ran with."""
     centers = np.array([[12.0, 3.0], [18.0, -4.0], [25.0, 2.0], [30.0, -3.0],
                         [8.0, -6.0], [22.0, 8.0], [34.0, 4.0]], np.float32)
     radii = np.array([2.5, 3.0, 2.0, 2.5, 2.0, 2.5, 2.0], np.float32)
+    is_feasible = None
+    if obstacles and obstacle_model == "circles":
+        is_feasible = collision.circles_free(centers, radii, margin=1.0)
+    elif obstacles and obstacle_model == "grid":
+        grid = buoy_grid(centers, radii, grid_resolution)
+        is_feasible = collision.all_of(grid.feasibility(footprint_radius=0.0))
+    elif obstacles:
+        raise ValueError(f"unknown obstacle_model {obstacle_model!r}")
     goal = np.array([40.0, 0.0, 0.0, 0.0, 0.0, 0.0], np.float32)
     sample_space = np.array(
         [[-2.0, 44.0], [-10.0, 10.0], [-np.pi, np.pi],
          [0.0, 3.0], [-0.5, 0.5], [-0.7, 0.7]], np.float32)
-    return _problem(centers, radii, goal, sample_space, obstacles)
+    return _problem(goal, sample_space, (centers, radii), is_feasible)
 
 
 def hard_problem():
@@ -122,4 +141,5 @@ def hard_problem():
     sample_space = np.array(
         [[-2.0, 56.0], [-15.0, 15.0], [-np.pi, np.pi],
          [0.0, 3.0], [-0.5, 0.5], [-0.7, 0.7]], np.float32)
-    return _problem(centers, radii, goal, sample_space)
+    return _problem(goal, sample_space, (centers, radii),
+                    collision.circles_free(centers, radii, margin=1.0))

@@ -1,6 +1,13 @@
-"""Feasibility predicates (port of ``all_of``, ``circles_free`` and
-``control_limits`` from lqrrt_tpu/ops/collision.py).  Predicates are
-batch-leading: ``(x[..., n], u[..., m]) -> bool[...]``."""
+"""Feasibility predicates (port of lqrrt_tpu/ops/collision.py).  Predicates
+are batch-leading: ``(x[..., n], u[..., m]) -> bool[...]``; the data-driven
+ones (``circles_free_data``, ``grid_free_data``) take a third argument, the
+obstacle data, for ``Constraints(feasibility_data=...)``.
+
+A NaN position is never free: the grid tests its bounds on the float cell
+(false for NaN) before the cast to int, and a data circle counts a NaN
+distance as a hit.  The JAX functions read a NaN position as free (XLA
+casts NaN to cell 0, and ``d2 <= r2`` is false for NaN).
+"""
 from __future__ import annotations
 
 from typing import Callable, Sequence
@@ -55,5 +62,123 @@ def control_limits(umin, umax) -> Callable:
     def is_feasible(x, u):
         del x
         return ((u >= lo.like(u)) & (u <= hi.like(u))).all(-1)
+
+    return is_feasible
+
+
+def _pos(x, dims):
+    return torch.stack([x[..., d] for d in dims], dim=-1)
+
+
+def state_box(xmin, xmax, dims: Sequence[int] | None = None) -> Callable:
+    """Feasible iff the selected state dims stay inside [xmin, xmax]."""
+    lo = Const(np.asarray(xmin, np.float32))
+    hi = Const(np.asarray(xmax, np.float32))
+    sel = None if dims is None else tuple(int(d) for d in dims)
+
+    def is_feasible(x, u):
+        del u
+        xs = x if sel is None else _pos(x, sel)
+        return ((xs >= lo.like(xs)) & (xs <= hi.like(xs))).all(-1)
+
+    return is_feasible
+
+
+def _grid_cells(p, origin, res: float, H: int, W: int):
+    """(in bounds, flat cell index) of world positions p (..., 2).  The
+    bounds are tested on the float cell, so NaN and huge coordinates are
+    out of bounds, and only in-bounds cells are cast to int."""
+    c = torch.floor((p - origin) / res)
+    cx, cy = c[..., 0], c[..., 1]
+    inb = (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
+    col = torch.where(inb, cx, 0.0).long()
+    row = torch.where(inb, cy, 0.0).long()
+    return inb, row * W + col
+
+
+class OccupancyGrid:
+    """Dense 2-D occupancy grid with a world->cell transform: ``occ`` (H, W),
+    nonzero = occupied, row = y cell, column = x cell; ``origin`` is the
+    world coordinate of cell (0, 0), ``resolution`` metres a cell.  Out of
+    bounds (and NaN) is occupied.  The grid is copied to a device once, on
+    the first call there."""
+
+    def __init__(self, occ, origin, resolution: float,
+                 pos_dims: Sequence[int] = (0, 1)):
+        self.occ = np.asarray(occ) != 0
+        self.origin = np.asarray(origin, np.float32)
+        self.resolution = float(resolution)
+        self.pos_dims = tuple(int(d) for d in pos_dims)
+        self._occ_flat = Const(self.occ.reshape(-1))
+        self._origin = Const(self.origin)
+
+    def occupied(self, p):
+        """True where world position p (..., 2) is in an occupied cell,
+        out of bounds, or NaN."""
+        H, W = self.occ.shape  # noqa: N806
+        inb, flat = _grid_cells(p, self._origin.like(p), self.resolution,
+                                H, W)
+        hit = self._occ_flat.like(p, torch.bool)[flat]
+        return torch.where(inb, hit, True)
+
+    def is_feasible(self, x, u):
+        del u
+        return ~self.occupied(_pos(x, self.pos_dims))
+
+    def feasibility(self, footprint_radius: float = 0.0,
+                    n_ring: int = 8) -> Callable:
+        """An is_feasible predicate, optionally inflated by a circular
+        footprint sampled at ``n_ring`` boundary points."""
+        if footprint_radius <= 0.0:
+            return self.is_feasible
+        ang = np.linspace(0.0, 2.0 * np.pi, n_ring, endpoint=False,
+                          dtype=np.float32)
+        ring = Const(footprint_radius
+                     * np.stack([np.cos(ang), np.sin(ang)], -1))
+
+        def is_feasible(x, u):
+            del u
+            p = _pos(x, self.pos_dims)[..., None, :]         # (..., 1, 2)
+            pts = torch.cat([p, p + ring.like(p)], dim=-2)
+            return ~self.occupied(pts).any(-1)
+
+        return is_feasible
+
+
+def circles_free_data(pos_dims: Sequence[int] = (0, 1),
+                      margin: float = 0.0) -> Callable:
+    """is_feasible(x, u, data) over a dynamic circle field: data =
+    {"centers": (K, 2), "radii": (K,)} tensors; a slot with radius < 0 is
+    inactive (K is fixed: a new K builds new chunks)."""
+    dims = tuple(int(d) for d in pos_dims)
+    m = float(margin)
+
+    def is_feasible(x, u, data):
+        del u
+        p = _pos(x, dims)[..., None, :]                      # (..., 1, 2)
+        centers, radii = data["centers"], data["radii"]
+        d2 = ((centers - p) ** 2).sum(-1)                    # (..., K)
+        hit = (radii >= 0.0) & ~(d2 > (radii + m) ** 2)
+        return ~hit.any(-1)
+
+    return is_feasible
+
+
+def grid_free_data(origin, resolution: float,
+                   pos_dims: Sequence[int] = (0, 1)) -> Callable:
+    """is_feasible(x, u, occ) over a dynamic occupancy grid: ``occ`` (the
+    feasibility_data) is an (H, W) tensor, nonzero = occupied, under the
+    fixed transform (origin, resolution).  Out of bounds is occupied."""
+    org = Const(np.asarray(origin, np.float32))
+    res = float(resolution)
+    dims = tuple(int(d) for d in pos_dims)
+
+    def is_feasible(x, u, occ):
+        del u
+        H, W = occ.shape  # noqa: N806
+        p = _pos(x, dims)
+        inb, flat = _grid_cells(p, org.like(p), res, H, W)
+        hit = occ.reshape(-1)[flat] != 0
+        return ~torch.where(inb, hit, True)
 
     return is_feasible

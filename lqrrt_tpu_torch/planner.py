@@ -1,23 +1,33 @@
-"""Planner facade, restart path (port of lqrrt_tpu/planner.py).
+"""Planner facade (port of lqrrt_tpu/planner.py, its single-device paths).
 
 Public surface as in the JAX package: ``update_plan``, ``warmup``,
 ``get_state``, ``get_effort``, ``set_goal``, ``kill_update``, ``unkill``,
-``x_seq``/``u_seq``/``T``, ``stats`` with the same keys.  The anytime loop
-runs fused-restart chunks: each chunk runs ``n_cycles`` cycles of [F grow
-rounds -> stash-compare -> reseed with depth planting], all on the device,
-with static shapes and no host sync inside; the host reads one small stats
-vector per chunk, one chunk stale.
+``x_seq``/``u_seq``/``T``, ``stats`` with the same keys.  Two anytime
+loops, chosen as the JAX planner chooses them; in both the host reads one
+small stats vector per chunk, one chunk stale, and nothing inside a chunk
+syncs:
+- the restart loop (``refine=True`` and ``max_nodes`` at or above the
+  capacity): fused-restart chunks, each ``n_cycles`` cycles of [F grow
+  rounds -> stash-compare -> reseed with depth planting];
+- the host loop (``refine=False``, or ``max_nodes`` below the capacity):
+  grow chunks of ``rounds_per_chunk`` rounds on one tree, stopped at
+  min(max_nodes, capacity) rows, at the budget, or at the goal after
+  ``min_time``.
 
-Only the restart path is ported.  A configuration that would leave it
-raises ``NotImplementedError`` naming its ROADMAP item: ``mesh``,
-``feasibility_grid``, ``refine=False``, ``refine_mode="leaf_rewire"``,
-``max_nodes`` below the capacity, ``slack < batch``, ``feasibility_data``,
-and on CUDA an erf other than subtract with at most one wrapped angle (the
-NN kernels take no other).
+A 3-arg ``is_feasible(x, u, data)`` (``Constraints(feasibility_data=...)``)
+reads its data from device tensors the planner keeps: each replan copies
+the constraints' data into them in place, so an update of values builds no
+chunk and moves no tensor.
 
-The NN on CUDA is a hand-written kernel: ``nn_const`` when the ``lqr`` is
-constant (the boat), ``nn_general`` for a per-node ``lqr`` (the car and the
-quadrotor re-linearize at every node); ``nn_selected`` says which.
+Not ported yet, raising ``NotImplementedError`` with the ROADMAP item:
+``mesh``, ``feasibility_grid`` and ``refine_mode="leaf_rewire"``.
+
+The NN on CUDA is a hand-written kernel for an affine erf (subtract, or at
+most one wrapped angle dim): ``nn_const`` when the ``lqr`` is constant (the
+boat, the double integrator), ``nn_general`` for a per-node ``lqr`` (the
+car and the quadrotor); any other erf takes the plain blocked scan, as in
+the JAX planner.  ``nn_selected`` says which ran: "nn_const",
+"nn_general" or "scan".
 
 Callbacks are batch-leading (see the package docstring).  The device is
 explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
@@ -25,6 +35,7 @@ explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -73,6 +84,33 @@ def _chunk_stats(tree: TreeArrays) -> torch.Tensor:
         live.float()])
 
 
+def _tree_map(fn, tree, *rest):
+    """fn over the leaves of a dict / list / tuple tree (and of ``rest``,
+    trees of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _signature(tree):
+    """Hashable structure, shapes and dtypes of a tree of tensors."""
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_signature(v) for v in tree)
+    return (tuple(tree.shape), tree.dtype)
+
+
+def _host_leaf(a) -> torch.Tensor:
+    """One leaf of feasibility_data as a tensor, floats as float32."""
+    t = a.detach() if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a))
+    return t.float() if t.is_floating_point() else t
+
+
 class Planner:
     # score vector of the fused-restart chunk, f32[6]:
     # [valid, s1 (0 = best has goal), s2 (goal time | cost-to-go),
@@ -92,15 +130,34 @@ class Planner:
                  wrap_dims=(), nn_block: int = 1024, seed: int = 0,
                  saturate: Optional[Callable] = None,
                  rounds_per_chunk: int = 8, nn_impl: str = "auto",
-                 mesh=None, refine: bool = True,
-                 refine_mode: str = "restart", informed: float = 0.5,
-                 feasibility_grid=None, device="cuda"):
+                 steer_impl: str = "scan",
+                 mesh=None, mesh_axis: str = "dp",
+                 collective: str = "gather", topk: Optional[int] = None,
+                 refine: bool = True, refine_mode: str = "restart",
+                 informed: float = 0.5, informed_anneal: float = 1.0,
+                 feasibility_grid=None, map_axis: str = "map",
+                 device="cuda"):
         if horizon <= 0 or dt <= 0:
             raise ValueError("horizon and dt must be positive")
-        if nn_impl not in ("auto", "nn_const", "nn_general"):
+        if nn_impl not in ("auto", "nn_const", "nn_general", "scan"):
             raise ValueError(f"unknown nn_impl {nn_impl!r}")
+        if steer_impl == "auto":
+            steer_impl = "scan"
+        if steer_impl != "scan":
+            raise ValueError(
+                f"steer_impl {steer_impl!r} is not available: the planner's "
+                "steer is the scan (core/steer.py); the fused rollout, "
+                "kernel D, is an experiment (tools/exp_steer_kernel.py)")
+        if collective not in ("gather", "topk"):
+            raise ValueError(f"unknown collective {collective!r}")
         if refine_mode not in ("restart", "leaf_rewire"):
             raise ValueError(f"unknown refine_mode {refine_mode!r}")
+        if informed_anneal != 1.0:
+            warnings.warn(
+                "informed_anneal != 1.0 measurably degrades anytime plan "
+                "quality in the JAX package (tools/exp_informed.py); keep the "
+                "default 1.0 unless you have measured otherwise on your "
+                "workload", stacklevel=2)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available; "
@@ -146,12 +203,20 @@ class Planner:
         self.wrap_dims = tuple(wrap_dims)
         self.rounds_per_chunk = max(int(rounds_per_chunk), 1)
         self.nn_impl = nn_impl
+        self.steer_impl = self.steer_selected = "scan"
         self.refine = bool(refine)
         self.refine_mode = refine_mode
         self.informed = float(informed)
+        # read only by the host loop's restart stash, which needs a
+        # feasibility_grid (ROADMAP queue 1, item 16)
+        self.informed_anneal = float(informed_anneal)
         self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.collective = collective
+        self.topk = topk
         self.feasibility_grid = feasibility_grid
-        self._check_restart_path()
+        self.map_axis = map_axis
+        self._check_ported()
 
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
@@ -159,6 +224,8 @@ class Planner:
         self.nn_selected = None         # NN picked when a chunk is built
         self._chunk_cache = {}
         self._steer_cache = {}
+        self._feas_bufs = {}            # data signature -> device tensors
+        self._feas_sig = None           # signature of the data in force
         self._killed = False
         self._device_tree: Optional[TreeArrays] = None
         # the committed plan is ONE tuple (x_seq, u_seq, T), swapped
@@ -171,27 +238,17 @@ class Planner:
         if goal0 is not None:
             self.set_goal(goal0)
 
-    def _check_restart_path(self):
-        """Raise for every configuration that leaves the restart path."""
-        def off(what, item):
+    def _check_ported(self):
+        """Raise for the configurations this port does not have yet."""
+        def missing(what, item):
             raise NotImplementedError(
-                f"{what} leaves the restart path, which is all this port "
-                f"has so far (ROADMAP queue 1, item {item})")
+                f"{what} is not ported yet (ROADMAP queue 1, item {item})")
         if self.mesh is not None:
-            off("mesh=", 16)
+            missing("mesh=", 16)
         if self.feasibility_grid is not None:
-            off("feasibility_grid=", 16)
-        if not self.refine:
-            off("refine=False", 12)
+            missing("feasibility_grid=", 16)
         if self.refine_mode == "leaf_rewire":
-            off("refine_mode='leaf_rewire'", 13)
-        if self.max_nodes < self.capacity:
-            off(f"max_nodes={self.max_nodes} below capacity "
-                f"{self.capacity}", 12)
-        if self.slack < self.batch_size:
-            off("slack < batch", 12)
-        if self.constraints.feasibility_data is not None:
-            off("feasibility_data (a 3-arg is_feasible)", 12)
+            missing("refine_mode='leaf_rewire'", 13)
 
     # ------------------------------------------------------------------ setup
 
@@ -220,7 +277,8 @@ class Planner:
 
     def _lqr_is_constant(self) -> bool:
         """Probe whether lqr(x, u) is state-independent (one S for the
-        whole tree): two distinct states, compared on the host."""
+        whole tree): two distinct states, compared on the host; an lqr
+        that raises on them is not constant."""
         if self._lqr_const is None:
             n, m = self.nstates, self.ncontrols
             xa = torch.zeros(n, device=self.device)
@@ -231,7 +289,7 @@ class Planner:
             try:
                 Sa, Ka = (np.asarray(t.cpu()) for t in self.lqr(xa, ua))
                 Sb, Kb = (np.asarray(t.cpu()) for t in self.lqr(xb, ub))
-            except (RuntimeError, TypeError, ValueError):
+            except Exception:
                 self._lqr_const = False
             else:
                 self._lqr_const = bool(np.all(np.isfinite(Sa))
@@ -240,26 +298,30 @@ class Planner:
         return self._lqr_const
 
     def _nearest_override(self):
-        """The NN for the chunk.  "auto" on CUDA: the nn_const kernel for a
-        constant lqr, else the nn_general kernel; both need an affine erf
-        (subtract, or at most one wrapped angle dim tagged by make_erf).
-        "auto" on the CPU: the plain blocked scan.  "nn_const" and
-        "nn_general" force that kernel's wrapper (which runs its plain
-        version on CPU tensors)."""
+        """The NN for a chunk (None: the plain blocked scan).  The kernels
+        need an affine erf: subtract, or at most one wrapped angle dim
+        tagged by make_erf.  "auto" on CUDA takes the nn_const kernel for a
+        constant lqr, else the nn_general kernel, and the scan for any other
+        erf, as the JAX planner does; "auto" on the CPU, and "scan", take
+        the scan.  "nn_const" and "nn_general" force that kernel's wrapper
+        (its plain version on CPU tensors) and raise ValueError for an erf
+        the kernels cannot take."""
         from .ops.kernels.nn_kernel import (make_nearest_const,
                                             make_nearest_general)
 
         dims = getattr(self.erf, "angle_dims", None)
         if self.erf is torch.subtract:
             dims = ()
-        if self.device.type == "cpu" and self.nn_impl == "auto":
-            self.nn_selected = "plain"
+        affine = dims is not None and len(dims) <= 1
+        if self.nn_impl in ("nn_const", "nn_general") and not affine:
+            raise ValueError(
+                f"nn_impl={self.nn_impl!r} needs an affine erf with at most "
+                "one wrapped angle dim (torch.subtract, or build it with "
+                "ops.angles.make_erf)")
+        if (self.nn_impl == "scan" or not affine
+                or (self.nn_impl == "auto" and self.device.type == "cpu")):
+            self.nn_selected = "scan"
             return None
-        if dims is None or len(dims) > 1:
-            raise NotImplementedError(
-                "the NN kernels need an affine erf with at most one wrapped "
-                "angle dim (subtract, or ops.angles.make_erf); any other erf "
-                "runs only on the CPU's plain scan")
         wrap_dim = dims[0] if dims else None
         const = self._lqr_is_constant()
         if self.nn_impl == "nn_const" and not const:
@@ -286,14 +348,42 @@ class Planner:
                          self.ncontrols, x0, S0, K0, g0, in_goal0,
                          slack=self.slack, root_pad=self.root_pad)
 
+    def _load_feasibility_data(self):
+        """Copy the constraints' feasibility_data into this planner's device
+        tensors of its signature (structure, shapes, dtypes): made at the
+        first replan with that signature, then updated in place, so an
+        update of values changes no tensor address and builds no chunk."""
+        data = self.constraints.feasibility_data
+        if data is None:
+            self._feas_sig = None
+            return
+        host = _tree_map(_host_leaf, data)
+        sig = _signature(host)
+        if sig in self._feas_bufs:
+            _tree_map(lambda b, a: b.copy_(a), self._feas_bufs[sig], host)
+        else:
+            self._feas_bufs[sig] = _tree_map(
+                lambda a: a.to(self.device, copy=True), host)
+        self._feas_sig = sig
+
+    def _feasibility(self):
+        """The 2-arg predicate of chunks and steers: the user's, or the
+        user's 3-arg one reading this planner's data tensors, bound at
+        build time and read at every call (JAX: a traced argument)."""
+        user = self.constraints.is_feasible
+        if self._feas_sig is None:
+            return user
+        data = self._feas_bufs[self._feas_sig]
+        return lambda x, u: user(x, u, data)
+
     def _get_steer(self, steps: Optional[int] = None):
         """Steer without the goal stop (prune, finish), cached per
         horizon."""
         steps = self.horizon_steps if steps is None else steps
-        key = (steps, self.constraints._feasibility_version)
+        key = (steps, self.constraints._feasibility_version, self._feas_sig)
         if key not in self._steer_cache:
             self._steer_cache[key] = make_steer(
-                self.dynamics, self.erf, self.constraints.is_feasible, steps,
+                self.dynamics, self.erf, self._feasibility(), steps,
                 self.dt, self.error_tol, saturate=self.saturate)
         return self._steer_cache[key]
 
@@ -320,46 +410,15 @@ class Planner:
 
         return pool
 
-    # ------------------------------------------------------- restart chunk
-
-    def _get_restart_chunk(self, xrand_gen, n_fpr: int):
-        """The fused-restart chunk.  With the dense commit-all, a fresh
-        tree grows by exactly ``batch`` rows a round, so it fills after
-        F = ceil((capacity - root_pad) / batch) rounds, a static number; a
-        chunk runs ``n_cycles`` cycles of [F grow rounds -> stash-compare ->
-        reseed] with no data-dependent control flow.
-
-        chunk(cur, best, pool, score, start, goal, sample_space, goal_bias,
-              bias_target, prev_plan) updates its first four arguments IN
-        PLACE; ``score`` has the layout of _RSCORE0.  ``xrand_gen(gen,
-        batch)`` replaces the sampler; ``prev_plan`` feeds FPR."""
-        key = (self.constraints._feasibility_version, xrand_gen, n_fpr)
-        if key in self._chunk_cache:
-            return self._chunk_cache[key]
-
+    def _sampler(self, xrand_gen, n_fpr: int, informed_on: bool):
+        """draw(pool, frac, ss, gb, bt, prev_plan) -> (B, n) candidates:
+        ``xrand_gen(gen, B)`` when given; else ``sample_batch`` whose first
+        frac * rows come, when ``informed_on``, from the informed pool plus
+        noise; with FPR, n_fpr rows of ``prev_plan`` lead the batch."""
         B = self.batch_size
-        spec = RoundSpec(
-            nstates=self.nstates, ncontrols=self.ncontrols, batch=B,
-            horizon_steps=self.horizon_steps, capacity=self.capacity,
-            dt=self.dt, nn_block=self.nn_block, slack=self.slack)
-        F = -(-(self.capacity - self.root_pad) // B)       # rounds to fill
-        n_cycles = max(1, self.rounds_per_chunk // F)
-        self._restart_chunk_shape = (n_cycles, F)
-        expand = make_expand(spec, self.dynamics, self.lqr, self.erf,
-                             self.constraints.is_feasible, self.error_tol,
-                             self.constraints.goal_buffer,
-                             wrap_mask=self._wrap_mask(),
-                             saturate=self.saturate,
-                             nearest_fn=self._nearest_override())
-        informed_on = xrand_gen is None and self.informed > 0.0
-        inf_frac = float(self.informed)
         inf_scale = 0.05          # fixed: annealing is measured-harmful
-        pool_fn = self._pool_fn()
         gen, dev = self._gen, self.device
         wrap_dims = list(self.wrap_dims)
-        DP = 32                   # planted-prefix cap (static)
-        seed_size = max(self.root_pad, 1)
-        ar_dp = torch.arange(DP, device=dev)
         ar_b = torch.arange(B, device=dev)
 
         def base_sample(nb, pool_c, frac, ss, gb, bt):
@@ -389,6 +448,84 @@ class Planner:
                                      generator=gen, device=dev)
                 return torch.cat([prev_plan[rows], fresh], 0)
             return base_sample(B, pool_c, frac, ss, gb, bt)
+
+        return draw
+
+    def _expand(self, spec: RoundSpec):
+        return make_expand(spec, self.dynamics, self.lqr, self.erf,
+                           self._feasibility(), self.error_tol,
+                           self.constraints.goal_buffer,
+                           wrap_mask=self._wrap_mask(),
+                           saturate=self.saturate,
+                           nearest_fn=self._nearest_override())
+
+    def _spec(self) -> RoundSpec:
+        return RoundSpec(
+            nstates=self.nstates, ncontrols=self.ncontrols,
+            batch=self.batch_size, horizon_steps=self.horizon_steps,
+            capacity=self.capacity, dt=self.dt, nn_block=self.nn_block,
+            slack=self.slack)
+
+    # ---------------------------------------------------------- grow chunk
+
+    def _get_chunk(self, xrand_gen, n_fpr: int):
+        """The host loop's grow chunk: ``rounds_per_chunk`` rounds on one
+        tree, then its stats (``_chunk_stats``).
+
+        chunk(tree, goal, sample_space, goal_bias, bias_target,
+              prev_plan=None) updates ``tree`` IN PLACE and returns the stats
+        tensor.  The informed pool stays inert on this path (the JAX host
+        loop refreshes it only in its restart stash, which needs a
+        feasibility_grid), so every row not taken by FPR is a fresh
+        sample."""
+        key = (self.constraints._feasibility_version, xrand_gen, n_fpr,
+               "grow", self._feas_sig)
+        if key in self._chunk_cache:
+            return self._chunk_cache[key]
+        spec = self._spec()
+        expand = self._expand(spec)
+        draw = self._sampler(xrand_gen, n_fpr, informed_on=False)
+        n_inner = self.rounds_per_chunk
+
+        def chunk(tree, goal, ss, gb, bt, prev_plan=None):
+            for _ in range(n_inner):
+                xrand = draw(None, 0.0, ss, gb, bt, prev_plan)
+                commit_candidates(spec, tree, expand(tree, xrand, goal))
+            return _chunk_stats(tree)
+
+        self._chunk_cache[key] = chunk
+        return chunk
+
+    # ------------------------------------------------------- restart chunk
+
+    def _get_restart_chunk(self, xrand_gen, n_fpr: int):
+        """The fused-restart chunk.  With the dense commit-all, a fresh
+        tree grows by exactly ``batch`` rows a round, so it fills after
+        F = ceil((capacity - root_pad) / batch) rounds, a static number; a
+        chunk runs ``n_cycles`` cycles of [F grow rounds -> stash-compare ->
+        reseed] with no data-dependent control flow.
+
+        chunk(cur, best, pool, score, start, goal, sample_space, goal_bias,
+              bias_target, prev_plan) updates its first four arguments IN
+        PLACE; ``score`` has the layout of _RSCORE0.  ``xrand_gen(gen,
+        batch)`` replaces the sampler; ``prev_plan`` feeds FPR."""
+        key = (self.constraints._feasibility_version, xrand_gen, n_fpr,
+               "restart", self._feas_sig)
+        if key in self._chunk_cache:
+            return self._chunk_cache[key]
+
+        spec = self._spec()
+        F = -(-(self.capacity - self.root_pad) // self.batch_size)
+        n_cycles = max(1, self.rounds_per_chunk // F)
+        self._restart_chunk_shape = (n_cycles, F)
+        expand = self._expand(spec)
+        informed_on = xrand_gen is None and self.informed > 0.0
+        draw = self._sampler(xrand_gen, n_fpr, informed_on)
+        inf_frac = float(self.informed)
+        pool_fn = self._pool_fn()
+        DP = 32                   # planted-prefix cap (static)
+        seed_size = max(self.root_pad, 1)
+        ar_dp = torch.arange(DP, device=self.device)
 
         def chunk(cur, best, pool, score, start, goal, ss, gb, bt,
                   prev_plan=None):
@@ -490,7 +627,7 @@ class Planner:
         best branch as the plan.  Returns True iff a goal was reached."""
         if self.goal is None:
             raise RuntimeError("goal not set; call set_goal or pass goal0")
-        self._check_restart_path()
+        self._check_ported()
         self.unkill()
         x0 = self._tensor(x0)
         if x0.shape != (self.nstates,):
@@ -514,10 +651,12 @@ class Planner:
                 plan = np.linspace(x0.cpu().numpy(), self.goal.cpu().numpy(),
                                    _FPR_PLAN_LEN, dtype=np.float32)
             prev_plan = self._tensor(plan)
-        return self._run_restart_loop(x0, sample_space, goal_bias,
-                                      bias_target, t_min, t_max, xrand_gen,
-                                      n_fpr, prev_plan, pruning,
-                                      finish_on_goal)
+        self._load_feasibility_data()
+        loop = (self._run_restart_loop
+                if self.refine and self.max_nodes >= self.capacity
+                else self._run_host_loop)
+        return loop(x0, sample_space, goal_bias, bias_target, t_min, t_max,
+                    xrand_gen, n_fpr, prev_plan, pruning, finish_on_goal)
 
     def _fetch_async(self, t: torch.Tensor, buf: torch.Tensor):
         """Copy ``t`` into host ``buf`` without waiting; returns the event
@@ -529,6 +668,18 @@ class Planner:
         ev = torch.cuda.Event()
         ev.record()
         return ev
+
+    @staticmethod
+    def _fetched(pending) -> np.ndarray:
+        """The host copy of a stats vector, once its copy has landed."""
+        buf, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        return buf.numpy().copy()
+
+    def _stats_buffers(self):
+        pin = self.device.type == "cuda"
+        return [torch.empty(6, pin_memory=pin) for _ in range(2)]
 
     def _run_restart_loop(self, x0, sample_space, goal_bias, bias_target,
                           t_min, t_max, xrand_gen, n_fpr, prev_plan,
@@ -544,8 +695,7 @@ class Planner:
                                         self.goal.cpu().numpy(),
                                         _FPR_PLAN_LEN, dtype=np.float32))
         score = self._tensor(self._RSCORE0)
-        pin = self.device.type == "cuda"
-        bufs = [torch.empty(6, pin_memory=pin) for _ in range(2)]
+        bufs = self._stats_buffers()
         t0 = self.sys_time()
         rounds = restarts = 0
         any_goal = False
@@ -572,23 +722,77 @@ class Planner:
             rounds += n_cycles * F
             restarts += n_cycles
             if pending is not None:   # the previous chunk's stats
-                if pending[1] is not None:
-                    pending[1].synchronize()
-                any_goal = bool(pending[0][4] > 0.5)
+                any_goal = bool(self._fetched(pending)[4] > 0.5)
+            pending = (buf, ev)
+        st = (self._fetched(pending) if pending is not None
+              else np.asarray(self._RSCORE0, np.float32))
+        elapsed = self.sys_time() - t0
+        return self._commit_plan(
+            best, int(st[5]), bool(st[4] > 0.5), n_live=int(st[3]),
+            tree_rows=(self.capacity if st[0] > 0.5 else 1), rounds=rounds,
+            restarts=restarts, elapsed=elapsed, t0=t0, pruning=pruning,
+            finish_on_goal=finish_on_goal)
+
+    def _run_host_loop(self, x0, sample_space, goal_bias, bias_target,
+                       t_min, t_max, xrand_gen, n_fpr, prev_plan, pruning,
+                       finish_on_goal) -> bool:
+        """Anytime loop over grow chunks on one tree (``refine=False``, or
+        ``max_nodes`` below the capacity): stops at min(max_nodes,
+        capacity) rows, at the budget, or at the goal after ``t_min``, on
+        stats one chunk stale, so ``max_nodes`` holds at chunk
+        granularity."""
+        chunk_fn = self._get_chunk(xrand_gen, n_fpr)
+        tree = self._seed_tree(x0, self.goal)
+        node_cap = min(self.max_nodes, self.capacity)
+        bufs = self._stats_buffers()
+        t0 = self.sys_time()
+        rounds = 0
+        size, goal_found, n_live = 1, False, 1
+        pending = None
+        if self.printing:
+            print(f"[lqrrt] planning: budget [{t_min}, {t_max}]s, "
+                  f"batch {self.batch_size} x {self.rounds_per_chunk} "
+                  f"rounds/chunk, capacity {self.capacity}")
+        while True:
+            elapsed = self.sys_time() - t0
+            if self._killed:
+                if self.printing:
+                    print("[lqrrt] killed; salvaging best-so-far")
+                break
+            if size >= node_cap:
+                break
+            if elapsed >= t_max:
+                break
+            if goal_found and elapsed >= t_min:
+                break
+            stats = chunk_fn(tree, self.goal, sample_space, goal_bias,
+                             bias_target, prev_plan)
+            buf = bufs[(rounds // self.rounds_per_chunk) % 2]
+            ev = self._fetch_async(stats, buf)
+            rounds += self.rounds_per_chunk
+            if pending is not None:   # the previous chunk's stats
+                st = self._fetched(pending)
+                size, goal_found, n_live = (int(st[0]), bool(st[1] > 0.5),
+                                            int(st[5]))
             pending = (buf, ev)
         if pending is not None:
-            if pending[1] is not None:
-                pending[1].synchronize()
-            st = pending[0].numpy().copy()
-        else:
-            st = np.asarray(self._RSCORE0, np.float32)
+            st = self._fetched(pending)
+            size, goal_found, n_live = (int(st[0]), bool(st[1] > 0.5),
+                                        int(st[5]))
         elapsed = self.sys_time() - t0
+        return self._commit_plan(
+            tree, int(best_node(tree)), goal_found, n_live=n_live,
+            tree_rows=size, rounds=rounds, restarts=0, elapsed=elapsed,
+            t0=t0, pruning=pruning, finish_on_goal=finish_on_goal)
 
-        self._device_tree = best
-        goal_reached = bool(st[4] > 0.5)
-        n_live = int(st[3])
+    def _commit_plan(self, tree, best_id: int, goal_reached: bool, *,
+                     n_live, tree_rows, rounds, restarts, elapsed, t0,
+                     pruning, finish_on_goal) -> bool:
+        """Extract the best branch of ``tree``, prune it, finish it on the
+        goal if asked, swap it in as the plan and fill ``stats``."""
+        self._device_tree = tree
         t_post = self.sys_time()
-        x_seq, u_seq = self._extract(best, int(st[5]))
+        x_seq, u_seq = self._extract(tree, best_id)
         t_extract = self.sys_time() - t_post
         t_p = self.sys_time()
         if pruning and len(x_seq) > 2:
@@ -604,8 +808,7 @@ class Planner:
         self._plan = (x_seq, u_seq, self.dt * (len(x_seq) - 1))  # atomic
         self.plan_reached_goal = goal_reached
         self.stats = dict(
-            nodes=n_live,
-            tree_rows=(self.capacity if st[0] > 0.5 else 1),
+            nodes=n_live, tree_rows=tree_rows,
             rounds=rounds, restarts=restarts, elapsed_s=elapsed,
             expansions=rounds * self.batch_size,
             expansions_per_s=rounds * self.batch_size / max(elapsed, 1e-9),

@@ -116,3 +116,55 @@ def test_car_dynamics_nonholonomic():
     # forward at heading 0 moves +x
     xd = car.f(torch.tensor([0.0, 0.0, 0.0, 2.0]), torch.zeros(2))
     assert float(xd[0]) > 0 and abs(float(xd[1])) < 1e-6
+
+
+def test_double_integrator_matches():
+    """The double integrator's f, dynamics (RK4), saturate, erf, constant
+    lqr and problem against the JAX model: f32 on both sides with the
+    same formulas (RTOL, ATOL); saturate and feasibility exactly."""
+    from lqrrt_tpu.models import double_integrator as jdi
+    from lqrrt_tpu_torch.models import double_integrator as di
+
+    rng = np.random.default_rng(6)
+    x = rng.uniform(-12.0, 12.0, (256, 4)).astype(np.float32)
+    u = rng.uniform(-15.0, 15.0, (256, 2)).astype(np.float32)
+    np.testing.assert_allclose(di.f(_t(x), _t(u)).numpy(),
+                               np.asarray(jax.vmap(jdi.f)(x, u)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        di.dynamics(_t(x), _t(u), 0.05).numpy(),
+        np.asarray(jax.vmap(lambda a, b: jdi.dynamics(a, b, 0.05))(x, u)),
+        rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(di.saturate(_t(u)).numpy(),
+                                  np.asarray(jax.vmap(jdi.saturate)(u)))
+    np.testing.assert_array_equal(di.A, jdi.A)
+    np.testing.assert_array_equal(di.B, jdi.B)
+    assert di.U_MAX == jdi.U_MAX
+    g = np.array([10.0, 0.0, 0.0, 0.0], np.float32)
+    np.testing.assert_array_equal(
+        di.erf(_t(g), _t(x)).numpy(),
+        np.asarray(jax.vmap(jdi.erf, in_axes=(None, 0))(g, x)))
+    for kw in ({}, dict(q_pos=2.0, q_vel=0.5, r=0.1)):
+        S, K = di.make_lqr(**kw)(_t(x[:3]), _t(u[:3]))
+        jS, jK = (np.asarray(a) for a in jdi.make_lqr(**kw)(x[0], u[0]))
+        np.testing.assert_allclose(S.numpy(), np.broadcast_to(jS, S.shape),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(K.numpy(), np.broadcast_to(jK, K.shape),
+                                   rtol=RTOL, atol=ATOL)
+    for obstacles in (True, False):
+        jprob = jdi.default_problem(obstacles)
+        tprob = di.default_problem(obstacles)
+        x[:, 0] = np.linspace(-1.0, 11.0, len(x))
+        x[:, 1] = rng.uniform(-4.0, 4.0, len(x))
+        want = np.asarray(jax.vmap(jprob["constraints"].is_feasible)(x, u))
+        assert 0 < want.sum() < len(want)
+        np.testing.assert_array_equal(
+            tprob["constraints"].is_feasible(_t(x), _t(u)).numpy(), want)
+        for k in ("x0", "goal", "sample_space", "horizon", "dt",
+                  "wrap_dims"):
+            np.testing.assert_array_equal(np.asarray(tprob[k]),
+                                          np.asarray(jprob[k]))
+        for k in ("goal_buffer", "search_buffer"):
+            np.testing.assert_array_equal(getattr(tprob["constraints"], k),
+                                          getattr(jprob["constraints"], k))
+    assert tprob["erf"] is torch.subtract

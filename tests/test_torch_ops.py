@@ -120,8 +120,15 @@ def test_hard_problem_and_grid():
     for a, b in zip(tprob["obstacles"], jprob["obstacles"]):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(tprob["goal"], jprob["goal"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        boat.default_problem(obstacle_model="grid")
+    # the grid model is ported (its raster: tests/test_torch_collision.py);
+    # an unknown model raises in both packages
+    jgrid = jboat.default_problem(obstacle_model="grid")
+    tgrid = boat.default_problem(obstacle_model="grid")
+    for a, b in zip(tgrid["obstacles"], jgrid["obstacles"]):
+        np.testing.assert_array_equal(a, b)
+    for make in (boat.default_problem, jboat.default_problem):
+        with pytest.raises(ValueError, match="obstacle_model"):
+            make(obstacle_model="voxels")
 
 
 def test_lqr_setup_matches_jax():

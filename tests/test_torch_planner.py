@@ -1,4 +1,4 @@
-"""The port's restart-path planner as a whole, on the CPU: the boat at
+"""The port's planner as a whole, on the CPU: the boat at
 B=512, capacity=4096 (512 root-pad rows, as at full width), and the car
 (a per-node lqr) at B=64, capacity=512, mirroring the JAX end-to-end checks
 (tests/test_planner_e2e.py, tests/test_models.py)."""
@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import lqrrt_tpu
 import lqrrt_tpu_torch
 from lqrrt_tpu.models import boat as jboat
+from lqrrt_tpu.ops import angles as jangles
 from lqrrt_tpu_torch import Constraints
 from lqrrt_tpu_torch.models import boat, car, quadrotor
 from lqrrt_tpu_torch.ops.angles import make_erf
@@ -148,23 +151,52 @@ def test_kill_update_preempts():
     dict(max_nodes=1000), dict(mesh=object()),
     dict(feasibility_grid=object())])
 def test_off_restart_path_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _planner(boat.default_problem(), **kw)
+    """Off the restart path: refine=False and max_nodes below the capacity
+    plan through the host loop (grow chunks, no restarts, max_nodes held
+    at chunk granularity); what is not ported yet raises."""
+    prob = boat.default_problem()
+    if "refine" not in kw and "max_nodes" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _planner(prob, **kw)
+        return
+    planner = _planner(prob, nn_impl="nn_const", rounds_per_chunk=2, **kw)
+    planner.update_plan(prob["x0"], prob["sample_space"], goal_bias=BIAS,
+                        specific_time=1.0)
+    st = planner.stats
+    assert st["restarts"] == 0 and st["rounds"] % 2 == 0 and st["rounds"]
+    assert [k[3] for k in planner._chunk_cache] == ["grow"]
+    cap = min(planner.max_nodes, planner.capacity)
+    assert st["tree_rows"] < cap + 2 * 2 * 512      # stats one chunk stale
+    assert st["nodes"] <= st["tree_rows"]
+    np.testing.assert_allclose(planner.x_seq[0], prob["x0"], atol=1e-5)
+    feas = prob["constraints"].is_feasible(
+        torch.from_numpy(planner.x_seq[1:]), torch.from_numpy(planner.u_seq))
+    assert feas.all()
 
 
 def test_feasibility_data_raises():
+    """A 3-arg is_feasible with feasibility_data plans (it raised before
+    the host loop and the data path were ported): the boat's buoy field as
+    circle data, a plan clear of every buoy."""
+    from lqrrt_tpu_torch.ops.collision import circles_free_data
+
     prob = boat.default_problem()
+    centers, radii = prob["obstacles"]
     prob["constraints"] = Constraints(
-        6, 3, goal_buffer=np.ones(6), feasibility_data=np.zeros(3),
-        is_feasible=lambda x, u, d: x[..., 0] > d[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _planner(prob)
+        6, 3, goal_buffer=prob["constraints"].goal_buffer,
+        is_feasible=circles_free_data(margin=1.0),
+        feasibility_data={"centers": centers, "radii": radii})
+    planner = _planner(prob, nn_impl="nn_const")
+    assert planner.update_plan(prob["x0"], prob["sample_space"],
+                               goal_bias=BIAS, specific_time=2.0)
+    d = np.linalg.norm(planner.x_seq[:, None, :2] - centers, axis=-1)
+    assert (d > radii + 1.0).all()
 
 
 def test_nn_selection():
     prob = boat.default_problem()
     p = _planner(prob)
-    assert p._nearest_override() is None and p.nn_selected == "plain"
+    assert p._nearest_override() is None and p.nn_selected == "scan"
     p = _planner(prob, nn_impl="nn_const")
     assert p._nearest_override() is not None and p.nn_selected == "nn_const"
     assert p._lqr_is_constant()
@@ -189,8 +221,121 @@ def test_nn_selection():
     # two wrapped angle dims are not affine for either kernel
     for nn_impl in ("nn_const", "nn_general"):
         p = _planner(prob, nn_impl=nn_impl, erf=make_erf(6, (1, 2)))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="affine"):
             p._nearest_override()
+
+
+# (JAX nn_impl, the port's) for the same choice
+NN_NAMES = [("auto", "auto"), ("jnp", "scan"), ("pallas_const", "nn_const"),
+            ("pallas", "nn_general")]
+
+
+@pytest.mark.parametrize("erf_kind", ["subtract", "make_erf", "untagged",
+                                      "two_wrapped"])
+@pytest.mark.parametrize("names", NN_NAMES, ids=[n for _, n in NN_NAMES])
+def test_nn_selection_matches_jax(erf_kind, names):
+    """Fault 18: the NN choice follows the JAX planner's rule.  An erf the
+    kernels cannot take (untagged, or two wrapped dims) takes the scan
+    under "auto", also on the card path, and a forced kernel raises
+    ValueError for it in both packages; "scan" (JAX "jnp") forces the
+    scan.  The card path is the choice made for a CUDA device: the device
+    is set after construction and the lqr probe, and the choice builds no
+    kernel."""
+    jimpl, impl = names
+    jprob = jboat.default_problem()
+    jerf, erf = {"subtract": (jnp.subtract, torch.subtract),
+                 "make_erf": (jprob["erf"], make_erf(6, (2,))),
+                 "untagged": (lambda a, b: a - b, lambda a, b: a - b),
+                 "two_wrapped": (jangles.make_erf(6, (1, 2)),
+                                 make_erf(6, (1, 2)))}[erf_kind]
+    jp = lqrrt_tpu.Planner(jprob["dynamics"], jprob["lqr"],
+                           jprob["constraints"], horizon=5.0,
+                           goal0=jprob["goal"], erf=jerf, printing=False,
+                           nn_impl=jimpl)
+    p = _planner(boat.default_problem(), erf=erf, nn_impl=impl)
+    assert p._lqr_is_constant()          # probed on the CPU, then cached
+    p.device = torch.device("cuda")
+    affine = erf_kind in ("subtract", "make_erf")
+    if impl in ("nn_const", "nn_general") and not affine:
+        for planner in (jp, p):
+            with pytest.raises(ValueError, match="affine"):
+                planner._nearest_override()
+        return
+    fn = p._nearest_override()
+    if impl == "scan" or not affine:
+        assert jp._nearest_override() is None
+        assert fn is None and p.nn_selected == "scan"
+    else:          # the boat's lqr is constant: "auto" takes nn_const
+        assert fn is not None
+        assert p.nn_selected == ("nn_general" if impl == "nn_general"
+                                 else "nn_const")
+
+
+def test_lqr_probe_treats_any_exception_as_not_constant():
+    """Fault 18: an lqr that raises anything on the probe states is not
+    constant, as in the JAX planner (which then takes the general
+    kernel)."""
+    prob = boat.default_problem()
+
+    def lqr(x, u):
+        if x.dim() == 1 and float(x[0]) != 0.0:
+            raise KeyError("no gain here")
+        return prob["lqr"](x, u)
+
+    p = lqrrt_tpu_torch.Planner(
+        prob["dynamics"], lqr, prob["constraints"], horizon=5.0,
+        goal0=prob["goal"], erf=prob["erf"], device="cpu", printing=False)
+    assert not p._lqr_is_constant()
+
+
+# keyword -> (a value both constructors take, a value both refuse or warn
+# on, what the refusal is), from lqrrt_tpu/planner.py:91-113, :272-280
+KEYWORDS = {
+    "steer_impl": ("auto", "pallas", ValueError),
+    "collective": ("topk", "psum", ValueError),
+    "informed_anneal": (1.0, 0.9, UserWarning),
+    "mesh_axis": ("x", None, None),
+    "topk": (64, None, None),
+    "map_axis": ("m", None, None),
+}
+
+
+@pytest.mark.parametrize("kw", sorted(KEYWORDS))
+def test_constructor_keywords_match_jax(kw):
+    """Fault 19: the six keywords the JAX constructor takes, with its
+    defaults and checks: a good value is taken (and stored, "auto" read as
+    "scan"), a bad steer_impl or collective raises ValueError, and
+    informed_anneal != 1.0 warns, in both packages."""
+    import inspect
+    import warnings
+
+    good, bad, err = KEYWORDS[kw]
+    jprob = jboat.default_problem()
+    tprob = boat.default_problem()
+    jsig = inspect.signature(lqrrt_tpu.Planner).parameters[kw]
+    tsig = inspect.signature(lqrrt_tpu_torch.Planner).parameters[kw]
+    assert tsig.default == jsig.default and tsig.kind == jsig.kind
+
+    def make(which, value):
+        if which == "jax":
+            return lqrrt_tpu.Planner(
+                jprob["dynamics"], jprob["lqr"], jprob["constraints"],
+                horizon=5.0, goal0=jprob["goal"], printing=False,
+                **{kw: value})
+        return _planner(tprob, **{kw: value})
+
+    for which in ("jax", "port"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            p = make(which, good)
+        stored = "scan" if kw == "steer_impl" else good
+        assert getattr(p, kw) == stored
+        if err is UserWarning:
+            with pytest.warns(UserWarning, match="informed_anneal"):
+                assert make(which, bad).informed_anneal == bad
+        elif err is not None:
+            with pytest.raises(err, match=kw):
+                make(which, bad)
 
 
 @pytest.mark.parametrize("model", [car, quadrotor])

@@ -1,4 +1,5 @@
-"""Round lockstep on the boat and the car (CPU): a tree grown by JAX rounds
+"""Round lockstep on the boat (its circles and its occupancy grid) and the
+car (CPU): a tree grown by JAX rounds
 is carried into the port with ``interop``, and the same numpy candidates go
 through JAX ``make_expand`` + ``commit_candidates`` and through the port's.
 
@@ -48,9 +49,10 @@ def _xrand(rng, prob):
     return np.where(take, GOAL, x).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def lockstep():
-    jprob = jboat.default_problem()
+def _lockstep(model):
+    """JAX rounds on the boat with obstacle model ``model``: the tree
+    after three, the fourth round's candidates and the tree after it."""
+    jprob = jboat.default_problem(obstacle_model=model)
     jS, jK = (np.asarray(a) for a in jprob["lqr"](None, None))
     jspec = jrounds.RoundSpec(nstates=6, ncontrols=3, batch=B,
                               horizon_steps=H, capacity=CAP, dt=0.05,
@@ -76,16 +78,28 @@ def lockstep():
     jafter = jax.device_get(jcommit(tree, jexpand(tree, jnp.asarray(xr),
                                                   jnp.asarray(GOAL))))
     return dict(jS=jS, jK=jK, tree_np=tree_np, xr=xr, jc=jc,
-                jafter=jafter, gb=gb)
+                jafter=jafter, gb=gb, model=model)
 
 
-def _port_round(d, nearest_fn):
-    tprob = boat.default_problem()
+@pytest.fixture(scope="module")
+def lockstep():
+    return _lockstep("circles")
+
+
+@pytest.fixture(scope="module")
+def grid_lockstep():
+    return _lockstep("grid")
+
+
+def _port_round(d, nearest_fn, is_feasible=None):
+    tprob = boat.default_problem(obstacle_model=d["model"])
+    if is_feasible is None:
+        is_feasible = tprob["constraints"].is_feasible
     spec = rounds.RoundSpec(nstates=6, ncontrols=3, batch=B, horizon_steps=H,
                             capacity=CAP, dt=0.05, slack=SLACK)
     expand = rounds.make_expand(
         spec, tprob["dynamics"], interop.lqr_from_numpy(d["jS"], d["jK"]),
-        tprob["erf"], tprob["constraints"].is_feasible, 0.05, d["gb"],
+        tprob["erf"], is_feasible, 0.05, d["gb"],
         wrap_mask=WRAP, saturate=tprob["saturate"], nearest_fn=nearest_fn)
     tree = interop.tree_from_numpy(d["tree_np"], device="cpu")
     c = expand(tree, torch.from_numpy(d["xr"]), torch.from_numpy(GOAL))
@@ -109,7 +123,23 @@ def _nn_excess(tree_np, xr, ids, ids_ref, S=None):
 
 @pytest.mark.parametrize("nn", ["plain", "nn_const"])
 def test_round_lockstep(lockstep, nn):
-    d = lockstep
+    _check_lockstep(lockstep, nn)
+
+
+@pytest.mark.parametrize("nn", ["plain", "nn_const"])
+def test_grid_round_lockstep(grid_lockstep, nn):
+    """The same round on the grid boat (boat.default_problem(obstacle_model=
+    "grid")): the same candidates and rows as the JAX round, and the grid
+    really stops rollouts (lengths differ from an obstacle-free round)."""
+    _check_lockstep(grid_lockstep, nn)
+    _, free, _ = _port_round(grid_lockstep, None,
+                             lambda x, u: torch.ones(x.shape[:-1],
+                                                     dtype=torch.bool))
+    length = np.asarray(grid_lockstep["jc"].length)
+    assert (free.length.numpy() > length).sum() >= 100
+
+
+def _check_lockstep(d, nn):
     jc, jt = d["jc"], d["jafter"]
     fn = None if nn == "plain" else make_nearest_const(wrap_dim=2)
     tree, c, after = _port_round(d, fn)
