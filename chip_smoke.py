@@ -89,7 +89,18 @@ exits non-zero:
    through kernel A with no wrap dim; kernel A alone at the double
    integrator's shapes (n = 4 unwrapped, its S, N = 40960, size 32768,
    B = 8192) against its plain version, with its times and bound; and a
-   small replan with an untagged erf, which takes the scan.
+   small replan with an untagged erf, which takes the scan;
+10. ``refine_mode="leaf_rewire"`` at full width on the double integrator's
+   five circles (2.0 s): the grow chunk fills the tree, refine chunks
+   (leaf replacement through kernel A at B = 4096, and the rewire) run on
+   it; the refine chunk cached, no restart, the goal, the plan's checks,
+   an fp64 audit of every row (child counts, edge starts, node times, no
+   cycle), ``get_tree``'s best chain equal to the plan, one refine chunk
+   under sync-debug mode 'error', and the restart mode's replan beside it;
+   one refine round on the card against the CPU (kernel A's ids, the
+   integer fields equal, the float fields within 1e-3), then its parts
+   timed and its device busy share; the host side: a checkpoint carried
+   into a fresh planner, the replan watchdog, the trajectory server.
 
 The last two lines are a JSON object with the kernels' checks and times and
 ``{"ok": true, "device": {...}}``.  In the kernels line every ``ms``,
@@ -1681,6 +1692,373 @@ def phase_untagged_erf(smi):
         "x0, feasible, in the goal box, dynamically consistent")
 
 
+TOL_TIME = 1e-4        # |node_time - the fp64 chain sum| (s)
+
+
+def tree_audit(tree, dynamics, dt):
+    """Host fp64 checks over every live row of a device tree: n_children
+    equals the real child count (children with ``edge_len >= 1``), every
+    real edge starts at its parent's state (``dynamics(state[parent],
+    edge_u[0]) == edge_x[0]`` within 1e-4), ``node_time`` equals the
+    chain's sum of ``edge_len * dt`` within TOL_TIME, the parent
+    pointers have no cycle, and every zero-length row holds its parent's
+    state exactly.  Returns the counts of rows failing each."""
+    t = {f: getattr(tree, f).cpu() for f in tree._fields}
+    size = int(t["size"])
+    parent = t["parent"][:size].long().numpy()
+    edge_len = t["edge_len"][:size].long().numpy()
+    real = (edge_len >= 1) & (parent >= 0) & (np.arange(size) >= 1)
+    counts = np.bincount(parent[real], minlength=size)[:size]
+    bad_count = int((t["n_children"][:size].numpy() != counts).sum())
+    rows = torch.from_numpy(np.flatnonzero(real))
+    x1 = dynamics(t["state"][parent[rows]].double(),
+                  t["edge_u"][0][:, rows].T.double(), dt)
+    bad_edge = int(((x1 - t["edge_x"][0][:, rows].T.double()).abs()
+                    .amax(1) > 1e-4).sum())
+    # pointer doubling in fp64 on the host: the chain sums and, with the
+    # same jumps, whether every row reaches the root
+    d = np.where(parent >= 0, edge_len * dt, 0.0)
+    p = parent.copy()
+    for _ in range(int(math.ceil(math.log2(max(size, 2)))) + 1):
+        up = p >= 0
+        d = d + np.where(up, d[np.maximum(p, 0)], 0.0)
+        p = np.where(up, p[np.maximum(p, 0)], -1)
+    cycles = int((p >= 0).sum())
+    bad_time = int((np.abs(t["node_time"][:size].double().numpy() - d)
+                    > TOL_TIME).sum())
+    dup = np.flatnonzero((edge_len == 0) & (parent >= 0)
+                         & (np.arange(size) >= 1))
+    state = t["state"][:size].numpy()
+    stale = int((state[dup] != state[parent[dup]]).any(1).sum())
+    return dict(n_children=bad_count, edge_start=bad_edge,
+                node_time=bad_time, cycles=cycles, zero_length_state=stale,
+                rows=size)
+
+
+def phase_leaf_rewire(smi):
+    """``refine_mode="leaf_rewire"`` at full width on the double
+    integrator's ``default_problem()`` (five circles): batch 8192, capacity
+    32768, goal bias 0.2, a 2.0 s replan.  The first chunk of 8 grow rounds
+    fills the tree; the rest of the budget runs refine chunks on it (each
+    round 4096 leaf-replacement candidates through kernel A, and 4096
+    rewire targets).  Gates: the refine chunk is cached, no restart, the
+    goal, the plan's checks, ``tree_audit`` clean, and ``get_tree``'s
+    climb and trajectory of the best node equal to the plan before
+    pruning; then one refine chunk under sync-debug mode 'error'.  Prints
+    the rows replaced and re-parented against the tree saved before the
+    refine chunks and kernel A's launches at B = 4096; then the same
+    problem's replan under ``refine_mode="restart"`` beside it, for the
+    plan duration (not a gate).  Returns (launches, planner)."""
+    from lqrrt_tpu_torch.models import double_integrator as di
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const
+
+    prob = di.default_problem()
+    planner = full_width_planner(prob, refine_mode="leaf_rewire")
+    planner.warmup(prob["x0"], prob["sample_space"], goal_bias=0.2)
+    saved = {}
+    get_chunk = planner._get_chunk
+
+    def spy(xrand_gen, n_fpr, commit="grow"):
+        chunk = get_chunk(xrand_gen, n_fpr, commit)
+        if commit != "refine":
+            return chunk
+
+        def first_refine(tree, *args, **kw):
+            if not saved:          # the grown tree, before any refinement
+                saved.update(parent=tree.parent.clone(),
+                             state=tree.state.clone(),
+                             a_launches=nn_const.launches)
+            return chunk(tree, *args, **kw)
+        return first_refine
+
+    planner._get_chunk = spy
+    counters = planner_counters()
+    name = "double integrator leaf_rewire"
+    try:
+        reached, launches = replan(name, prob, planner, 0.2, 2.0, smi,
+                                   counters)
+    finally:
+        del planner._get_chunk
+    st = planner.stats
+    kinds = [k[3] for k in planner._chunk_cache]
+    if "refine" not in kinds or st["restarts"] != 0 or not saved:
+        raise AssertionError(f"{name}: no refine chunk ran: {kinds}, "
+                             f"restarts {st['restarts']}")
+    if not reached:
+        raise AssertionError(f"{name}: goal not reached: {st}")
+    check_plan(prob, planner)
+    a_refine = nn_const.launches - saved["a_launches"]
+    if min(launches.values()) < 1 or a_refine < 1:
+        raise AssertionError(f"{name}: a kernel was not launched: "
+                             f"{launches}, A in the refine chunks "
+                             f"{a_refine}")
+    tree = planner._device_tree
+    audit = tree_audit(tree, prob["dynamics"], prob["dt"])
+    if any(audit[k] for k in ("n_children", "edge_start", "node_time",
+                              "cycles", "zero_length_state")):
+        raise AssertionError(f"{name}: tree audit failed: {audit}")
+    replaced = (tree.state != saved["state"]).any(1)
+    moved = (tree.parent != saved["parent"]) & ~replaced
+    # the best node's chain in the host snapshot against the plan before
+    # pruning (a fresh extraction of the same node)
+    best = planner._last_chain[-1]
+    x_full, u_full = planner._extract(tree, best)
+    size = int(tree.size)
+    keep = (tree.edge_len[:size] > 0).cpu().numpy()
+    keep[0] = True
+    parent = tree.parent[:size].cpu().numpy()
+    while not keep[best]:
+        best = int(parent[best])
+    host = planner.get_tree()
+    xs, us = host.trajectory(host.climb(int(np.cumsum(keep)[best] - 1)))
+    if not (np.array_equal(xs, x_full[1:]) and np.array_equal(us, u_full)):
+        raise AssertionError(f"{name}: get_tree's best chain is not the "
+                             "plan")
+    log(f"{name} checks: refine chunk cached ({kinds}), restarts=0, goal, "
+        f"plan from x0, feasible, in the goal box, dynamically consistent; "
+        f"tree audit over {audit['rows']} rows in fp64: n_children = real "
+        f"counts, real edges start at their parent's state, node_time = "
+        f"chain sums within {TOL_TIME} s, no cycle, zero-length rows hold "
+        f"their parent's state; get_tree's best chain "
+        f"= the plan before pruning ({len(x_full)} states)")
+    log(f"{name}: rounds={st['rounds']} "
+        f"expansions_per_s={st['expansions_per_s']:.1f} "
+        f"plan_duration_s={st['plan_duration_s']:.2f} "
+        f"rows_replaced={int(replaced.sum())} "
+        f"rows_reparented={int(moved.sum())} "
+        f"kernel_A_launches_at_B4096={a_refine}")
+    chunk = planner._get_chunk(None, 0, commit="refine")
+    args = (planner.goal, planner._tensor(prob["sample_space"]),
+            planner._tensor([0.2] * 4), planner.goal)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunk(tree, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"{name} sync-free refine chunk ({planner.rounds_per_chunk} rounds) "
+        f"under sync_debug_mode='error': ok, enqueue_s={enqueue:.3f} "
+        f"total_s={time.perf_counter() - t0:.3f}")
+
+    restart = full_width_planner(prob)
+    restart.warmup(prob["x0"], prob["sample_space"], goal_bias=0.2)
+    replan("double integrator restart (beside leaf_rewire)", prob, restart,
+           0.2, 2.0, smi, counters)
+    return launches, planner
+
+
+def refine_parts(planner, prob, nearest_fn, device, xr, start):
+    """The planner's refine round for ``device`` (``make_refine_round``, as
+    ``Planner._get_chunk`` builds it) with its half batch fixed to ``xr``
+    and its rewire window to ``start``: (spec, expand, round) where
+    round(tree, goal) runs it in place."""
+    from lqrrt_tpu_torch.core.rounds import make_expand, make_refine_round
+
+    spec = planner._spec()
+    xr_d = torch.as_tensor(xr, device=device)
+    common = (spec, prob["dynamics"], prob["lqr"], prob["erf"],
+              prob["constraints"].is_feasible, planner.error_tol,
+              prob["constraints"].goal_buffer)
+    expand = make_expand(*common, saturate=prob["saturate"],
+                         nearest_fn=nearest_fn)
+    round_fn = make_refine_round(
+        *common, saturate=prob["saturate"], nearest_fn=nearest_fn,
+        draw=lambda gen, nb, ss, gb, bt, prev_plan: xr_d[:nb])
+    st = torch.tensor(start, device=device)
+    return spec, expand, lambda tree, goal: round_fn(
+        tree, None, goal, None, None, None, start=st)
+
+
+def phase_refine_round_parity(planner, smi):
+    """One refine round on the card against the same round on the CPU:
+    the full tree of ``phase_leaf_rewire``'s replan, 4096 candidates from a
+    seed, the same rewire window start.  Gates: kernel A's ids equal to its
+    plain version's at B = 4096; after the round the integer fields
+    (parent, edge_len, n_children, in_goal, size) equal, the float fields
+    within TOL_STEER.  Then the card's round in its parts, synchronised,
+    median of 5 on copies of the tree, and one round under
+    ``torch.profiler`` for the device's busy share."""
+    from lqrrt_tpu_torch.core.rounds import commit_candidates
+    from lqrrt_tpu_torch.models import double_integrator as di
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import make_nearest_const
+    from lqrrt_tpu_torch.utils.timing import device_trace
+
+    prob = di.default_problem()
+    half = planner.batch_size // 2
+    rng = np.random.default_rng(23)
+    lo, hi = prob["sample_space"][:, 0], prob["sample_space"][:, 1]
+    xr = rng.uniform(lo, hi, (half, 4)).astype(np.float32)
+    goal = prob["goal"]
+    start = 12345
+    base = type(planner._device_tree)(
+        *[t.clone() for t in planner._device_tree])
+    out = {}
+    nearest_fn = make_nearest_const(None)
+    for dev in ("cpu", "cuda"):
+        _, _, round_fn = refine_parts(planner, prob, nearest_fn, dev, xr,
+                                      start)
+        tree = type(base)(*[t.to(dev, copy=True) for t in base])
+        pids, _ = nearest_fn(tree.state, tree.S, tree.size,
+                             torch.as_tensor(xr, device=dev))
+        round_fn(tree, torch.as_tensor(goal, device=dev))
+        out[dev] = (pids.cpu(), type(tree)(*[t.cpu() for t in tree]))
+    (pid_cpu, t_cpu), (pid_gpu, t_gpu) = out["cpu"], out["cuda"]
+    ids_equal = bool(torch.equal(pid_cpu, pid_gpu))
+    ints = {f: int((getattr(t_cpu, f) != getattr(t_gpu, f)).sum())
+            for f in ("parent", "edge_len", "n_children", "in_goal", "size")}
+    floats = {f: float((getattr(t_cpu, f) - getattr(t_gpu, f)).abs()
+                       .nan_to_num(0.0).max())
+              for f in ("state", "edge_x", "edge_u", "node_time",
+                        "goal_cost")}
+    replaced = (t_gpu.state != base.state.cpu()).any(1)
+    moved = int(((t_gpu.parent != base.parent.cpu()) & ~replaced).sum())
+    log(f"refine round parity card vs cpu (B={planner.batch_size}: {half} "
+        f"candidates, {half} rewire targets; capacity {planner.capacity}): "
+        f"kernel_A_ids_equal={ids_equal} integer_mismatches={ints} "
+        f"max_abs_float_err={floats} rows_replaced={int(replaced.sum())} "
+        f"rows_reparented={moved}")
+    if not ids_equal or any(ints.values()) or \
+            max(floats.values()) > TOL_STEER:
+        raise AssertionError("the card's refine round disagrees with the "
+                             "CPU's")
+    if not bool(replaced.any()) and moved == 0:
+        raise AssertionError("the refine round changed no row: the parity "
+                             "compared nothing")
+
+    # the card's round in parts
+    spec, expand, round_fn = refine_parts(planner, prob, nearest_fn, "cuda",
+                                          xr, start)
+    from lqrrt_tpu_torch.core.rewire import (make_nearest_pred,
+                                             recompute_node_times)
+    from lqrrt_tpu_torch.core.steer import make_steer
+    nearest = make_nearest_pred(prob["erf"], block=spec.nn_block)
+    steer = make_steer(prob["dynamics"], prob["erf"],
+                       prob["constraints"].is_feasible, spec.horizon_steps,
+                       spec.dt, planner.error_tol, saturate=prob["saturate"])
+    xr_d = torch.as_tensor(xr, device="cuda")
+    goal_d = torch.as_tensor(goal, device="cuda")
+    ar = torch.arange(half, device="cuda")
+
+    def parts(tree):
+        times = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+            return r
+
+        c = timed("expand", lambda: expand(tree, xr_d, goal_d))
+        timed("refine_commit",
+              lambda: commit_candidates(spec, tree, c, mode="refine"))
+        live = torch.clamp(tree.size, max=spec.capacity)
+        t_idx = 1 + (start + ar) % torch.clamp(live - 1, min=1)
+        src, _ = timed("rewire_nn", lambda: nearest(
+            tree.state, tree.S, tree.node_time, live, tree.state[t_idx],
+            tree.node_time[t_idx], tree.parent[t_idx], spec.dt))
+        timed("rewire_steer", lambda: steer(
+            tree.state[src.long()], tree.K[src.long()], tree.state[t_idx]))
+        timed("doubling", lambda: recompute_node_times(
+            tree.parent, tree.edge_len, spec.dt))
+        timed("whole_round", lambda: round_fn(tree, goal_d))
+        return times
+
+    runs = [parts(type(base)(*[t.clone() for t in base])) for _ in range(6)]
+    med = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
+    import tempfile
+
+    tree = type(base)(*[t.clone() for t in base])
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
+        round_fn(tree, goal_d)
+        torch.cuda.synchronize()
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            busy_us += getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+            kernels += e.count
+    share = busy_us / 1e3 / med["whole_round"]
+    log(f"refine round parts on the card [{smi}] (ms, synchronised, median "
+        f"of 5): " + " ".join(f"{k}={v:.3f}" for k, v in med.items())
+        + f"; device kernel time in one round {busy_us / 1e3:.3f} ms in "
+        f"{kernels} kernels (torch.profiler), busy share "
+        f"{share:.3f} of the unprofiled round")
+    return med
+
+
+def phase_host_surface(planner, smi):
+    """The host side on the card: a checkpoint of the leaf_rewire planner
+    with its tree loaded into a fresh card planner (the same plan and
+    get_state, equal tree arrays); a ReplanWatchdog armed at 1.0 s kills a
+    60 s replan, whose salvaged plan is committed and checked; the
+    TrajectoryServer, built from the repo's C source, answers get_state
+    and get_effort as the planner does at 16 times."""
+    import tempfile
+
+    from lqrrt_tpu_torch.interop import tree_to_numpy
+    from lqrrt_tpu_torch.models import double_integrator as di
+    from lqrrt_tpu_torch.runtime import TrajectoryServer
+    from lqrrt_tpu_torch.utils import ReplanWatchdog, checkpoint
+
+    prob = di.default_problem()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        checkpoint.save(planner, path, include_tree=True)
+        fresh = full_width_planner(prob, seed=99,
+                                   refine_mode="leaf_rewire")
+        checkpoint.load(fresh, path)
+    a, b = tree_to_numpy(planner._device_tree), tree_to_numpy(
+        fresh._device_tree)
+    same_tree = all(np.array_equal(a[f], b[f]) for f in a)
+    times = np.linspace(-0.5, planner.T + 0.5, 16)
+    same_plan = (np.array_equal(fresh.x_seq, planner.x_seq)
+                 and np.array_equal(fresh.u_seq, planner.u_seq)
+                 and all(np.array_equal(fresh.get_state(t),
+                                        planner.get_state(t))
+                         for t in times)
+                 and fresh.plan_reached_goal == planner.plan_reached_goal)
+    if not (same_tree and same_plan
+            and fresh._device_tree.state.device.type == "cuda"):
+        raise AssertionError(f"checkpoint: tree equal {same_tree}, plan "
+                             f"equal {same_plan}")
+    log(f"checkpoint on the card: tree of {int(a['size'])} rows and plan "
+        f"of {len(planner.x_seq)} states carried into a fresh planner, "
+        "equal; get_state equal at 16 times")
+
+    wd_planner = full_width_planner(prob, min_time=60.0, max_time=60.0)
+    wd_planner.warmup(prob["x0"], prob["sample_space"], goal_bias=0.2)
+    wd = ReplanWatchdog(wd_planner, grace=0.0)
+    t0 = time.perf_counter()
+    with wd.guard(budget_s=1.0):
+        reached = wd_planner.update_plan(prob["x0"], prob["sample_space"],
+                                         goal_bias=0.2)
+    took = time.perf_counter() - t0
+    if not (wd.fired and wd.fire_count == 1 and took < 30.0):
+        raise AssertionError(f"watchdog: fired {wd.fired}, {took:.1f} s")
+    check_plan(prob, wd_planner, goal_box=reached)
+    log(f"watchdog on the card: armed at 1.0 s under a 60 s budget, fired "
+        f"once, replan ended after {took:.3f} s with "
+        f"{wd_planner.stats['rounds']} rounds, salvaged plan committed "
+        f"(goal={reached}, {len(wd_planner.x_seq)} states, checked)")
+
+    ts = TrajectoryServer(4, 2).attach(planner)
+    err = max(max(float(np.abs(ts.get_state(t) - planner.get_state(t))
+                        .max()),
+                  float(np.abs(ts.get_effort(t) - planner.get_effort(t))
+                        .max())) for t in times)
+    if err > 1e-5 or abs(ts.T - planner.T) > 1e-6:
+        raise AssertionError(f"trajectory server: max err {err}")
+    log(f"trajectory server (libtrajserver from runtime/native/"
+        f"trajserver.c): get_state and get_effort at 16 times equal the "
+        f"planner's within {err:.2e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1768,12 +2146,18 @@ def main() -> int:
                   smi)
     a4 = timed("kernel A unwrapped", phase_kernel_a_unwrapped)
     timed("untagged erf", phase_untagged_erf, smi)
-    # every planner path's launches of A and B, the paths of 8 and 9
+    l_rewire, rewire_planner = timed("double integrator leaf_rewire",
+                                     phase_leaf_rewire, smi)
+    timed("refine round parity", phase_refine_round_parity, rewire_planner,
+          smi)
+    timed("host surface", phase_host_surface, rewire_planner, smi)
+    # every planner path's launches of A and B, the paths of 8, 9 and 10
     paths = {"boat": l_boat, "car": l_car, "quadrotor": l_quad,
              "grid boat": l_grid,
              **{f"boat host loop {k}": v for k, v in l_host.items()},
              **{f"double integrator field {i}": v
-                for i, v in enumerate(l_dyn)}}
+                for i, v in enumerate(l_dyn)},
+             "double integrator leaf_rewire": l_rewire}
     a_paths = {k: v["nn_const"] for k, v in paths.items() if "nn_const" in v}
     b_paths = {k: v["block_write"] for k, v in paths.items()}
     # bounds of the timed calls, from this run's shapes (size 32768 live

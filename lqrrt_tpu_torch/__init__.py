@@ -19,10 +19,16 @@ raises when CUDA is absent; pass ``device="cpu"`` to run the plain PyTorch
 versions of the kernels.
 
 Models: ``models.boat`` (a constant LQR), ``models.car`` and
-``models.quadrotor`` (an LQR re-linearized and re-solved at every node).
+``models.quadrotor`` (an LQR re-linearized and re-solved at every node),
+``models.double_integrator``.
+
+Host side: ``Tree`` (``Planner.get_tree``'s snapshot), ``utils``
+(checkpoints, metrics sinks, the replan watchdog, the phase timer) and
+``runtime.TrajectoryServer`` (the plan in a C seqlock for controllers).
 """
 from .constraints import Constraints
 from .planner import Planner
+from .tree import Tree
 
-__all__ = ["Planner", "Constraints"]
+__all__ = ["Planner", "Tree", "Constraints"]
 __version__ = "0.1.0"

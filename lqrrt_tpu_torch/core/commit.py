@@ -1,7 +1,8 @@
-"""Dense batch commit of steered candidates into the tree (port of
-lqrrt_tpu/core/commit.py ``commit_batch_dense_all``).
+"""Batch commits of steered candidates into the tree (port of
+lqrrt_tpu/core/commit.py ``commit_batch_dense_all`` and
+``commit_batch_refine``).
 
-The JAX function donates the tree's buffers and returns new arrays; this
+The JAX functions donate the tree's buffers and return new arrays; this
 port MUTATES the given tree's tensors in place and returns the same tree.
 """
 from __future__ import annotations
@@ -50,4 +51,90 @@ def commit_batch_dense_all(tree: TreeArrays, dt: float, limit: int, pids,
                                (committed & valid).to(torch.int32))
     tree.goal_found.logical_or_((in_goal_c & committed).any())
     tree.size.copy_(torch.clamp(tree.size + B, max=limit))
+    return tree
+
+
+_GOAL_OFFSET = 1e9   # goal-reaching candidates outrank any cost-to-go score
+
+
+def commit_batch_refine(tree: TreeArrays, dt: float, limit: int, pids,
+                        length, x_seq, u_seq, xnew, S_new, K_new, in_goal,
+                        gcost) -> TreeArrays:
+    """Leaf replacement in a full tree: candidates best-first (goal ones by
+    root time, then by cost-to-go; empty rollouts never), replaceable rows
+    worst-first by cost-to-go; the k-th best candidate replaces the k-th
+    worst row iff its score is strictly lower.  ``size`` is unchanged.
+
+    A row is replaceable iff it is live, not the root or an inert root
+    copy of ``root_pad`` (no parent), not in the goal, no live row names it
+    as parent, and it is not the parent of a candidate of this batch.
+    The reference's orders are kept: a stable argsort of the candidates
+    (``jnp.argsort``), and the rows by a stable descending sort, which puts
+    the lower row first among equal scores as ``lax.top_k`` does (equal
+    scores are common: a zero-length row shares its parent's cost-to-go).
+    A victim's old parent loses a child only where the victim's edge has
+    ``edge_len >= 1``: a zero-length row was never counted.
+
+    Three repairs of the reference (``commit.py:242-252``), which tests
+    ``n_children == 0`` and takes every live row: it decrements a
+    zero-length victim's parent all the same; it replaces a row whose only
+    children are zero-length rows, which then hold a state their parent no
+    longer has (a zero-length row is a copy of its parent's state, and may
+    get real children); and its root copies, cost-to-go +inf, rank as the
+    worst victims and refuse the best ``root_pad - 1`` candidates of every
+    round.  Here a row with any live child, counted or not, is kept, and
+    the root copies are never victims."""
+    B = pids.shape[0]
+    N = tree.state.shape[0]
+    dev = tree.size.device
+    pids_l = pids.long()
+
+    t_new = tree.node_time[pids_l] + length.float() * dt
+    c_score = torch.where(in_goal, t_new - _GOAL_OFFSET, gcost)
+    c_score = torch.where(length >= 1, c_score, torch.inf)
+    c_order = torch.argsort(c_score, stable=True)
+    c_score_s = c_score[c_order]
+    pids_s = pids_l[c_order]
+
+    idx = torch.arange(N, device=dev)
+    live = (idx >= 1) & (idx < torch.clamp(tree.size, max=limit))
+    parent_used = torch.zeros(N, dtype=torch.bool, device=dev).index_fill_(
+        0, pids_l, True)
+    # rows named as parent by a live row; the others fill the discard row N
+    has_parent = live & (tree.parent >= 0)
+    has_child = torch.zeros(N + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(has_parent, tree.parent.long(), N), True)[:N]
+    replaceable = has_parent & ~has_child & ~tree.in_goal & ~parent_used
+    v_score = torch.where(replaceable, tree.goal_cost, -torch.inf)
+    v_worst, v_idx = torch.sort(v_score, descending=True, stable=True)
+    v_worst, v_idx = v_worst[:B], v_idx[:B]
+
+    replace = (c_score_s < v_worst) & torch.isfinite(v_worst)
+    zero = torch.zeros_like(v_idx)
+    counted = replace & (tree.edge_len[v_idx] >= 1)
+    tree.n_children.index_add_(
+        0, torch.where(replace, tree.parent[v_idx].long(), zero),
+        -counted.to(torch.int32))
+    tree.n_children.index_add_(0, torch.where(replace, pids_s, zero),
+                               replace.to(torch.int32))
+
+    # the victims are distinct rows: a row not replaced is written back
+    def put(buf, new, dim=0):
+        old = buf.index_select(dim, v_idx)
+        shape = [1] * buf.dim()
+        shape[dim] = B
+        mask = replace.reshape(shape)
+        buf.index_copy_(dim, v_idx, torch.where(mask, new, old))
+
+    put(tree.state, xnew[c_order])
+    put(tree.S, S_new[c_order])
+    put(tree.K, K_new[c_order])
+    put(tree.parent, pids_s.to(torch.int32))
+    put(tree.edge_x, x_seq[:, :, c_order], dim=2)
+    put(tree.edge_u, u_seq[:, :, c_order], dim=2)
+    put(tree.edge_len, length[c_order].to(torch.int32))
+    put(tree.node_time, t_new[c_order])
+    put(tree.in_goal, in_goal[c_order])
+    put(tree.goal_cost, gcost[c_order])
+    tree.goal_found.logical_or_((in_goal[c_order] & replace).any())
     return tree

@@ -1,7 +1,7 @@
 """One expansion round: sample -> nearest -> steer -> commit (port of
 lqrrt_tpu/core/rounds.py ``RoundSpec``, ``Candidates``, ``make_expand``,
-``commit_candidates`` and ``make_round``; the dense commit-all branch
-only).
+``commit_candidates``, ``make_round`` and ``make_refine_round``; of the
+grow commits, the dense commit-all branch only).
 
 ``make_expand`` is the per-candidate compute: nearest under the LQR metric,
 gather the parent's state and gain, steer with the first-entry goal stop,
@@ -14,7 +14,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .commit import commit_batch_dense_all
+from .commit import commit_batch_dense_all, commit_batch_refine
 from .nearest import make_nearest
 from .sampling import sample_batch
 from .steer import make_steer
@@ -95,9 +95,15 @@ def make_expand(spec: RoundSpec, dynamics: Callable, lqr: Callable,
     return expand
 
 
-def commit_candidates(spec: RoundSpec, tree: TreeArrays,
-                      c: Candidates) -> TreeArrays:
-    """Commit a round's candidates (dense commit-all; in place)."""
+def commit_candidates(spec: RoundSpec, tree: TreeArrays, c: Candidates,
+                      mode: str = "grow") -> TreeArrays:
+    """Commit a round's candidates in place: ``mode="grow"`` appends them
+    (the dense commit-all), ``mode="refine"`` replaces leaves of a full
+    tree (``commit_batch_refine``)."""
+    if mode == "refine":
+        return commit_batch_refine(
+            tree, spec.dt, spec.capacity, c.pids, c.length, c.x_seq,
+            c.u_seq, c.xnew, c.S_new, c.K_new, c.in_goal, c.gcost)
     if spec.slack < c.pids.shape[0]:
         raise NotImplementedError(
             "only the dense commit-all path is ported (slack >= batch, which "
@@ -128,5 +134,50 @@ def make_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
         else:
             xrand = xrand_gen(gen, spec.batch)
         return commit_candidates(spec, tree, expand(tree, xrand, goal))
+
+    return round_fn
+
+
+def make_refine_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
+                      erf: Callable, is_feasible: Callable, error_tol,
+                      goal_buffer, wrap_mask=None,
+                      xrand_gen: Callable | None = None,
+                      saturate: Callable | None = None,
+                      nearest_fn: Callable | None = None,
+                      draw: Callable | None = None) -> Callable:
+    """The round of a full tree: ``half = max(batch // 2, 1)`` candidates
+    expand and replace leaves (``commit_batch_refine``), then ``batch -
+    half`` targets are rewired (``core/rewire.py``).
+
+    round(tree, gen, goal, sample_space, goal_bias, bias_target,
+          prev_plan=None, start=None) -> tree (updated in place).
+    The half batch is ``draw(gen, half, sample_space, goal_bias,
+    bias_target, prev_plan)`` when given (the planner's sampler), else
+    ``xrand_gen(gen, half)``, else ``sample_batch``; the rewire's window
+    starts at ``start`` (a 0-d tensor) or is drawn from ``gen`` after the
+    candidates."""
+    from .rewire import make_rewire
+
+    half = max(spec.batch // 2, 1)
+    expand = make_expand(spec, dynamics, lqr, erf, is_feasible, error_tol,
+                         goal_buffer, wrap_mask=wrap_mask, saturate=saturate,
+                         nearest_fn=nearest_fn)
+    rewire = make_rewire(spec, dynamics, lqr, erf, is_feasible, error_tol,
+                         batch=max(spec.batch - half, 1),
+                         wrap_mask=wrap_mask, saturate=saturate)
+
+    def round_fn(tree, gen, goal, sample_space, goal_bias, bias_target,
+                 prev_plan=None, start=None):
+        if draw is not None:
+            xrand = draw(gen, half, sample_space, goal_bias, bias_target,
+                         prev_plan)
+        elif xrand_gen is not None:
+            xrand = xrand_gen(gen, half)
+        else:
+            xrand = sample_batch(gen, half, sample_space, goal_bias,
+                                 bias_target)
+        commit_candidates(spec, tree, expand(tree, xrand, goal),
+                          mode="refine")
+        return rewire(tree, gen, start)
 
     return round_fn

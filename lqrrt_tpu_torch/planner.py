@@ -9,10 +9,15 @@ syncs:
 - the restart loop (``refine=True`` and ``max_nodes`` at or above the
   capacity): fused-restart chunks, each ``n_cycles`` cycles of [F grow
   rounds -> stash-compare -> reseed with depth planting];
-- the host loop (``refine=False``, or ``max_nodes`` below the capacity):
-  grow chunks of ``rounds_per_chunk`` rounds on one tree, stopped at
-  min(max_nodes, capacity) rows, at the budget, or at the goal after
-  ``min_time``.
+- the host loop (``refine=False``, ``max_nodes`` below the capacity, or
+  ``refine_mode="leaf_rewire"``): grow chunks of ``rounds_per_chunk``
+  rounds on one tree, stopped at the budget, at the goal after
+  ``min_time``, or at min(max_nodes, capacity) rows; with
+  ``refine_mode="leaf_rewire"`` (and ``refine=True``, ``max_nodes`` at or
+  above the capacity) a full tree is not a stop: the rest of the budget
+  runs refine chunks on the same tree, each round a half batch of leaf
+  replacements (``core/commit.py`` ``commit_batch_refine``) and a half
+  batch of rewires (``core/rewire.py``).
 
 A 3-arg ``is_feasible(x, u, data)`` (``Constraints(feasibility_data=...)``)
 reads its data from device tensors the planner keeps: each replan copies
@@ -20,7 +25,12 @@ the constraints' data into them in place, so an update of values builds no
 chunk and moves no tensor.
 
 Not ported yet, raising ``NotImplementedError`` with the ROADMAP item:
-``mesh``, ``feasibility_grid`` and ``refine_mode="leaf_rewire"``.
+``mesh`` and ``feasibility_grid``.
+
+``get_tree`` snapshots the last planning tree into the host ``Tree``
+(``lqrrt_tpu_torch/tree.py``); ``utils`` holds checkpoints, metrics sinks,
+the replan watchdog and the phase timer, and ``runtime`` the trajectory
+server.
 
 The NN on CUDA is a hand-written kernel for an affine erf (subtract, or at
 most one wrapped angle dim): ``nn_const`` when the ``lqr`` is constant (the
@@ -42,11 +52,13 @@ import numpy as np
 import torch
 
 from .constraints import Constraints
-from .core.rounds import RoundSpec, commit_candidates, make_expand
+from .core.rounds import (RoundSpec, commit_candidates, make_expand,
+                          make_refine_round)
 from .core.sampling import normalize_goal_bias, sample_batch
 from .core.steer import make_steer
 from .core.tree import TreeArrays, best_node, init_tree
 from .ops.angles import wrap_angle
+from .tree import Tree
 
 _FPR_PLAN_LEN = 256   # resampled previous-plan states kept for FPR biasing
 _PRUNE_MAX = 32       # chain nodes covered by the all-pairs shortcut batch
@@ -152,6 +164,9 @@ class Planner:
             raise ValueError(f"unknown collective {collective!r}")
         if refine_mode not in ("restart", "leaf_rewire"):
             raise ValueError(f"unknown refine_mode {refine_mode!r}")
+        if refine_mode == "leaf_rewire" and feasibility_grid is not None:
+            raise ValueError("refine_mode='leaf_rewire' is not supported "
+                             "with a sharded feasibility_grid")
         if informed_anneal != 1.0:
             warnings.warn(
                 "informed_anneal != 1.0 measurably degrades anytime plan "
@@ -228,6 +243,7 @@ class Planner:
         self._feas_sig = None           # signature of the data in force
         self._killed = False
         self._device_tree: Optional[TreeArrays] = None
+        self.tree: Optional[Tree] = None    # host snapshot, made lazily
         # the committed plan is ONE tuple (x_seq, u_seq, T), swapped
         # atomically, so a reader never sees a torn plan
         self._plan = None
@@ -247,8 +263,6 @@ class Planner:
             missing("mesh=", 16)
         if self.feasibility_grid is not None:
             missing("feasibility_grid=", 16)
-        if self.refine_mode == "leaf_rewire":
-            missing("refine_mode='leaf_rewire'", 13)
 
     # ------------------------------------------------------------------ setup
 
@@ -411,10 +425,12 @@ class Planner:
         return pool
 
     def _sampler(self, xrand_gen, n_fpr: int, informed_on: bool):
-        """draw(pool, frac, ss, gb, bt, prev_plan) -> (B, n) candidates:
-        ``xrand_gen(gen, B)`` when given; else ``sample_batch`` whose first
-        frac * rows come, when ``informed_on``, from the informed pool plus
-        noise; with FPR, n_fpr rows of ``prev_plan`` lead the batch."""
+        """draw(pool, frac, ss, gb, bt, prev_plan, nb=batch_size) -> (nb, n)
+        candidates: ``xrand_gen(gen, nb)`` when given; else ``sample_batch``
+        whose first frac * rows come, when ``informed_on``, from the
+        informed pool plus noise; with FPR, min(n_fpr, nb - 1) rows of
+        ``prev_plan`` lead the batch (the refine round draws half
+        batches)."""
         B = self.batch_size
         inf_scale = 0.05          # fixed: annealing is measured-harmful
         gen, dev = self._gen, self.device
@@ -438,16 +454,16 @@ class Planner:
             take = ar_b[:nb] < frac * nb
             return torch.where(take[:, None], noisy, fresh)
 
-        def draw(pool_c, frac, ss, gb, bt, prev_plan):
+        def draw(pool_c, frac, ss, gb, bt, prev_plan, nb=B):
             if xrand_gen is not None:
-                return xrand_gen(gen, B)
+                return xrand_gen(gen, nb)
             if n_fpr > 0:
-                n_take = min(max(n_fpr, 1), B - 1)
-                fresh = base_sample(B - n_take, pool_c, frac, ss, gb, bt)
+                n_take = min(n_fpr, nb - 1)
+                fresh = base_sample(nb - n_take, pool_c, frac, ss, gb, bt)
                 rows = torch.randint(0, prev_plan.shape[0], (n_take,),
                                      generator=gen, device=dev)
                 return torch.cat([prev_plan[rows], fresh], 0)
-            return base_sample(B, pool_c, frac, ss, gb, bt)
+            return base_sample(nb, pool_c, frac, ss, gb, bt)
 
         return draw
 
@@ -466,31 +482,52 @@ class Planner:
             capacity=self.capacity, dt=self.dt, nn_block=self.nn_block,
             slack=self.slack)
 
-    # ---------------------------------------------------------- grow chunk
+    # ------------------------------------------------- grow / refine chunk
 
-    def _get_chunk(self, xrand_gen, n_fpr: int):
-        """The host loop's grow chunk: ``rounds_per_chunk`` rounds on one
-        tree, then its stats (``_chunk_stats``).
+    def _get_chunk(self, xrand_gen, n_fpr: int, commit: str = "grow"):
+        """The host loop's chunk: ``rounds_per_chunk`` rounds on one tree,
+        then its stats (``_chunk_stats``).  ``commit="grow"`` appends a
+        batch a round; ``commit="refine"`` runs the full tree's round,
+        ``core.rounds.make_refine_round`` fed by the planner's sampler:
+        ``half = max(batch // 2, 1)`` candidates replace leaves, then
+        ``batch - half`` targets are rewired, the window's start drawn from
+        the planner's generator.
 
         chunk(tree, goal, sample_space, goal_bias, bias_target,
               prev_plan=None) updates ``tree`` IN PLACE and returns the stats
         tensor.  The informed pool stays inert on this path (the JAX host
         loop refreshes it only in its restart stash, which needs a
         feasibility_grid), so every row not taken by FPR is a fresh
-        sample."""
+        sample.  The cache key holds ``commit`` at index 3, as the JAX
+        planner's."""
         key = (self.constraints._feasibility_version, xrand_gen, n_fpr,
-               "grow", self._feas_sig)
+               commit, self._feas_sig)
         if key in self._chunk_cache:
             return self._chunk_cache[key]
         spec = self._spec()
-        expand = self._expand(spec)
         draw = self._sampler(xrand_gen, n_fpr, informed_on=False)
         n_inner = self.rounds_per_chunk
+        if commit == "refine":
+            refine_round = make_refine_round(
+                spec, self.dynamics, self.lqr, self.erf, self._feasibility(),
+                self.error_tol, self.constraints.goal_buffer,
+                wrap_mask=self._wrap_mask(), saturate=self.saturate,
+                nearest_fn=self._nearest_override(),
+                draw=lambda gen, nb, ss, gb, bt, prev_plan: draw(
+                    None, 0.0, ss, gb, bt, prev_plan, nb))
+
+            def one_round(tree, goal, ss, gb, bt, prev_plan):
+                refine_round(tree, self._gen, goal, ss, gb, bt, prev_plan)
+        else:
+            expand = self._expand(spec)
+
+            def one_round(tree, goal, ss, gb, bt, prev_plan):
+                xrand = draw(None, 0.0, ss, gb, bt, prev_plan)
+                commit_candidates(spec, tree, expand(tree, xrand, goal))
 
         def chunk(tree, goal, ss, gb, bt, prev_plan=None):
             for _ in range(n_inner):
-                xrand = draw(None, 0.0, ss, gb, bt, prev_plan)
-                commit_candidates(spec, tree, expand(tree, xrand, goal))
+                one_round(tree, goal, ss, gb, bt, prev_plan)
             return _chunk_stats(tree)
 
         self._chunk_cache[key] = chunk
@@ -653,7 +690,8 @@ class Planner:
             prev_plan = self._tensor(plan)
         self._load_feasibility_data()
         loop = (self._run_restart_loop
-                if self.refine and self.max_nodes >= self.capacity
+                if (self.refine and self.refine_mode == "restart"
+                    and self.max_nodes >= self.capacity)
                 else self._run_host_loop)
         return loop(x0, sample_space, goal_bias, bias_target, t_min, t_max,
                     xrand_gen, n_fpr, prev_plan, pruning, finish_on_goal)
@@ -736,14 +774,18 @@ class Planner:
     def _run_host_loop(self, x0, sample_space, goal_bias, bias_target,
                        t_min, t_max, xrand_gen, n_fpr, prev_plan, pruning,
                        finish_on_goal) -> bool:
-        """Anytime loop over grow chunks on one tree (``refine=False``, or
-        ``max_nodes`` below the capacity): stops at min(max_nodes,
-        capacity) rows, at the budget, or at the goal after ``t_min``, on
-        stats one chunk stale, so ``max_nodes`` holds at chunk
-        granularity."""
+        """Anytime loop over chunks on one tree (``refine=False``,
+        ``max_nodes`` below the capacity, or ``leaf_rewire``): stops at
+        min(max_nodes, capacity) rows, at the budget, or at the goal after
+        ``t_min``, on stats one chunk stale, so ``max_nodes`` holds at chunk
+        granularity.  With ``leaf_rewire``, ``refine=True`` and the stop at
+        the capacity, a full tree swaps in the refine chunk and carries on
+        (no reseed, no restart), as the JAX host loop does."""
         chunk_fn = self._get_chunk(xrand_gen, n_fpr)
         tree = self._seed_tree(x0, self.goal)
         node_cap = min(self.max_nodes, self.capacity)
+        rewire_on = (self.refine and self.refine_mode == "leaf_rewire"
+                     and node_cap >= self.capacity)
         bufs = self._stats_buffers()
         t0 = self.sys_time()
         rounds = 0
@@ -760,7 +802,9 @@ class Planner:
                     print("[lqrrt] killed; salvaging best-so-far")
                 break
             if size >= node_cap:
-                break
+                if not rewire_on:
+                    break
+                chunk_fn = self._get_chunk(xrand_gen, n_fpr, commit="refine")
             if elapsed >= t_max:
                 break
             if goal_found and elapsed >= t_min:
@@ -791,6 +835,7 @@ class Planner:
         """Extract the best branch of ``tree``, prune it, finish it on the
         goal if asked, swap it in as the plan and fill ``stats``."""
         self._device_tree = tree
+        self.tree = None                  # the host snapshot is stale
         t_post = self.sys_time()
         x_seq, u_seq = self._extract(tree, best_id)
         t_extract = self.sys_time() - t_post
@@ -1013,6 +1058,15 @@ class Planner:
         j = min(i + 1, len(u_seq) - 1)
         a = tau - i
         return (1.0 - a) * u_seq[i] + a * u_seq[j]
+
+    def get_tree(self) -> Tree:
+        """Host snapshot of the last planning tree (made at the first call
+        after each replan)."""
+        if self.tree is None:
+            if self._device_tree is None:
+                raise RuntimeError("no tree; call update_plan first")
+            self.tree = Tree.from_device_arrays(self._device_tree)
+        return self.tree
 
     def _interp(self, seq, t: float):
         tau = np.clip(t / self.dt, 0.0, len(seq) - 1)

@@ -151,20 +151,33 @@ def test_kill_update_preempts():
     dict(max_nodes=1000), dict(mesh=object()),
     dict(feasibility_grid=object())])
 def test_off_restart_path_raises(kw):
-    """Off the restart path: refine=False and max_nodes below the capacity
-    plan through the host loop (grow chunks, no restarts, max_nodes held
-    at chunk granularity); what is not ported yet raises."""
+    """Off the restart path: refine=False, max_nodes below the capacity
+    and refine_mode="leaf_rewire" plan through the host loop (grow chunks,
+    then refine chunks for leaf_rewire once the tree is full; no restarts,
+    max_nodes held at chunk granularity); what is not ported yet raises."""
     prob = boat.default_problem()
-    if "refine" not in kw and "max_nodes" not in kw:
+    if not {"refine", "max_nodes", "refine_mode"} & set(kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _planner(prob, **kw)
         return
     planner = _planner(prob, nn_impl="nn_const", rounds_per_chunk=2, **kw)
+    if "refine_mode" in kw:
+        # a clock that holds still for 8 chunks: 7 rounds fill the 4096 rows
+        # (512 of them root copies), the stats are a chunk stale, and then
+        # refine chunks run on the full tree
+        calls = []
+
+        def clock():
+            calls.append(1)
+            return 0.0 if len(calls) <= 9 else 1e9
+        planner.sys_time = clock
     planner.update_plan(prob["x0"], prob["sample_space"], goal_bias=BIAS,
                         specific_time=1.0)
     st = planner.stats
     assert st["restarts"] == 0 and st["rounds"] % 2 == 0 and st["rounds"]
-    assert [k[3] for k in planner._chunk_cache] == ["grow"]
+    kinds = [k[3] for k in planner._chunk_cache]
+    assert kinds == (["grow", "refine"] if "refine_mode" in kw
+                     else ["grow"]), kinds
     cap = min(planner.max_nodes, planner.capacity)
     assert st["tree_rows"] < cap + 2 * 2 * 512      # stats one chunk stale
     assert st["nodes"] <= st["tree_rows"]
@@ -419,6 +432,11 @@ def test_port_imports_no_jax():
         "'lqrrt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "new = ['core.rewire', 'tree', 'utils.checkpoint', 'utils.metrics',"
+        " 'utils.watchdog', 'utils.timing', 'runtime.trajectory_server']\n"
+        "missing = [m for m in new if 'lqrrt_tpu_torch.' + m not in "
+        "sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'lqrrt_tpu' or k.startswith('lqrrt_tpu.')]\n"
         "assert not bad, bad\n"
