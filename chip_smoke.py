@@ -8,8 +8,9 @@ exits non-zero:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: compile the CUDA kernels from ``lqrrt_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ``ptxas``'s resource lines; every
-   instance of kernels A, D and E and all 15 of the stage scaffold's
-   ``stage_kernel`` (F2, F3) without spills;
+   instance of kernels A and E, kernel D's four (one a model: the boat,
+   the car, the quadrotor, the double integrator) and all 15 of the stage
+   scaffold's ``stage_kernel`` (F2, F3) without spills;
 3. kernel A (nn_const) vs its plain PyTorch version at N = 40960,
    B = 8192 with an fp64 brute-force anchor: the boat's n = 6 (wrap dim 2)
    at sizes 0 to 32768, the root-pad tie at sizes 1024 and 32768, NaN
@@ -47,6 +48,19 @@ exits non-zero:
    ``lqrrt_tpu_torch.tools.exp_steer_kernel.main`` at full width (B = 8192,
    a tree of N = 40960 rows), with the launch counts set to 0 just before
    and read just after;
+5c'. kernel D's other models: the card's tanf (the car's f) and div_rn
+   (the quadrotor's divisions) against ``torch.tan`` and torch's ``/``, bit
+   for bit (div_rn a gate) on their operand ranges, random bit patterns
+   and special values; then D flat and tree for the car (H = 80), the
+   quadrotor (60) and the double integrator (40) against the plain steer
+   on the card at B = 8192 and 8191, on each model's ``default_problem()``
+   (``all_of(control_limits, circles_free)``) and without obstacles,
+   x0 and xtar from a seeded ``torch.Generator``, K from the model's lqr
+   and a tree of N = 40960 rows: every field bit for bit and every branch
+   reached (goal, arrived and infeasible stops, the full horizon, held
+   tails), both times; then each model's main path,
+   ``exp_steer_kernel.main(model=...)`` at full width, with the launch
+   counts set to 0 just before and read just after;
 5d. kernel D's repairs: parents outside [0, N), a NaN tree row and NaN x0
    rows give the same NaN rows on the card as in the plain version, bit for
    bit against the plain version on the card (the tree call under
@@ -100,7 +114,12 @@ exits non-zero:
    one refine round on the card against the CPU (kernel A's ids, the
    integer fields equal, the float fields within 1e-3), then its parts
    timed and its device busy share; the host side: a checkpoint carried
-   into a fresh planner, the replan watchdog, the trajectory server.
+   into a fresh planner, the replan watchdog, the trajectory server;
+11. the demos: ``lqrrt_tpu_torch.demos``' boat, car, quadrotor and double
+   integrator demos and the boat's replan loop through their ``main``, on
+   the card with no figure, at the demos' own width (batch 256, capacity
+   8192): each must exit 0 (goal, clearance, tracking error), with its NN
+   kernel's launches counted (A or C) and its wall time.
 
 The last two lines are a JSON object with the kernels' checks and times and
 ``{"ok": true, "device": {...}}``.  In the kernels line every ``ms``,
@@ -605,6 +624,19 @@ def phase_exp_nn_hybrid(smi):
     return res, launches
 
 
+def torch_sum_order(a):
+    """The sum over the last dim of a (rows, n) tensor in the order of
+    ``torch_sum<n>`` (csrc/boat_device.cuh): W = last_pow2(n) lanes, lane l
+    adds a[l] and a[l + W], then a tree by offsets W / 2, ..., 1."""
+    n = a.shape[-1]
+    w = 1 << (n.bit_length() - 1)
+    v = [a[:, i] + a[:, i + w] if i + w < n else a[:, i] for i in range(w)]
+    while w > 1:
+        w //= 2
+        v = [v[i] + v[i + w] for i in range(w)]
+    return v[0]
+
+
 def phase_kernel_d():
     """Kernel D (steer_rollout), flat and tree-gather, against its plain
     version at B = 8192, H = 100 on the boat's operating point, on
@@ -625,14 +657,16 @@ def phase_kernel_d():
                                    t["ncirc"])
     calls = steer_calls(t)
     cases = {v: calls[v] for v in ("flat", "tree")}
-    # the kernel sums 6 terms in the order of PyTorch's CUDA reduction
-    # (sum6 in csrc/steer_rollout.cu): the share of rows where it is
-    # torch.sum's order, printed since bit-for-bit agreement rests on it
-    a = torch.randn((65536, 6), generator=torch.Generator(device=dev)
-                    .manual_seed(29), device=dev) * 100.0
-    sum6 = ((a[:, 0] + a[:, 4]) + a[:, 2]) + ((a[:, 1] + a[:, 5]) + a[:, 3])
-    log(f"kernel D: torch.sum of 6 in sum6's order on "
-        f"{(sum6 == a.sum(-1)).double().mean().item():.6f} of rows")
+    # the kernel sums n terms in the order of PyTorch's CUDA reduction
+    # (torch_sum in csrc/boat_device.cuh): the share of rows where it is
+    # torch.sum's order for each model's n, printed since bit-for-bit
+    # agreement rests on it
+    for n in (4, 6, 12):
+        a = torch.randn((65536, n), generator=torch.Generator(device=dev)
+                        .manual_seed(29), device=dev) * 100.0
+        log(f"kernel D: torch.sum of {n} in torch_sum's order on "
+            f"{(torch_sum_order(a) == a.sum(-1)).double().mean().item():.6f}"
+            " of rows")
     out = {}
     for variant, (kernel, plain_fn) in cases.items():
         res, ref = kernel(), plain_fn()
@@ -696,6 +730,225 @@ def phase_exp_steer_kernel(smi):
         raise AssertionError(f"exp_steer_kernel: a variant was not "
                              f"launched: {launches}")
     return res, launches
+
+
+D_MODELS = ("car", "quadrotor", "double_integrator")
+N_D_INSTANCES = 4      # steer_rollout_kernel: boat, car, quadrotor, double
+                       # integrator
+
+
+def bits_equal(a, b):
+    """Elementwise: the same float32 bits, or both NaN."""
+    return ((a.view(torch.int32) == b.view(torch.int32))
+            | (a.isnan() & b.isnan()))
+
+
+def phase_math_probes():
+    """The card's tanf (the car's f) and div_rn (the quadrotor's divisions)
+    as kernel D computes them (``steer_kernel.math_probe``) against
+    ``torch.tan`` and torch's ``/`` on the card: the share of equal bits
+    (NaN equal to NaN) over the car's steering angles, a wide range and
+    2^20 random bit patterns for tan; for the division over sin and cos
+    over the clamped pitch cosine [0.2, 1], torques over the inertia (0.01,
+    0.02), random bit patterns (subnormals, infinities and NaN among them)
+    and every pair of 16 special values.  div_rn must agree everywhere (a
+    gate); tanf's share is printed (kernel D's bit-for-bit gates on the car
+    rest on it)."""
+    from lqrrt_tpu_torch.ops.kernels.steer_kernel import math_probe
+
+    dev, k = "cuda", 1 << 20
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def uni(lo, hi):
+        return lo + (hi - lo) * torch.rand(k, generator=g, device=dev)
+
+    def bits():
+        return torch.randint(-2 ** 31, 2 ** 31, (k,), generator=g,
+                             device=dev).to(torch.int32).view(torch.float32)
+
+    tiny = torch.tensor([1], dtype=torch.int32).view(torch.float32).item()
+    special = torch.tensor(
+        [0.0, -0.0, math.inf, -math.inf, math.nan, tiny, -tiny, 1.1754942e-38,
+         1.1754944e-38, 3.4028235e38, -3.4028235e38, 1.0, -1.0, 3.0, 0.2,
+         1e-30], device=dev)
+    tan_in = torch.cat([uni(-0.6, 0.6), uni(-100.0, 100.0), bits()])
+    tan_eq = bits_equal(math_probe("tan", tan_in), torch.tan(tan_in))
+    num = torch.cat([torch.sin(uni(-0.6, 0.6)), torch.cos(uni(-0.6, 0.6)),
+                     uni(-50.0, 50.0), uni(-1e-3, 1e-3), bits(),
+                     special.repeat_interleave(len(special))])
+    den = torch.cat([uni(0.2, 1.0), uni(0.2, 1.0),
+                     torch.tensor([0.01, 0.01, 0.02], device=dev).repeat(
+                         -(-k // 3))[:k],
+                     torch.full((k,), 0.01, device=dev), bits(),
+                     special.repeat(len(special))])
+    div_eq = bits_equal(math_probe("div", num, den), num / den)
+    torch.cuda.synchronize()
+    out = dict(tan_share=tan_eq.double().mean().item(),
+               div_share=div_eq.double().mean().item())
+    log(f"kernel D math: tanf equal to torch.tan on {out['tan_share']:.6f} "
+        f"of {len(tan_in)} arguments; div_rn equal to torch's / on "
+        f"{out['div_share']:.6f} of {len(num)} operand pairs (bits, NaN "
+        "equal)")
+    if out["div_share"] != 1.0:
+        bad = (~div_eq).nonzero()[:5, 0]
+        raise AssertionError(f"div_rn differs from torch's / at "
+                             f"{list(zip(num[bad].tolist(), den[bad].tolist()))}")
+    return out
+
+
+def phase_kernel_d_models():
+    """Kernel D, flat and tree-gather, for the car (H = 80), the quadrotor
+    (60) and the double integrator (40) against the plain steer on the
+    card at B = 8192 and at the ragged B_RAGGED, on each model's
+    ``default_problem()`` predicate (``all_of(control_limits,
+    circles_free)``) and without obstacles (``control_limits`` alone):
+    ``kernel_times.model_steer_inputs`` (x0 and xtar from a seeded
+    ``torch.Generator`` in the sample space, K from the model's own lqr: the
+    batched CARE for the car and the quadrotor; a tree of N_BENCH rows).
+    Every field bit for bit, NaN equal (a gate), and every branch reached:
+    the goal stop, the arrived stop, the full horizon, held tails and, with
+    circles, the infeasible stop.  Returns per model and variant the
+    numbers of the kernels line, timed at B = 8192 with circles."""
+    import importlib
+
+    from lqrrt_tpu_torch.core.steer import make_steer
+    from lqrrt_tpu_torch.ops.kernels.steer_kernel import (
+        make_steer_kernel, make_steer_kernel_tree)
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import agreement, device_ms
+    from lqrrt_tpu_torch.tools.kernel_times import (model_branch_counts,
+                                                    model_steer_inputs,
+                                                    same_result_nan,
+                                                    steer_bound)
+
+    out = {}
+    for name in D_MODELS:
+        mod = importlib.import_module(f"lqrrt_tpu_torch.models.{name}")
+        out[name] = {}
+        for label, obstacles in (("circles", True), ("0 circles", False)):
+            t = model_steer_inputs(mod.default_problem(obstacles=obstacles),
+                                   "cuda", B_BENCH, 23, N_BENCH)
+            plain = make_steer(*t["args"], **t["kw"])
+            flat = make_steer_kernel(*t["args"], **t["kw"])
+            tree = make_steer_kernel_tree(*t["args"], **t["kw"])
+            x0, KB, xtar, goal = t["x0"], t["KB"], t["xtar"], t["goal"]
+            states, KN, pids = t["states"], t["KN"], t["pids"]
+            idx = pids.long()
+            calls = {
+                "flat": (lambda b: flat(x0[:b], KB[:b], xtar[:b], goal),
+                         lambda b: plain(x0[:b], KB[:b], xtar[:b], goal)),
+                "tree": (lambda b: tree(states, KN, pids[:b], xtar[:b],
+                                        goal),
+                         lambda b: plain(states[idx[:b]], KN[idx[:b]],
+                                         xtar[:b], goal))}
+            for variant, (kernel, plain_fn) in calls.items():
+                for b in (B_BENCH, B_RAGGED):
+                    res, ref = kernel(b), plain_fn(b)
+                    torch.cuda.synchronize()
+                    same = same_result_nan(res, ref)
+                    counts = model_branch_counts(res)
+                    need = {k: v for k, v in counts.items()
+                            if obstacles or k != "infeasible stop"}
+                    log(f"kernel D steer_rollout[{name}, {variant}, {label}]"
+                        f" B={b} H={res.x_seq.shape[0]}: bit_exact={same} "
+                        f"branches={counts}")
+                    if not (same and min(need.values()) > 0):
+                        raise AssertionError(
+                            f"kernel D [{name}, {variant}, {label}, B={b}] "
+                            "disagrees with its plain version (every field "
+                            "bit for bit) or misses a branch")
+                if not obstacles:
+                    continue
+                res, ref = kernel(B_BENCH), plain_fn(B_BENCH)
+                a = agreement(res, ref)
+                ms = cuda_ms(lambda: kernel(B_BENCH))
+                alone_ms = device_ms(lambda: kernel(B_BENCH), 20)
+                plain_ms = cuda_ms(lambda: plain_fn(B_BENCH), reps=3)
+                rows_read = (int(torch.unique(pids).numel())
+                             if variant == "tree" else B_BENCH)
+                bound_ms, bound_by, flops, nbytes = steer_bound(
+                    res, rows_read, t["ncirc"], variant == "tree", name,
+                    t["limits"])
+                log(f"kernel D steer_rollout[{name}, {variant}] B={B_BENCH}: "
+                    f"kernel_ms={ms:.4f} device_ms={alone_ms:.4f} (alone) "
+                    f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+                    f"({bound_by}; {flops:.4g} fp32 flops, {nbytes:.4g} "
+                    "bytes) (no PyTorch call computes a closed-loop "
+                    "rollout)")
+                out[name][variant] = dict(
+                    max_abs_err=max(a["max_dx"], a["max_du"]), ms=ms,
+                    device_ms=alone_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
+    return out
+
+
+def phase_exp_steer_models(smi):
+    """Kernel D's main path for each model of D_MODELS: the experiment's
+    entry point ``exp_steer_kernel.main(model=...)`` at full width, with
+    the launch counts set to 0 just before and read just after."""
+    from lqrrt_tpu_torch.ops.kernels import steer_kernel as D
+    from lqrrt_tpu_torch.tools import exp_steer_kernel
+
+    out = {}
+    for name in D_MODELS:
+        for v in D.VARIANTS:
+            D.LAUNCHES[v] = 0
+        res = exp_steer_kernel.main(device="cuda", model=name)
+        launches = {v: D.LAUNCHES[v] for v in ("flat", "tree")}
+        log(f"exp_steer_kernel main [{name}, {smi}]: steer_rollout launches "
+            f"by variant {launches}")
+        for label, c in [(f"block={k}", v) for k, v in res["kernel"].items()] \
+                + [("tree", res["tree"])]:
+            if not (c["len_eq"] == 1.0 and c["max_dx"] == 0.0):
+                raise AssertionError(f"exp_steer_kernel [{name}]: {label} "
+                                     f"fails: {c}")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"exp_steer_kernel [{name}]: a variant was "
+                                 f"not launched: {launches}")
+        out[name] = launches
+    return out
+
+
+# (label, demo module, its arguments, the NN kernel its planner takes)
+DEMOS = (("boat", "boat_demo", [], "nn_const"),
+         ("car", "car_demo", [], "nn_general"),
+         ("quadrotor", "quadrotor_demo", [], "nn_general"),
+         ("double integrator", "double_integrator_demo", [], "nn_const"),
+         ("boat replan loop", "boat_demo", ["--replan"], "nn_const"))
+
+
+def phase_demos(smi):
+    """The four demos and the boat's replan loop through their entry
+    points (``lqrrt_tpu_torch.demos.<model>_demo.main``) on the card, at the
+    demos' own width (batch 256, capacity 8192; the quadrotor 128 and 4096)
+    with no figure: each must return 0 (the goal reached, clearance > 0,
+    the tracked position within the demo's tolerance; the replan loop's
+    within 1 m).  The kernels' counts are set to 0 just before each demo
+    and read just after: its NN kernel (A for a constant lqr, C for a
+    re-linearized one) must have launched.  Returns {label: launches}."""
+    import importlib
+
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const, nn_general
+    from lqrrt_tpu_torch.ops.kernels.write_kernel import block_write
+
+    counters = {"nn_const": nn_const, "nn_general": nn_general,
+                "block_write": block_write}
+    out = {}
+    for label, module, argv, nn in DEMOS:
+        demo = importlib.import_module(f"lqrrt_tpu_torch.demos.{module}")
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc = demo.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        log(f"demo {label} [{smi}]: exit {rc}, wall {wall:.2f} s (warm-up, "
+            f"plan, tracking), launches {launches}")
+        if rc != 0 or launches[nn] < 1:
+            raise AssertionError(f"demo {label}: exit {rc}, {nn} launches "
+                                 f"{launches[nn]}")
+        out[label] = launches
+    return out
 
 
 def pick(res, sel):
@@ -2092,11 +2345,12 @@ def main() -> int:
     f_ptxas = [line for line in ptxas if line.startswith("stage_kernel")]
     spilled = [line for line in ae_ptxas + d_ptxas + f_ptxas
                if "spill 0/0 B" not in line]
-    if (len(ae_ptxas) != 38 or len(d_ptxas) != 1
+    if (len(ae_ptxas) != 38 or len(d_ptxas) != N_D_INSTANCES
             or len(f_ptxas) != N_STAGE_KERNELS or spilled):
         raise AssertionError(f"ptxas: kernels A and E: {len(ae_ptxas)} "
                              f"instances (38 expected), D: {len(d_ptxas)} "
-                             f"(1 expected), stage_kernel: {len(f_ptxas)} "
+                             f"({N_D_INSTANCES} expected, one a model), "
+                             f"stage_kernel: {len(f_ptxas)} "
                              f"({N_STAGE_KERNELS} expected), spilling "
                              f"{spilled}")
 
@@ -2114,6 +2368,10 @@ def main() -> int:
     d = timed("kernel D", phase_kernel_d)
     _, d_launches = timed("exp_steer_kernel main", phase_exp_steer_kernel,
                           smi)
+    timed("kernel D math", phase_math_probes)
+    dm = timed("kernel D models", phase_kernel_d_models)
+    dm_launches = timed("exp_steer_kernel models main",
+                        phase_exp_steer_models, smi)
     timed("kernel D repairs", phase_d_repairs)
     f1 = timed("F1", phase_f1)
     timed("ragged batches", phase_ragged)
@@ -2151,14 +2409,20 @@ def main() -> int:
     timed("refine round parity", phase_refine_round_parity, rewire_planner,
           smi)
     timed("host surface", phase_host_surface, rewire_planner, smi)
+    l_demos = timed("demos", phase_demos, smi)
     # every planner path's launches of A and B, the paths of 8, 9 and 10
     paths = {"boat": l_boat, "car": l_car, "quadrotor": l_quad,
              "grid boat": l_grid,
              **{f"boat host loop {k}": v for k, v in l_host.items()},
              **{f"double integrator field {i}": v
                 for i, v in enumerate(l_dyn)},
-             "double integrator leaf_rewire": l_rewire}
-    a_paths = {k: v["nn_const"] for k, v in paths.items() if "nn_const" in v}
+             "double integrator leaf_rewire": l_rewire,
+             **{f"demo {k}": v for k, v in l_demos.items()}}
+    a_paths = {k: v["nn_const"] for k, v in paths.items()
+               if v.get("nn_const")}
+    c_paths = {"car": l_car["nn_general"], "quadrotor": l_quad["nn_general"],
+               **{f"demo {k}": v["nn_general"] for k, v in l_demos.items()
+                  if v["nn_general"]}}
     b_paths = {k: v["block_write"] for k, v in paths.items()}
     # bounds of the timed calls, from this run's shapes (size 32768 live
     # rows of N, B candidates): flops a live pair by type, and the inputs
@@ -2218,7 +2482,7 @@ def main() -> int:
         dict(name="nn_general", route="cuda",
              source="lqrrt_tpu_torch/csrc/nn_general.cu",
              replaces="lqrrt_tpu/ops/pallas/nn_kernel.py:177",
-             launches=l_car["nn_general"] + l_quad["nn_general"],
+             launches=sum(c_paths.values()), launches_by_path=c_paths,
              max_abs_err=max(v["max_abs_err"] for v in c.values()),
              ms=cq["ms"], device_ms=cq["device_ms"],
              launch_device_ms=cq["launch_device_ms"],
@@ -2249,6 +2513,14 @@ def main() -> int:
             route="cuda", source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
             replaces=replaces, launches=d_launches[variant],
             **d[variant], library_ms=None))
+    for name in D_MODELS:
+        for variant, replaces in d_replaces.items():
+            kernels.append(dict(
+                name=f"steer_rollout{'_tree' if variant == 'tree' else ''}"
+                f"[{name}]", route="cuda",
+                source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
+                replaces=replaces, launches=dm_launches[name][variant],
+                **dm[name][variant], library_ms=None))
     kernels += f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3,
                          f3_launches, f4, f4_launches, f_ptxas)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,9 @@
 // The boat's callbacks as device functions, shared by kernel D
 // (steer_rollout.cu) and the stage scaffold (steer_stages.cu): one form of
-// each.
+// each.  The arithmetic that is not the boat's own (add/sub/mul, clamp,
+// wrap_angle_fast, torch_sum, div_rn, rk4, the circles test) is shared
+// too, by the other models' headers (car_device.cuh, quadrotor_device.cuh,
+// double_integrator_device.cuh).
 //
 // Each is written in the order of the PyTorch expression it stands for
 // (lqrrt_tpu_torch/models/boat.py, ops/angles.py, ops/integrate.py), and
@@ -46,11 +49,57 @@ __device__ __forceinline__ float clamp(float v, float lo, float hi) {
   return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
 }
 
-// a[0] + ... + a[5] in the order of PyTorch's CUDA sum over a contiguous
-// last dim of 6 (ATen/native/cuda/Reduce.cuh): 4 lanes, lane l adds a[l] and
-// a[l + 4], then a shuffle tree by offsets 2 and 1
-__device__ __forceinline__ float sum6(const float* a) {
-  return add(add(add(a[0], a[4]), a[2]), add(add(a[1], a[5]), a[3]));
+// torch.clamp(v, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+
+__host__ __device__ constexpr int last_pow2(int n) {
+  return n < 2 ? 1 : 2 * last_pow2(n / 2);
+}
+
+// a[0] + ... + a[N - 1] in the order of PyTorch's CUDA sum over a
+// contiguous last dim of N <= 32 (ATen/native/cuda/Reduce.cuh): W =
+// last_pow2(N) lanes, lane l adds a[l] and a[l + W] (where l + W < N), then
+// a shuffle tree by offsets W / 2, ..., 1.  N = 6: ((a0 + a4) + a2) +
+// ((a1 + a5) + a3); N = 4: (a0 + a2) + (a1 + a3); N = 2: a0 + a1.
+template <int N>
+__device__ __forceinline__ float torch_sum(const float* a) {
+  constexpr int W = last_pow2(N);
+  static_assert(N >= 1 && N <= 32, "torch_sum: 1 <= N <= 32");
+  float v[W];
+#pragma unroll
+  for (int l = 0; l < W; ++l) v[l] = l + W < N ? add(a[l], a[l + W]) : a[l];
+#pragma unroll
+  for (int off = W / 2; off > 0; off /= 2)
+#pragma unroll
+    for (int l = 0; l < off; ++l) v[l] = add(v[l], v[l + off]);
+  return v[0];
+}
+
+// a / b rounded to nearest even, as IEEE division (torch's `/` of two
+// tensors on the card), without the slow-path call of the compiler's
+// division, which ptxas reports as spills.  For finite nonzero a and b the
+// quotient is taken in fp64: a reciprocal of b (rcp.approx and three
+// Newton steps, each fma), q = a y, and one correction q + (a - b q) y,
+// all within ~2^-53 of a / b; a float's midpoint lies at least 2^-49 (in
+// relative terms) from any a / b that is not that midpoint, so the
+// rounding of q to float is a / b's (subnormal results included).  A zero,
+// infinite or NaN operand takes a times a stand-in for 1 / b (inf for a
+// zero b, a zero for an infinite b, b itself otherwise), which gives
+// IEEE's zero, infinity or NaN with its sign.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  const double ad = a, bd = b;
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(bd));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) y = __fma_rn(y, __fma_rn(-bd, y, 1.0), y);
+  double q = __dmul_rn(ad, y);
+  q = __fma_rn(__fma_rn(-bd, q, ad), y, q);
+  const bool general = isfinite(a) && isfinite(b) && a != 0.f && b != 0.f;
+  const float rb = isinf(b) ? copysignf(0.f, b)
+                   : b == 0.f ? copysignf(CUDART_INF_F, b) : b;
+  return general ? __double2float_rn(q) : mul(a, rb);
 }
 
 // a[0] + ... + a[5] in the order of PyTorch's CUDA sum over dim 0 of a
@@ -163,26 +212,34 @@ __device__ __forceinline__ void saturate(const float* p, float* u) {
   for (int i = 0; i < kM; ++i) u[i] = clamp(u[i], -p[kWMax + i], p[kWMax + i]);
 }
 
-// ops/integrate.py rk4_step of any F(x, u, xdot), u held over the step;
-// hh = dt / 2, h6 = dt / 6
-template <class F>
+// ops/integrate.py rk4_step of any F(x, u, xdot) on N states, u held over
+// the step; hh = dt / 2, h6 = dt / 6.  The sum ((k1 + 2 k2) + 2 k3) + k4 is
+// folded as each k is made, in that order, so that only one k is live.
+template <int N = kN, class F>
 __device__ __forceinline__ void rk4(F fn, const float* x, const float* u,
                                     float hh, float h, float h6, float* xn) {
-  float k1[kN], k2[kN], k3[kN], k4[kN], t[kN];
-  fn(x, u, k1);
+  float k[N], t[N], acc[N];
+  fn(x, u, k);
 #pragma unroll
-  for (int i = 0; i < kN; ++i) t[i] = add(x[i], mul(hh, k1[i]));
-  fn(t, u, k2);
+  for (int i = 0; i < N; ++i) {
+    acc[i] = k[i];
+    t[i] = add(x[i], mul(hh, k[i]));
+  }
+  fn(t, u, k);
 #pragma unroll
-  for (int i = 0; i < kN; ++i) t[i] = add(x[i], mul(hh, k2[i]));
-  fn(t, u, k3);
+  for (int i = 0; i < N; ++i) {
+    acc[i] = add(acc[i], mul(2.0f, k[i]));
+    t[i] = add(x[i], mul(hh, k[i]));
+  }
+  fn(t, u, k);
 #pragma unroll
-  for (int i = 0; i < kN; ++i) t[i] = add(x[i], mul(h, k3[i]));
-  fn(t, u, k4);
+  for (int i = 0; i < N; ++i) {
+    acc[i] = add(acc[i], mul(2.0f, k[i]));
+    t[i] = add(x[i], mul(h, k[i]));
+  }
+  fn(t, u, k);
 #pragma unroll
-  for (int i = 0; i < kN; ++i)
-    xn[i] = add(x[i], mul(h6, add(add(add(k1[i], mul(2.0f, k2[i])),
-                                      mul(2.0f, k3[i])), k4[i])));
+  for (int i = 0; i < N; ++i) xn[i] = add(x[i], mul(h6, add(acc[i], k[i])));
 }
 
 // boat.dynamics, the RK4 of boat.f (f_saturated's clamp of an already

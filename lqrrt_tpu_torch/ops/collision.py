@@ -19,7 +19,8 @@ from .._const import Const
 
 
 def all_of(*preds: Callable) -> Callable:
-    """Conjunction of feasibility predicates."""
+    """Conjunction of feasibility predicates, tagged with them
+    (``is_feasible.parts``) for the steer kernel."""
     def is_feasible(x, u):
         ok = None
         for p in preds:
@@ -28,6 +29,8 @@ def all_of(*preds: Callable) -> Callable:
         if ok is None:
             ok = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
         return ok
+
+    is_feasible.parts = preds
     return is_feasible
 
 
@@ -55,7 +58,9 @@ def circles_free(centers, radii, pos_dims: Sequence[int] = (0, 1),
 
 
 def control_limits(umin, umax) -> Callable:
-    """Feasible iff u is inside the box [umin, umax] (actuation limits)."""
+    """Feasible iff u is inside the box [umin, umax] (actuation limits).
+    Tagged ``is_feasible.control_limits = (umin, umax)`` as float32 numpy
+    for the steer kernel."""
     lo = Const(np.asarray(umin, np.float32))
     hi = Const(np.asarray(umax, np.float32))
 
@@ -63,6 +68,7 @@ def control_limits(umin, umax) -> Callable:
         del x
         return ((u >= lo.like(u)) & (u <= hi.like(u))).all(-1)
 
+    is_feasible.control_limits = (lo.value, hi.value)
     return is_feasible
 
 

@@ -38,8 +38,9 @@ _SIGNATURES = {
     "lqrrt_nn_general": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lqrrt_block_write": [_P, _P, _P, _I, _I, _I, _P],
     "lqrrt_nn_expand": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
-    "lqrrt_steer_rollout": [_P, _P, _P, _I] + [_P] * 6 + [_I] + [_P] * 6
-                           + [_I, _I, _I, _F, _F, _F, _I, _I, _P],
+    "lqrrt_steer_rollout": [_P, _P, _P, _I] + [_P] * 6 + [_I] + [_P] * 7
+                           + [_I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
+    "lqrrt_math_probe": [_P, _P, _P, _I, _I, _P],
     "lqrrt_steer_stage": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 5
                          + [_I, _I, _F, _F, _F, _I, _I, _P],
     "lqrrt_scaffold_probe": [_P, _P, _P] + [_I] * 8 + [_P],

@@ -27,13 +27,15 @@ and ``batch_tile``, the Pallas kernels' tile, are checked as before and
 change nothing on the card.
 
 A CUDA kernel cannot trace Python callbacks, so the kernel
-(``csrc/steer_rollout.cu``) carries the model's callbacks written out as
+(``csrc/steer_rollout.cu``) carries each model's callbacks written out as
 device functions, and ``_MODELS`` maps a ``dynamics`` object to them and to
-its numbers.  Only the boat has them.  The factories check the erf (the
-model's wrapped dims, ``angle_dims``), the saturation (the model's own) and
-the predicate (a ``circles`` tag: ``collision.circles_free`` or the
-all-true default) and raise ``NotImplementedError`` on anything else,
-whatever the device: nothing drops back to the Python loop on the card.
+its numbers: the boat, the car, the quadrotor and the double integrator.
+The factories check the erf (the model's wrapped dims, ``angle_dims``;
+``torch.subtract`` wraps none), the saturation (the model's own) and the
+predicate (its tags: ``collision.circles_free``'s ``circles``,
+``control_limits``' box, ``all_of``'s parts made of those, or the all-true
+default) and raise ``NotImplementedError`` on anything else, whatever the
+device: nothing drops back to the Python loop on the card.
 
 Each steer takes the plain version (``core.steer.make_steer``; for the tree
 variant after ``gather_rows``) for CPU tensors and launches the kernel for
@@ -49,7 +51,7 @@ import torch
 
 from ..._const import Const
 from ...core.steer import SteerResult, make_steer
-from ...models import boat
+from ...models import boat, car, double_integrator, quadrotor
 from .nn_kernel import _launch, sm_count
 
 VARIANTS = ("flat", "tree", "dv")
@@ -97,12 +99,85 @@ def boat_params() -> np.ndarray:
                            boat.D_QUAD, boat.WRENCH_MAX]).astype(np.float32)
 
 
-# dynamics -> its numbers, (n, m), the erf's wrapped dims and the
-# saturation the kernel's device functions compute
+def car_params() -> np.ndarray:
+    """The car's numbers in the kernel's order (``csrc/car_device.cuh``):
+    A_MAX, DELTA_MAX, 1 / WHEELBASE as float32 (PyTorch's CUDA division
+    by a Python float multiplies by it), U_MIN, U_MAX."""
+    inv = np.float32(1.0) / np.float32(car.WHEELBASE)
+    return np.concatenate([[car.A_MAX, car.DELTA_MAX, inv], car.U_MIN,
+                           car.U_MAX_VEC]).astype(np.float32)
+
+
+def quadrotor_params() -> np.ndarray:
+    """The quadrotor's numbers in the kernel's order
+    (``csrc/quadrotor_device.cuh``): HOVER_T, T_MAX, TAU_MAX, G, the
+    pitch cosine's floor 0.2, INERTIA, U_MIN, U_MAX.  The device f takes
+    ``T / MASS`` as T itself: MASS is 1."""
+    return np.concatenate([[quadrotor.HOVER_T, quadrotor.T_MAX,
+                            quadrotor.TAU_MAX, quadrotor.G, 0.2],
+                           quadrotor.INERTIA, quadrotor.U_MIN,
+                           quadrotor.U_MAX_VEC]).astype(np.float32)
+
+
+def double_integrator_params() -> np.ndarray:
+    """The double integrator's numbers (``csrc/double_integrator_device.cuh``):
+    U_MAX."""
+    return np.array([double_integrator.U_MAX], np.float32)
+
+
+# dynamics -> the kernel's model id, its numbers, (n, m), the erf's
+# wrapped dims and the saturation the kernel's device functions compute
 _MODELS = {
-    boat.dynamics: dict(params=boat_params, nm=(6, 3), angle_dims=(2,),
-                        saturate=boat.saturate),
+    boat.dynamics: dict(id=0, params=boat_params, nm=(6, 3),
+                        angle_dims=(2,), saturate=boat.saturate),
+    car.dynamics: dict(id=1, params=car_params, nm=(4, 2), angle_dims=(2,),
+                       saturate=car.saturate),
+    quadrotor.dynamics: dict(id=2, params=quadrotor_params, nm=(12, 4),
+                             angle_dims=(5,), saturate=quadrotor.saturate),
+    double_integrator.dynamics: dict(id=3, params=double_integrator_params,
+                                     nm=(4, 2), angle_dims=(),
+                                     saturate=double_integrator.saturate),
 }
+
+
+def predicate_parts(is_feasible):
+    """(circles (K, 3) float32: cx, cy, (r + margin)^2; control_limits'
+    (lo, hi) or None) of a predicate the kernel computes: a
+    ``circles_free`` on dims (0, 1) (``circles``, ``pos_dims`` tags), a
+    ``control_limits`` (its tag), the all-true default (no circles), or an
+    ``all_of`` (``parts``) of those, whose circles are concatenated and
+    whose boxes intersect.  Raises ``NotImplementedError`` otherwise."""
+    circles, limits = [], []
+
+    def walk(pred):
+        if hasattr(pred, "parts"):
+            for q in pred.parts:
+                walk(q)
+        elif hasattr(pred, "circles"):
+            if tuple(getattr(pred, "pos_dims", (0, 1))) != (0, 1):
+                raise NotImplementedError(
+                    "steer kernel: the circles must test dims (0, 1)")
+            centers, r2 = pred.circles
+            circles.append(np.concatenate(
+                [np.asarray(centers, np.float32).reshape(-1, 2),
+                 np.asarray(r2, np.float32).reshape(-1, 1)], 1))
+        elif hasattr(pred, "control_limits"):
+            limits.append(pred.control_limits)
+        else:
+            raise NotImplementedError(
+                "steer kernel: the predicate has no circles tag, "
+                "control_limits tag or parts tag; only collision.circles_free,"
+                " collision.control_limits, collision.all_of of those and "
+                "the all-true default have a device form")
+
+    walk(is_feasible)
+    circ = (np.concatenate(circles) if circles
+            else np.zeros((0, 3), np.float32))
+    box = None
+    if limits:
+        box = (np.max([np.asarray(lo, np.float32) for lo, _ in limits], 0),
+               np.min([np.asarray(hi, np.float32) for _, hi in limits], 0))
+    return circ, box
 
 
 class _Spec:
@@ -116,32 +191,25 @@ class _Spec:
         if model is None:
             raise NotImplementedError(
                 "steer kernel: this dynamics has no device functions; only "
-                "the boat's (models/boat.py) do. The car's and the "
-                "quadrotor's are later work (ROADMAP queue 1)")
-        if tuple(getattr(erf, "angle_dims", ())) != model["angle_dims"]:
+                "the boat's, the car's, the quadrotor's and the double "
+                "integrator's (models/) do")
+        dims = () if erf is torch.subtract else getattr(erf, "angle_dims",
+                                                        None)
+        if dims is None or tuple(dims) != model["angle_dims"]:
             raise NotImplementedError(
                 f"steer kernel: the erf must wrap dims {model['angle_dims']}"
-                " (make_erf's angle_dims tag); other erfs have no device "
-                "form")
+                " (make_erf's angle_dims tag, or torch.subtract for none); "
+                "other erfs have no device form")
         if saturate is not model["saturate"]:
             raise NotImplementedError(
                 "steer kernel: saturate must be the model's own "
-                "(boat.saturate); other saturations have no device form")
-        circles = getattr(is_feasible, "circles", None)
-        if circles is None:
-            raise NotImplementedError(
-                "steer kernel: the predicate has no circles tag; only "
-                "collision.circles_free and the all-true default have a "
-                "device form (all_of, control_limits and other predicates "
-                "do not)")
-        centers, r2 = circles
-        if tuple(getattr(is_feasible, "pos_dims", (0, 1))) != (0, 1):
-            raise NotImplementedError(
-                "steer kernel: the circles must test dims (0, 1)")
-        if len(r2) > MAX_CIRCLES:
+                "(e.g. boat.saturate); other saturations have no device form")
+        circles, box = predicate_parts(is_feasible)
+        if len(circles) > MAX_CIRCLES:
             raise NotImplementedError(
                 f"steer kernel: at most {MAX_CIRCLES} circles, got "
-                f"{len(r2)}")
+                f"{len(circles)}")
+        self.model = model["id"]
         self.n, self.m = model["nm"]
         tol = np.asarray(error_tol, np.float32)
         self.per_dim = tol.ndim > 0
@@ -155,7 +223,11 @@ class _Spec:
         if not (32 <= block <= 1024 and block % 32 == 0):
             raise ValueError(f"steer kernel: block must be a multiple of 32 "
                              f"in [32, 1024], got {block}")
-        self.ncirc = len(r2)
+        if box is not None and (box[0].shape != (self.m,)
+                                or box[1].shape != (self.m,)):
+            raise ValueError(f"steer kernel: control_limits must be "
+                             f"({self.m},), got {box[0].shape}")
+        self.ncirc = len(circles)
         self.H = int(horizon_steps)
         # rk4_step's step sizes, each rounded once to float32 as the plain
         # version's Python floats are
@@ -167,9 +239,8 @@ class _Spec:
                          else np.array([sqrt_threshold(tol)], np.float32))
         self.gbuf = Const(np.asarray(goal_buffer if self.has_goal
                                      else np.zeros(self.n), np.float32))
-        self.circles = Const(np.concatenate(
-            [np.asarray(centers, np.float32).reshape(-1, 2),
-             np.asarray(r2, np.float32).reshape(-1, 1)], 1))
+        self.circles = Const(circles)
+        self.limits = None if box is None else Const(np.stack(box))
         self.plain = make_steer(dynamics, erf, is_feasible, horizon_steps,
                                 dt, error_tol, saturate, goal_buffer)
 
@@ -189,9 +260,11 @@ class _Spec:
                     xtar, goal if self.has_goal else None,
                     self.params.like(xtar), self.tol.like(xtar),
                     self.gbuf.like(xtar) if self.has_goal else None,
-                    self.circles.like(xtar), self.ncirc, xs, us, length,
-                    xnew, reached, in_goal, B, H, int(self.per_dim),
-                    *self.steps, *rollout_geometry(B, sm_count(dev)))
+                    self.circles.like(xtar), self.ncirc,
+                    None if self.limits is None else self.limits.like(xtar),
+                    xs, us, length, xnew, reached, in_goal, B, H,
+                    int(self.per_dim), *self.steps, self.model,
+                    *rollout_geometry(B, sm_count(dev)))
             LAUNCHES[variant] += 1
         mask = torch.arange(H, device=dev)[:, None] < length[None, :]
         return SteerResult(xs, us, mask, length, xnew, reached, in_goal)
@@ -306,3 +379,24 @@ def make_steer_kernel_dv(dynamics, erf, is_feasible, horizon_steps: int,
     return _flat_steer(_Spec(dynamics, erf, is_feasible, horizon_steps, dt,
                              error_tol, saturate, goal_buffer, batch_tile),
                        "dv", "steer_rollout_dv")
+
+
+def math_probe(op: str, a, b=None):
+    """The kernel's ``tanf`` (op "tan": tan(a)) or ``div_rn`` (op "div":
+    a / b) of float32 tensors, elementwise: on CUDA tensors the card's
+    functions as kernel D computes them (``lqrrt_math_probe``), which
+    ``chip_smoke.py`` holds against ``torch.tan`` and torch's ``/`` bit for
+    bit; on the CPU those PyTorch functions."""
+    if op not in ("tan", "div"):
+        raise ValueError(f"math_probe: unknown op {op!r}")
+    b = a if b is None else b
+    if a.dtype != torch.float32 or b.shape != a.shape or b.device != a.device:
+        raise ValueError("math_probe: a and b must be float32 tensors of "
+                         "one shape on one device")
+    if a.device.type == "cpu":
+        return torch.tan(a) if op == "tan" else a / b
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    _launch("lqrrt_math_probe", a, b, out, a.numel(),
+            ("tan", "div").index(op))
+    return out

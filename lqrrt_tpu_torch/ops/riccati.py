@@ -1,7 +1,7 @@
 """Linearization, the continuous algebraic Riccati equation (CARE) and the
 ``lqr(x, u)`` callbacks (port of lqrrt_tpu/ops/riccati.py).
 
-Two CARE solvers:
+Two CARE solvers and a DARE solver:
 
 * ``solve_care`` / ``care_lqr``: the JAX package's matrix-sign iteration,
   batched over leading axes, fp32, on the tensor's device, with no host
@@ -9,6 +9,9 @@ Two CARE solvers:
   (car, quadrotor).
 * ``care_lqr_host``: scipy's float64 CARE on the host, for setup-time
   constant policies (``lqr_setup``, ``make_constant_lqr``; the boat).
+* ``solve_dare`` / ``dare_lqr``: the discrete-time Riccati equation by the
+  JAX package's structure-preserving doubling, on the tensors' device; no
+  model calls it.
 
 The JAX package's Gauss-Jordan inverse (``inv_logdet_gj``) works around a
 slow batched LU on the TPU and has no counterpart: the sign iteration takes
@@ -16,6 +19,7 @@ its inverse and log|det| from one ``torch.linalg.lu_factor_ex``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Tuple
 
 import numpy as np
@@ -88,6 +92,60 @@ def care_lqr(A, B, Q, R) -> Tuple[torch.Tensor, torch.Tensor]:
     and K = R^-1 B'S."""
     S = solve_care(A, B, Q, R)
     return S, _solve(R, B.mT @ S)
+
+
+_DOUBLING_ITERS = 30     # the JAX package's count
+
+
+@contextlib.contextmanager
+def _fp32_products():
+    """Matrix products in full fp32 (TF32 off) inside the block, as the
+    JAX package's ``Precision.HIGHEST`` products."""
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+def solve_dare(A, B, Q, R) -> torch.Tensor:
+    """The stabilizing P of A'PA - P - A'PB (R + B'PB)^-1 B'PA + Q = 0,
+    batched over leading axes, by the structure-preserving doubling
+    algorithm (a fixed 30 iterations):
+
+        A_{k+1} = A_k (I + G_k H_k)^-1 A_k
+        G_{k+1} = G_k + A_k (I + G_k H_k)^-1 G_k A_k'
+        H_{k+1} = H_k + A_k' H_k (I + G_k H_k)^-1 A_k
+
+    from A_0 = A, G_0 = B R^-1 B', H_0 = Q; H_k -> P quadratically.
+    Products in full fp32, inverses by ``torch.linalg.inv`` (the JAX
+    package's Gauss-Jordan ``inv_gj``)."""
+    batch = torch.broadcast_shapes(A.shape[:-2], B.shape[:-2], Q.shape[:-2],
+                                   R.shape[:-2])
+    A = A.expand(batch + A.shape[-2:])
+    B = B.expand(batch + B.shape[-2:])
+    Q = Q.expand(batch + Q.shape[-2:])
+    R = R.expand(batch + R.shape[-2:])
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    with _fp32_products():
+        G = B @ torch.linalg.inv(R) @ B.mT
+        Ak, Hk = A, Q
+        for _ in range(_DOUBLING_ITERS):
+            W = torch.linalg.inv(eye + G @ Hk)
+            AW = Ak @ W
+            Ak, G, Hk = (AW @ Ak, G + AW @ G @ Ak.mT,
+                         Hk + Ak.mT @ Hk @ W @ Ak)
+    return 0.5 * (Hk + Hk.mT)
+
+
+def dare_lqr(A, B, Q, R) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Discrete-time LQR, batched: (S, K) with S = solve_dare(A, B, Q, R)
+    and K = (R + B'SB)^-1 B'SA."""
+    S = solve_dare(A, B, Q, R)
+    with _fp32_products():
+        BtS = B.mT @ S
+        return S, torch.linalg.inv(R + BtS @ B) @ (BtS @ A)
 
 
 def care_lqr_host(A, B, Q, R) -> Tuple[np.ndarray, np.ndarray]:

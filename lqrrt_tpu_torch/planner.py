@@ -1068,6 +1068,12 @@ class Planner:
             self.tree = Tree.from_device_arrays(self._device_tree)
         return self.tree
 
+    def visualize(self, dx: int = 0, dy: int = 1, ax=None, show: bool = True):
+        """matplotlib figure of the tree and the plan on dims (dx, dy)
+        (``viz.visualize_planner``)."""
+        from .viz import visualize_planner
+        return visualize_planner(self, dx, dy, ax=ax, show=show)
+
     def _interp(self, seq, t: float):
         tau = np.clip(t / self.dt, 0.0, len(seq) - 1)
         i = int(np.floor(tau))

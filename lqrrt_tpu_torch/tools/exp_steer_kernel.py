@@ -3,7 +3,7 @@ the boat's operating point (port of tools/exp_steer_kernel.py ``main``, with
 the gathered cell ``k_gathered`` of tools/exp_steer_v5.py:144-162).
 
     python -m lqrrt_tpu_torch.tools.exp_steer_kernel [--device cuda]
-        [--B 8192] [--N 40960] [--seed 0]
+        [--B 8192] [--N 40960] [--seed 0] [--model boat]
 
 Inputs, from a seeded numpy generator: ``boat.default_problem()``, H = 100
 steps of dt = 0.05, error_tol 0.05, the goal box and ``saturate``; x0
@@ -22,6 +22,11 @@ tree kernel (``make_steer_kernel_tree``) against the plain index gather
 plus steer.  Clocks: CUDA events on the card, the host clock on the CPU
 (for tests, at a small size).  The device is explicit: ``device="cuda"``
 needs a card.
+
+``--model car``, ``quadrotor`` or ``double_integrator`` runs the same
+cells on that model's ``default_problem()`` at its own horizon
+(``kernel_times.model_steer_inputs``: x0 and xtar from a seeded
+``torch.Generator`` in the sample space, K from the model's ``lqr``).
 
 ``branch_batch`` and ``branch_counts`` build and read a batch that reaches
 every branch of the step; the tests and ``chip_smoke.py`` use them.
@@ -42,6 +47,7 @@ from ..ops.kernels.steer_kernel import (make_steer_kernel,
                                         make_steer_kernel_tree)
 
 H, DT, TOL = 100, 0.05, 0.05
+MODELS = ("boat", "car", "quadrotor", "double_integrator")
 BLOCKS = (32, 64, 128, 256)            # threads (candidates) a block
 REPS, PLAIN_REPS = 20, 3               # timed calls: kernel, plain steer
 GROUPS = ("uniform", "goal", "buoy", "near", "wrap", "far")
@@ -225,13 +231,9 @@ def device_ms(fn, reps: int, before=None) -> float:
     return statistics.median(times)
 
 
-def main(device: str = "cuda", B: int = 8192, N: int = 40960,
-         seed: int = 0) -> dict:
-    """Run the experiment; print its lines and return its numbers."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("exp_steer_kernel: device='cuda' needs a CUDA card")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+def _boat_inputs(dev, B, N, seed):
+    """The boat's cells: x0 uniform in [-1, 1], xtar in the sample space,
+    the constant K, N tree rows in [-1, 1] and B random parents."""
     prob = boat.default_problem()
     args, kw = steer_args(prob)
     ss = prob["sample_space"]
@@ -246,19 +248,44 @@ def main(device: str = "cuda", B: int = 8192, N: int = 40960,
         return torch.as_tensor(a, device=dev)
 
     K = t(boat_K(prob))
-    x0, xtar, states, pids = t(x0), t(xtar), t(states), t(pids)
-    Kb, KN = K.expand(B, 3, 6).contiguous(), K.expand(N, 3, 6).contiguous()
-    goal = t(prob["goal"])
+    return dict(args=args, kw=kw, x0=t(x0), xtar=t(xtar), states=t(states),
+                pids=t(pids), KB=K.expand(B, 3, 6).contiguous(),
+                KN=K.expand(N, 3, 6).contiguous(), goal=t(prob["goal"]))
+
+
+def main(device: str = "cuda", B: int = 8192, N: int = 40960,
+         seed: int = 0, model: str = "boat") -> dict:
+    """Run the experiment; print its lines and return its numbers."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("exp_steer_kernel: device='cuda' needs a CUDA card")
+    if model not in MODELS:
+        raise ValueError(f"exp_steer_kernel: unknown model {model!r}")
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if model == "boat":
+        c = _boat_inputs(dev, B, N, seed)
+    else:
+        import importlib
+
+        from .kernel_times import model_steer_inputs
+
+        mod = importlib.import_module(f"..models.{model}", __package__)
+        c = model_steer_inputs(mod.default_problem(), dev, B, seed, N)
+    args, kw = c["args"], c["kw"]
+    x0, xtar, states, pids, goal = (c["x0"], c["xtar"], c["states"],
+                                    c["pids"], c["goal"])
+    Kb, KN = c["KB"], c["KN"]
     clock = "CUDA events" if dev.type == "cuda" else "host clock"
-    print(f"exp_steer_kernel on {name}: B={B} N={N} H={H} seed={seed} "
-          f"({clock})", flush=True)
+    print(f"exp_steer_kernel [{model}] on {name}: B={B} N={N} H={args[3]} "
+          f"seed={seed} ({clock})", flush=True)
 
     plain = make_steer(*args, **kw)
     ref = plain(x0, Kb, xtar, goal)
     plain_ms = timed_ms(lambda: plain(x0, Kb, xtar, goal), dev, PLAIN_REPS)
     print(f"plain steer (core.steer, the tool's scan line): "
           f"{plain_ms:9.3f} ms", flush=True)
-    out = dict(device=name, B=B, N=N, H=H, plain_ms=plain_ms, kernel={})
+    out = dict(device=name, model=model, B=B, N=N, H=args[3],
+               plain_ms=plain_ms, kernel={})
     for block in BLOCKS:
         steer = make_steer_kernel(*args, block=block, **kw)
         ms = timed_ms(lambda: steer(x0, Kb, xtar, goal), dev, REPS)
@@ -293,8 +320,9 @@ def _cli():
     ap.add_argument("--B", type=int, default=8192)
     ap.add_argument("--N", type=int, default=40960)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model", default="boat", choices=MODELS)
     a = ap.parse_args()
-    main(a.device, a.B, a.N, a.seed)
+    main(a.device, a.B, a.N, a.seed, a.model)
 
 
 if __name__ == "__main__":

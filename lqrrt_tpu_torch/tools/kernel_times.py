@@ -157,6 +157,11 @@ def ptxas_summary(bodies=()):
             args = re.findall(r"L[a-z](\d+)E", k.group(2) or "") if k else []
             if k is not None and k.group(1) == "stage_kernel" and bodies:
                 args = [bodies[int(args[0])], f"store={args[1]}"]
+            # a type argument (steer_rollout_kernel<Car>): its name
+            t = re.search(r"_kernelIN(?:S_|12_GLOBAL__N_1)\d+([A-Za-z]+?)EE",
+                          m.group(1))
+            if t:
+                args = [t.group(1)]
             name = (m.group(1) if k is None else
                     k.group(1) + (f"<{','.join(args)}>" if args else ""))
             continue
@@ -432,30 +437,125 @@ def steer_inputs(dev, B: int = B, seed: int = 19, n_rows: int = N,
                 ncirc=len(prob["constraints"].is_feasible.circles[1]))
 
 
-def steer_bound(res, rows_read, ncirc, tree):
-    """(ms, what bounds it, flops, bytes) of one steer_rollout call, from
-    its inputs and its outputs (the work depends on the data: a rollout
-    runs until it is done).  Flops: the control of each state the rollout
-    visits (length + 1 of them): the erf (6 sub, the wrap: add, fmod, sub),
-    the converged test (6 mul, 5 add, sqrt, compare) and u = K e clamped
-    (3 x (6 mul, 5 add, 2 clamp)): 61; each active step the RK4 (4 f of
-    39: sin, cos, 6 for pdot, 7 for the Coriolis terms, 15 for drag, 9 for
-    nudot; 36 for the stage states, 42 for the sum) and 6 a circle; each
-    committed step 21 for the goal test.  Bytes: xtar, the start rows read
-    (x0 and K, or the distinct parents' rows and pids) and the small
-    constants read once; xs, us, length, xnew, reached and in_goal written
-    once."""
+# per model: the erf's wrapped dims, the flops of one f (a clamp bound, a
+# trig function and a division count one each) and the model's numbers
+# (the kernel's params); the boat's f: sin, cos, 6 for pdot, 7 for the
+# Coriolis terms, 15 for drag, 9 for nudot
+STEER_MODELS = {
+    # car: 2 clamps (4), sin, cos, tan, v c, v s, v tan, * 1 / WHEELBASE
+    "boat": dict(wrap=1, f=39, params=14),
+    "car": dict(wrap=1, f=11, params=7),
+    # quadrotor: T (add, clamp: 3), tau (6), sin and cos of 3 angles (6),
+    # R's third column (9), the pitch cosine's floor and tan p (2), the
+    # Euler rates (14), acc (4), inertia w (3), the cross product (9),
+    # w_dot (6)
+    "quadrotor": dict(wrap=1, f=62, params=16),
+    "double_integrator": dict(wrap=0, f=0, params=1),
+}
+
+
+def steer_bound(res, rows_read, ncirc, tree, model="boat", limits=False):
+    """(ms, what bounds it, flops, bytes) of one steer_rollout call of
+    ``model`` (a key of STEER_MODELS), from its inputs and its outputs (the
+    work depends on the data: a rollout runs until it is done).  Flops:
+    the control of each state the rollout visits (length + 1 of them): the
+    erf (n sub, 3 a wrapped dim: add, fmod, sub), the converged test (n
+    mul, n - 1 add, sqrt, compare) and u = K e saturated (m x (n mul,
+    n - 1 add, 2 clamp)), 61 for the boat; each active step the RK4 (4 f,
+    3n for the stage states, 7n for the sum: 234 for the boat), 6 a circle
+    and, with ``limits`` (control_limits), 2m; each committed step the goal
+    test (n sub, the wraps, n abs, n compare: 21).  Bytes: xtar, the start
+    rows read (x0 and K, or the distinct parents' rows and pids) and the
+    small constants read once; xs, us, length, xnew, reached and in_goal
+    written once."""
     H, n, nb = res.x_seq.shape
     m = res.u_seq.shape[1]
+    spec = STEER_MODELS[model]
+    w = spec["wrap"]
+    control = 3 * n + 3 * w + 1 + m * (2 * n + 1)
+    step = (4 * spec["f"] + 13 * n + 6 * ncirc
+            + (2 * m if limits else 0))
     length = res.length.long()
     active = torch.where(res.in_goal, length, (length + 1).clamp(max=H))
-    flops = (int((length + 1).sum()) * 61
-             + int(active.sum()) * (234 + 6 * ncirc)
-             + int(length.sum()) * 21)
+    flops = (int((length + 1).sum()) * control + int(active.sum()) * step
+             + int(length.sum()) * (3 * n + 3 * w))
     nbytes = (4 * nb * n + 4 * rows_read * (n + m * n)
-              + (4 * nb if tree else 0) + 4 * (3 * n + 14 + 3 * ncirc)
+              + (4 * nb if tree else 0)
+              + 4 * (3 * n + spec["params"] + 3 * ncirc
+                     + (2 * m if limits else 0))
               + 4 * H * (n + m) * nb + nb * (4 + 4 * n + 2))
     return (*bound({"fp32": flops}, nbytes), flops, nbytes)
+
+
+MODEL_GROUPS = ("uniform", "near", "goal", "uniform")
+
+
+def model_steer_inputs(prob, dev, B: int = B, seed: int = 23,
+                       n_rows: int = N):
+    """Kernel D's inputs for a model's ``default_problem()`` dict, drawn
+    from a seeded ``torch.Generator`` on ``dev``: x0 and xtar uniform in
+    the sample space; candidate b in group ``MODEL_GROUPS[b % 4]``: near
+    (xtar 0.02 from x0, inside the 0.05 tolerance: arrived at once) and goal
+    (x0 0.5-2.5 m short of the goal in x, the rest of the goal's state, and
+    xtar the goal: the goal stop); uniform rows reach the circles and the
+    full horizon.  K is the model's own ``lqr`` at x0 (KB) and at every
+    row of a tree of ``n_rows`` states uniform in the sample space, which
+    holds the batch's x0 at distinct random rows pids (KN).  A dict of
+    device tensors with the steer's arguments (H = horizon / dt, error_tol
+    0.05, the goal box and ``saturate``) and the circles' count."""
+    from ..ops.kernels.steer_kernel import predicate_parts
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ss = torch.as_tensor(prob["sample_space"], device=dev)
+    n, m = prob["constraints"].nstates, prob["constraints"].ncontrols
+    goal = torch.as_tensor(prob["goal"], device=dev)
+
+    def uniform(k):
+        return ss[:, 0] + torch.rand((k, n), generator=g, device=dev) * (
+            ss[:, 1] - ss[:, 0])
+
+    x0, xtar = uniform(B), uniform(B)
+    group = torch.arange(B, device=dev) % len(MODEL_GROUPS)
+    d = torch.randn((B, n), generator=g, device=dev)
+    near = x0 + 0.02 * d / d.norm(dim=1, keepdim=True)
+    short = goal.expand(B, n).clone()
+    short[:, 0] -= 0.5 + 2.0 * torch.rand(B, generator=g, device=dev)
+    x0 = torch.where((group == 2)[:, None], short, x0)
+    xtar = torch.where((group == 1)[:, None], near,
+                       torch.where((group == 2)[:, None], goal, xtar))
+    states = uniform(n_rows)
+    pids = torch.randperm(n_rows, generator=g, device=dev)[:B]
+    states[pids] = x0
+    H = max(int(round(prob["horizon"] / prob["dt"])), 1)
+    args = (prob["dynamics"], prob["erf"], prob["constraints"].is_feasible,
+            H, prob["dt"], 0.05)
+    kw = dict(saturate=prob["saturate"],
+              goal_buffer=prob["constraints"].goal_buffer)
+    circles, box = predicate_parts(prob["constraints"].is_feasible)
+
+    def gains(x):
+        return prob["lqr"](x, torch.zeros(m, device=dev))[1].expand(
+            len(x), m, n).contiguous()
+
+    return dict(x0=x0.contiguous(), xtar=xtar.contiguous(), KB=gains(x0),
+                states=states, KN=gains(states), pids=pids.int(), goal=goal,
+                args=args, kw=kw, ncirc=len(circles), limits=box is not None)
+
+
+def model_branch_counts(res) -> dict:
+    """How many candidates of a SteerResult took each branch: the goal
+    stop, the arrived stop (reached, short of H), the infeasible stop (not
+    reached, short of H), the full horizon, and held (stopped, the rest of
+    the horizon holding the last state and u)."""
+    H = res.x_seq.shape[0]
+    stopped = res.length < H
+    return {"goal stop": int(res.in_goal.sum()),
+            "arrived stop": int((~res.in_goal & res.reached
+                                 & stopped).sum()),
+            "infeasible stop": int((~res.in_goal & ~res.reached
+                                    & stopped).sum()),
+            "full horizon": int((~res.in_goal & ~stopped).sum()),
+            "held": int(stopped.sum())}
 
 
 def probe_work(name, b, H):
@@ -586,6 +686,15 @@ def time_stages(reps: int, dev="cuda", only=("F2", "F3")) -> dict:
 def same_result(res, ref) -> bool:
     """Every field of two SteerResults equal (torch.equal)."""
     return all(torch.equal(a, b) for a, b in zip(res, ref))
+
+
+def same_result_nan(res, ref) -> bool:
+    """Every field of two SteerResults equal, NaN equal to NaN (a NaN gain
+    of the model's lqr gives NaN rows on both sides)."""
+    return all(torch.equal(a.isnan(), b.isnan())
+               and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+               if a.is_floating_point() else torch.equal(a, b)
+               for a, b in zip(res, ref))
 
 
 def steer_calls(t):

@@ -128,3 +128,56 @@ def test_car_x_map_applies_outside_the_jacobian():
                                rtol=1e-6)
     S, _ = car.make_lqr()(x, torch.zeros(2, 2))
     assert torch.isfinite(S).all()
+
+
+def _dare_system(n, m, seed):
+    rng = np.random.default_rng(seed)
+    # A scaled down so that the DARE is comfortably solvable (as the JAX
+    # package's test)
+    A = (0.5 * rng.standard_normal((n, n))).astype(np.float32)
+    B = rng.standard_normal((n, m)).astype(np.float32)
+    Q = np.diag(rng.uniform(0.5, 2.0, n)).astype(np.float32)
+    R = np.diag(rng.uniform(0.5, 2.0, m)).astype(np.float32)
+    return A, B, Q, R
+
+
+@pytest.mark.parametrize("n,m,seed", [(2, 1, 20), (4, 2, 10), (12, 4, 21)])
+def test_dare_matches_scipy_and_jax(n, m, seed):
+    """solve_dare / dare_lqr against scipy's float64 solve_discrete_are and
+    against the JAX package's dare_lqr on the same (A, B, Q, R): S within
+    rtol/atol 2e-3 of scipy's (the JAX test's tolerance) and of JAX's; K
+    within 2e-3 of (R + B'SB)^-1 B'SA from scipy's S and of JAX's K."""
+    A, B, Q, R = _dare_system(n, m, seed)
+    S, K = riccati.dare_lqr(*(torch.from_numpy(v) for v in (A, B, Q, R)))
+    assert S.shape == (n, n) and K.shape == (m, n)
+    assert S.dtype == K.dtype == torch.float32
+    P = scipy.linalg.solve_discrete_are(A, B, Q, R)
+    K64 = np.linalg.solve(R + B.T @ P @ B, B.T @ P @ A)
+    np.testing.assert_allclose(S.numpy(), P, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(K.numpy(), K64, rtol=2e-3, atol=2e-3)
+    jS, jK = jriccati.dare_lqr(*(jnp.asarray(v) for v in (A, B, Q, R)))
+    np.testing.assert_allclose(S.numpy(), np.asarray(jS), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(K.numpy(), np.asarray(jK), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_array_equal(
+        riccati.solve_dare(*(torch.from_numpy(v) for v in (A, B, Q, R))),
+        S)
+    # the discrete closed loop is stable
+    assert np.abs(np.linalg.eigvals(A - B @ K.numpy())).max() < 1.0
+
+
+def test_dare_batched():
+    """Leading axes are batch axes: a batch of 3 systems equals each solved
+    alone (within 1e-4: LAPACK's batched and single inverses may round
+    differently)."""
+    systems = [_dare_system(4, 2, s) for s in (30, 31, 32)]
+    stack = [torch.from_numpy(np.stack(v)) for v in zip(*systems)]
+    S, K = riccati.dare_lqr(*stack)
+    assert S.shape == (3, 4, 4) and K.shape == (3, 2, 4)
+    for i, sysm in enumerate(systems):
+        Si, Ki = riccati.dare_lqr(*(torch.from_numpy(v) for v in sysm))
+        np.testing.assert_allclose(S[i].numpy(), Si.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(K[i].numpy(), Ki.numpy(), rtol=1e-4,
+                                   atol=1e-4)

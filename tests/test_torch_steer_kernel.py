@@ -20,8 +20,14 @@ difference times the gain: one ulp of a 40 m position is 3.8e-6, and the
 boat's |K| rows sum to at most ~780: ~3e-3.  u_seq is held to 1e-3 plus that
 carried difference, step by step (``_u_tol``).  The
 Pallas kernels test sum(e * e) <= tol^2 where the scan tests the norm
-(ROADMAP section 3); the data keep clear of the threshold.  The CUDA kernel
-itself runs only on the card (``chip_smoke.py``)."""
+(ROADMAP section 3); the data keep clear of the threshold.
+
+The car (H = 80), the quadrotor (60) and the double integrator (40) go the
+same way on their ``default_problem()`` (``all_of(control_limits,
+circles_free)``), flat and tree, against the JAX kernels on each model's
+JAX callbacks (``_model_inputs``); the factories build on every model and
+on tagged predicates and refuse what the kernel has no device form for.
+The CUDA kernel itself runs only on the card (``chip_smoke.py``)."""
 import sys
 import types
 from pathlib import Path
@@ -35,10 +41,14 @@ import jax.numpy as jnp
 
 from lqrrt_tpu.core.steer import make_steer as jmake_steer
 from lqrrt_tpu.models import boat as jboat
+from lqrrt_tpu.models import car as jcar
+from lqrrt_tpu.models import double_integrator as jdouble_integrator
+from lqrrt_tpu.models import quadrotor as jquadrotor
 from lqrrt_tpu.ops import collision as jcollision
 from lqrrt_tpu_torch.constraints import _all_true
 from lqrrt_tpu_torch.core.steer import SteerResult, make_steer
-from lqrrt_tpu_torch.models import boat, car, quadrotor
+from lqrrt_tpu_torch.models import (boat, car, double_integrator,
+                                    quadrotor)
 from lqrrt_tpu_torch.ops import collision
 from lqrrt_tpu_torch.ops.angles import make_erf
 from lqrrt_tpu_torch.ops.kernels import steer_kernel
@@ -317,6 +327,104 @@ def test_tree_wrapper_matches_pallas_tree_interpret():
         assert torch.equal(a, b)
 
 
+MODELS = {"car": (car, jcar), "quadrotor": (quadrotor, jquadrotor),
+          "double_integrator": (double_integrator, jdouble_integrator)}
+
+
+def _model_inputs(name, seed=0, n_rows=N):
+    """numpy x0, K (B, m, n), xtar, and a tree (n_rows rows, each with its
+    own gain from the port's lqr) holding x0 at distinct random rows pids,
+    for a model's ``default_problem()``.  Candidate b is in group b % 4:
+    near (xtar 0.02 from x0: arrived at once), goal (x0 0.5-2.5 m short of
+    the goal in x: the goal stop) or free.  Free rows of the car and the
+    double integrator draw x0 and xtar in the sample space; the
+    quadrotor's start near hover (roll, pitch, velocities and rates at 0.2
+    of the sample space) with targets within 2 m and 0.5 rad of yaw, across
+    the yaw seam for some, since a tumbling quadrotor turns one ulp into
+    metres within 60 steps and no two platforms' roundings would agree."""
+    prob = MODELS[name][0].default_problem()
+    ss, goal = prob["sample_space"], prob["goal"]
+    n, m = prob["constraints"].nstates, prob["constraints"].ncontrols
+    rng = np.random.default_rng(seed)
+
+    def uniform(k):
+        x = ss[:, 0] + rng.random((k, n)) * (ss[:, 1] - ss[:, 0])
+        if name == "quadrotor":
+            x[:, [3, 4, 6, 7, 8, 9, 10, 11]] *= 0.2
+        return x
+
+    x0 = uniform(B)
+    if name == "quadrotor":
+        xtar = x0.copy()
+        xtar[:, :3] += rng.uniform(-2.0, 2.0, (B, 3))
+        xtar[:, [3, 4, 6, 7, 8, 9, 10, 11]] = 0.0
+        yaw = x0[:, 5] + rng.uniform(-0.5, 0.5, B)
+        xtar[:, 5] = (yaw + np.pi) % (2 * np.pi) - np.pi
+    else:
+        xtar = uniform(B)
+    group = np.arange(B) % 4
+    d = rng.normal(size=(B, n))
+    near = x0 + 0.02 * d / np.linalg.norm(d, axis=1, keepdims=True)
+    short = np.tile(goal, (B, 1))
+    short[:, 0] -= rng.uniform(0.5, 2.5, B)
+    x0 = np.where((group == 2)[:, None], short, x0).astype(np.float32)
+    xtar = np.where((group == 1)[:, None], near,
+                    np.where((group == 2)[:, None], goal, xtar)).astype(
+                        np.float32)
+    states = uniform(n_rows).astype(np.float32)
+    pids = rng.permutation(n_rows)[:B].astype(np.int32)
+    states[pids] = x0
+
+    def gains(x):
+        return prob["lqr"](torch.from_numpy(x), torch.zeros(m))[1].expand(
+            len(x), m, n).contiguous().numpy()
+
+    return prob, x0, gains(x0), xtar, states, gains(states), pids
+
+
+@pytest.mark.parametrize("variant", ["flat", "tree"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_model_wrappers_match_pallas_interpret(name, variant):
+    """make_steer_kernel and make_steer_kernel_tree of the car (H = 80),
+    the quadrotor (60) and the double integrator (40) on CPU tensors (the
+    plain steer) against make_steer_pallas and make_steer_pallas_tree in
+    interpret mode on each model's JAX callbacks and default problem:
+    all_of(control_limits, circles_free), its goal box and saturate.
+    length, in_goal, reached and the mask equal; x_seq and xnew within
+    ATOL; u_seq within ``_u_tol``.  The rollouts reach the goal, arrived
+    and infeasible stops and the full horizon."""
+    prob, x0, K, xtar, states, KN, pids = _model_inputs(name)
+    jprob = MODELS[name][1].default_problem()
+    H = int(round(prob["horizon"] / prob["dt"]))
+    args = (prob["dynamics"], prob["erf"], prob["constraints"].is_feasible,
+            H, prob["dt"], TOL)
+    kw = dict(saturate=prob["saturate"],
+              goal_buffer=prob["constraints"].goal_buffer)
+    jargs = (jprob["dynamics"], jprob["erf"],
+             jprob["constraints"].is_feasible, H, jprob["dt"], TOL)
+    jkw = dict(saturate=jprob["saturate"],
+               goal_buffer=jprob["constraints"].goal_buffer, interpret=True)
+    goal = prob["goal"]
+    if variant == "flat":
+        port = make_steer_kernel(*args, **kw)(*_t(x0, K, xtar, goal))
+        jres = tool.make_steer_pallas(*jargs, **jkw)(
+            jnp.asarray(x0), jnp.asarray(K), jnp.asarray(xtar),
+            jnp.asarray(goal))
+    else:
+        steer = make_steer_kernel_tree(*args, **kw)
+        port = steer(*_t(states, KN, pids, xtar, goal))
+        jres = tool.make_steer_pallas_tree(*jargs, node_block=NODE_BLOCK,
+                                           **jkw)(
+            jnp.asarray(states), jnp.asarray(KN), jnp.asarray(pids),
+            jnp.asarray(xtar), jnp.asarray(goal))
+        K = KN[pids]
+    _assert_same(port, jres, x0, K)
+    length, stopped = port.length.numpy(), port.length.numpy() < H
+    reached, in_goal = port.reached.numpy(), port.in_goal.numpy()
+    assert in_goal.any() and (~in_goal & reached & stopped).any()
+    assert (~in_goal & ~reached & stopped).any() and (length == H).any()
+
+
 def _rows(res, sel):
     """The candidates ``sel`` of a SteerResult."""
     return SteerResult(res.x_seq[..., sel], res.u_seq[..., sel],
@@ -498,9 +606,14 @@ def test_mask_is_the_commit_prefix():
 
 @pytest.mark.parametrize("model", [car, quadrotor], ids=["car", "quadrotor"])
 def test_factory_refuses_models_without_device_functions(model):
+    """A dynamics the kernel has no device functions for (the model's own
+    f under Euler, not its RK4 ``dynamics``) is refused; the model's
+    ``dynamics`` builds (test_factory_builds_tagged_models_and_predicates)."""
+    from lqrrt_tpu_torch.ops.integrate import discretize
+
     prob = model.default_problem()
-    args = (prob["dynamics"], prob["erf"], prob["constraints"].is_feasible,
-            10, prob["dt"], 0.05)
+    args = (discretize(model.f, "euler"), prob["erf"],
+            prob["constraints"].is_feasible, 10, prob["dt"], 0.05)
     for factory in (make_steer_kernel, make_steer_kernel_tree):
         with pytest.raises(NotImplementedError, match="device functions"):
             factory(*args, saturate=prob["saturate"],
@@ -508,25 +621,116 @@ def test_factory_refuses_models_without_device_functions(model):
 
 
 @pytest.mark.parametrize("pred", [
-    collision.all_of(collision.circles_free([[1.0, 2.0]], [0.5])),
-    collision.control_limits(-boat.WRENCH_MAX, boat.WRENCH_MAX),
+    collision.all_of(collision.circles_free([[1.0, 2.0]], [0.5]),
+                     lambda x, u: x[..., 0] < 50.0),
+    collision.state_box([-50.0, -50.0], [50.0, 50.0], dims=(0, 1)),
     lambda x, u: x[..., 0] < 50.0,
 ], ids=["all_of", "control_limits", "lambda"])
 def test_factory_refuses_untagged_predicates(pred):
+    """A predicate with no tag the kernel reads is refused: an all_of
+    holding a lambda, a box on the state (``state_box``, which is not
+    ``control_limits``) and a lambda."""
     args, kw = steer_args(PROB)
     for factory in (make_steer_kernel, make_steer_kernel_tree):
         with pytest.raises(NotImplementedError, match="circles tag"):
             factory(*args[:2], pred, *args[3:], **kw)
 
 
+def _boat_pred(kind):
+    c, r = PROB["obstacles"]
+    limits = collision.control_limits(-boat.WRENCH_MAX, boat.WRENCH_MAX)
+    return {"all_of": collision.all_of(collision.circles_free(c, r)),
+            "control_limits": limits,
+            "all_of-both": collision.all_of(
+                limits, collision.all_of(collision.circles_free(c[:3], r[:3]),
+                                         collision.circles_free(c[3:],
+                                                                r[3:])))
+            }[kind]
+
+
+@pytest.mark.parametrize("case", ["car", "quadrotor", "double_integrator",
+                                  "all_of", "control_limits", "all_of-both"])
+def test_factory_builds_tagged_models_and_predicates(case):
+    """The car, the quadrotor and the double integrator build on their
+    ``default_problem()`` predicates (all_of(control_limits,
+    circles_free)), and the boat on an all_of of circles, on
+    control_limits alone, and on nested all_ofs of both: the spec's n, m,
+    circles (concatenated in order) and box."""
+    if case in ("car", "quadrotor", "double_integrator"):
+        model = {"car": car, "quadrotor": quadrotor,
+                 "double_integrator": double_integrator}[case]
+        prob = model.default_problem()
+        H = int(round(prob["horizon"] / prob["dt"]))
+        args = (prob["dynamics"], prob["erf"],
+                prob["constraints"].is_feasible, H, prob["dt"], 0.05)
+        kw = dict(saturate=prob["saturate"],
+                  goal_buffer=prob["constraints"].goal_buffer)
+        centers, radii = prob["obstacles"]
+        margin = {"car": 0.5, "quadrotor": 0.3, "double_integrator": 0.1}[case]
+        box = (model.U_MIN, model.U_MAX_VEC) if case != "double_integrator" \
+            else (-np.full(2, model.U_MAX), np.full(2, model.U_MAX))
+    else:
+        args, kw = steer_args(PROB)
+        args = args[:2] + (_boat_pred(case),) + args[3:]
+        centers, radii = PROB["obstacles"]
+        margin = 0.0
+        box = (-boat.WRENCH_MAX, boat.WRENCH_MAX)
+        if case == "all_of":
+            box = None
+    for factory in (make_steer_kernel, make_steer_kernel_tree):
+        assert callable(factory(*args, **kw))
+    spec = steer_kernel._Spec(*args, kw["saturate"], kw["goal_buffer"], 64)
+    n, m = (6, 3) if args[0] is boat.dynamics else {
+        "car": (4, 2), "quadrotor": (12, 4), "double_integrator": (4, 2)}[case]
+    assert (spec.n, spec.m, spec.H) == (n, m, args[3])
+    if case == "control_limits":
+        assert spec.ncirc == 0
+    else:
+        circles = spec.circles.value
+        np.testing.assert_array_equal(circles[:, :2], centers)
+        np.testing.assert_allclose(circles[:, 2], (radii + margin) ** 2,
+                                   rtol=1e-6)
+    if box is None:
+        assert spec.limits is None
+    else:
+        np.testing.assert_array_equal(spec.limits.value,
+                                      np.stack(box).astype(np.float32))
+
+
+def test_nested_control_limits_intersect():
+    """Two control_limits in an all_of give the intersection of their boxes,
+    the same predicate."""
+    a = collision.control_limits([-1.0, -2.0], [3.0, 1.0])
+    b = collision.control_limits([-2.0, -1.0], [2.0, 2.0])
+    circles, box = steer_kernel.predicate_parts(collision.all_of(a, b))
+    assert circles.shape == (0, 3)
+    np.testing.assert_array_equal(box[0], [-1.0, -1.0])
+    np.testing.assert_array_equal(box[1], [2.0, 1.0])
+    u = torch.from_numpy(np.random.default_rng(0).uniform(
+        -3, 3, (4096, 2)).astype(np.float32))
+    u[0, 0] = float("nan")
+    lo, hi = (torch.from_numpy(v) for v in box)
+    assert torch.equal(collision.all_of(a, b)(u, u),
+                       ((u >= lo) & (u <= hi)).all(-1))
+
+
 @pytest.mark.parametrize("change", ["erf", "saturate-none",
                                     "saturate-other", "pos-dims",
-                                    "circles"])
+                                    "circles", "erf-untagged"])
 def test_factory_refuses_what_the_kernel_does_not_compute(change):
     args, kw = steer_args(PROB)
     args, kw = list(args), dict(kw)
     if change == "erf":
         args[1] = make_erf(6)                       # psi not wrapped
+    elif change == "erf-untagged":
+        # the double integrator wraps nothing: torch.subtract builds, an
+        # erf without an angle_dims tag does not
+        prob = double_integrator.default_problem()
+        args = [prob["dynamics"], lambda a, b: a - b,
+                prob["constraints"].is_feasible, 10, prob["dt"], 0.05]
+        kw = dict(saturate=prob["saturate"])
+        assert callable(make_steer_kernel(*args[:1], torch.subtract,
+                                          *args[2:], **kw))
     elif change == "saturate-none":
         kw["saturate"] = None
     elif change == "saturate-other":
@@ -564,6 +768,57 @@ def test_circles_tag_carries_the_margin():
         *_t(x0, K, xtar, GOAL))
     assert torch.equal(free.x_seq, ref.x_seq)
     assert not branch_counts(free, x0, xtar)["infeasible stop"]
+
+
+@pytest.mark.parametrize("model", ["car", "quadrotor",
+                                   "double_integrator"])
+def test_model_params_are_the_model_constants(model):
+    """The params packers give the models' constants as float32 in the
+    kernel's order (the enums of csrc/<model>_device.cuh)."""
+    if model == "car":
+        p = steer_kernel.car_params()
+        assert p.shape == (7,)
+        assert (p[0], p[1]) == (np.float32(car.A_MAX),
+                                np.float32(car.DELTA_MAX))
+        # PyTorch's CUDA division by a Python float multiplies by the
+        # float reciprocal
+        assert p[2] == np.float32(1.0) / np.float32(car.WHEELBASE)
+        np.testing.assert_array_equal(p[3:5], car.U_MIN)
+        np.testing.assert_array_equal(p[5:7], car.U_MAX_VEC)
+    elif model == "quadrotor":
+        p = steer_kernel.quadrotor_params()
+        assert p.shape == (16,)
+        np.testing.assert_array_equal(
+            p[:5], np.float32([quadrotor.HOVER_T, quadrotor.T_MAX,
+                               quadrotor.TAU_MAX, quadrotor.G, 0.2]))
+        np.testing.assert_array_equal(p[5:8], quadrotor.INERTIA)
+        np.testing.assert_array_equal(p[8:12], quadrotor.U_MIN)
+        np.testing.assert_array_equal(p[12:16], quadrotor.U_MAX_VEC)
+    else:
+        p = steer_kernel.double_integrator_params()
+        np.testing.assert_array_equal(p, [double_integrator.U_MAX])
+    assert p.dtype == np.float32
+
+
+def test_predicate_tags():
+    """control_limits carries its box as float32 numpy and all_of its
+    parts; the tags change nothing the predicates compute."""
+    lo, hi = [-1.0, -0.5], [2.0, 0.5]
+    lim = collision.control_limits(lo, hi)
+    tag_lo, tag_hi = lim.control_limits
+    assert tag_lo.dtype == tag_hi.dtype == np.float32
+    np.testing.assert_array_equal(tag_lo, lo)
+    np.testing.assert_array_equal(tag_hi, hi)
+    circ = collision.circles_free([[0.0, 0.0]], [1.0])
+    both = collision.all_of(lim, circ)
+    assert both.parts == (lim, circ)
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -2, 2, (512, 4)).astype(np.float32))
+    u = x[:, :2]
+    want = (((u >= torch.tensor(lo)) & (u <= torch.tensor(hi))).all(-1)
+            & (x[:, :2].pow(2).sum(-1) > 1.0))
+    assert torch.equal(both(x, u), want)
+    assert collision.all_of().parts == ()
 
 
 def test_boat_params_are_the_model_constants():
@@ -614,3 +869,22 @@ def test_entry_point_main_on_cpu(monkeypatch, capsys):
         assert c["len_eq"] == 1.0 and c["max_dx"] == 0.0 and c["ms"] > 0
     with pytest.raises(RuntimeError, match="CUDA"):
         exp_steer_kernel.main(device="cuda", B=64, N=1024)
+
+
+@pytest.mark.parametrize("model", ["car", "quadrotor", "double_integrator"])
+def test_entry_point_main_on_cpu_models(model, monkeypatch, capsys):
+    """The experiment's ``--model`` cells at a small size on the CPU
+    (``kernel_times.model_steer_inputs``: the model's own horizon, lqr and
+    problem), where every block size and the tree cell take the plain
+    version."""
+    monkeypatch.setattr(exp_steer_kernel, "REPS", 1)
+    monkeypatch.setattr(exp_steer_kernel, "PLAIN_REPS", 1)
+    out = exp_steer_kernel.main(device="cpu", B=32, N=128, model=model)
+    prob = MODELS[model][0].default_problem()
+    assert out["model"] == model
+    assert out["H"] == int(round(prob["horizon"] / prob["dt"]))
+    assert f"exp_steer_kernel [{model}]" in capsys.readouterr().out
+    for c in list(out["kernel"].values()) + [out["tree"]]:
+        assert c["len_eq"] == 1.0 and c["max_dx"] == 0.0
+    with pytest.raises(ValueError, match="unknown model"):
+        exp_steer_kernel.main(device="cpu", B=32, N=128, model="plane")
