@@ -119,7 +119,14 @@ exits non-zero:
    integrator demos and the boat's replan loop through their ``main``, on
    the card with no figure, at the demos' own width (batch 256, capacity
    8192): each must exit 0 (goal, clearance, tracking error), with its NN
-   kernel's launches counted (A or C) and its wall time.
+   kernel's launches counted (A or C) and its wall time;
+12. the scenario-parallel fleet at full width, plain PyTorch (no kernel
+   of A-F on its path): ``lqrrt_tpu_torch.tools.bench_fleet`` (1024 boat
+   scenarios, batch 64, capacity 1024, a 2.0 s budget) with its record,
+   the peak memory, the budget, capacity and plan checks; 64 rounds with
+   a goal rate > 0.5 and an fp64 audit of 16 trees; a round's parts, its
+   busy share and a sync-free round; per-scenario worlds (a circle a
+   scenario); one round card vs CPU at 8 scenarios; the fleet demo.
 
 The last two lines are a JSON object with the kernels' checks and times and
 ``{"ok": true, "device": {...}}``.  In the kernels line every ``ms``,
@@ -1948,14 +1955,15 @@ def phase_untagged_erf(smi):
 TOL_TIME = 1e-4        # |node_time - the fp64 chain sum| (s)
 
 
-def tree_audit(tree, dynamics, dt):
+def tree_audit(tree, dynamics, dt, wrap=()):
     """Host fp64 checks over every live row of a device tree: n_children
     equals the real child count (children with ``edge_len >= 1``), every
     real edge starts at its parent's state (``dynamics(state[parent],
-    edge_u[0]) == edge_x[0]`` within 1e-4), ``node_time`` equals the
-    chain's sum of ``edge_len * dt`` within TOL_TIME, the parent
-    pointers have no cycle, and every zero-length row holds its parent's
-    state exactly.  Returns the counts of rows failing each."""
+    edge_u[0]) == edge_x[0]`` within 1e-4, angle dims ``wrap`` compared
+    modulo 2 pi), ``node_time`` equals the chain's sum of ``edge_len * dt``
+    within TOL_TIME, the parent pointers have no cycle, and every
+    zero-length row holds its parent's state exactly.  Returns the counts
+    of rows failing each."""
     t = {f: getattr(tree, f).cpu() for f in tree._fields}
     size = int(t["size"])
     parent = t["parent"][:size].long().numpy()
@@ -1966,8 +1974,10 @@ def tree_audit(tree, dynamics, dt):
     rows = torch.from_numpy(np.flatnonzero(real))
     x1 = dynamics(t["state"][parent[rows]].double(),
                   t["edge_u"][0][:, rows].T.double(), dt)
-    bad_edge = int(((x1 - t["edge_x"][0][:, rows].T.double()).abs()
-                    .amax(1) > 1e-4).sum())
+    dx = x1 - t["edge_x"][0][:, rows].T.double()
+    for d in wrap:
+        dx[:, d] = torch.remainder(dx[:, d] + math.pi, 2 * math.pi) - math.pi
+    bad_edge = int((dx.abs().amax(1) > 1e-4).sum())
     # pointer doubling in fp64 on the host: the chain sums and, with the
     # same jumps, whether every row reaches the root
     d = np.where(parent >= 0, edge_len * dt, 0.0)
@@ -2137,7 +2147,6 @@ def phase_refine_round_parity(planner, smi):
     from lqrrt_tpu_torch.core.rounds import commit_candidates
     from lqrrt_tpu_torch.models import double_integrator as di
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import make_nearest_const
-    from lqrrt_tpu_torch.utils.timing import device_trace
 
     prob = di.default_problem()
     half = planner.batch_size // 2
@@ -2223,12 +2232,27 @@ def phase_refine_round_parity(planner, smi):
 
     runs = [parts(type(base)(*[t.clone() for t in base])) for _ in range(6)]
     med = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
+    tree = type(base)(*[t.clone() for t in base])
+    busy_ms, kernels = device_busy(lambda: round_fn(tree, goal_d))
+    share = busy_ms / med["whole_round"]
+    log(f"refine round parts on the card [{smi}] (ms, synchronised, median "
+        f"of 5): " + " ".join(f"{k}={v:.3f}" for k, v in med.items())
+        + f"; device kernel time in one round {busy_ms:.3f} ms in "
+        f"{kernels} kernels (torch.profiler), busy share "
+        f"{share:.3f} of the unprofiled round")
+    return med
+
+
+def device_busy(fn):
+    """(device kernel ms, kernel count) of one synchronised call of fn,
+    from ``torch.profiler`` (``utils.timing.device_trace``)."""
     import tempfile
 
-    tree = type(base)(*[t.clone() for t in base])
+    from lqrrt_tpu_torch.utils.timing import device_trace
+
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
-        round_fn(tree, goal_d)
+        fn()
         torch.cuda.synchronize()
     busy_us, kernels = 0.0, 0
     for e in prof.key_averages():
@@ -2236,13 +2260,7 @@ def phase_refine_round_parity(planner, smi):
             busy_us += getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
             kernels += e.count
-    share = busy_us / 1e3 / med["whole_round"]
-    log(f"refine round parts on the card [{smi}] (ms, synchronised, median "
-        f"of 5): " + " ".join(f"{k}={v:.3f}" for k, v in med.items())
-        + f"; device kernel time in one round {busy_us / 1e3:.3f} ms in "
-        f"{kernels} kernels (torch.profiler), busy share "
-        f"{share:.3f} of the unprofiled round")
-    return med
+    return busy_us / 1e3, kernels
 
 
 def phase_host_surface(planner, smi):
@@ -2310,6 +2328,259 @@ def phase_host_surface(planner, smi):
     log(f"trajectory server (libtrajserver from runtime/native/"
         f"trajserver.c): get_state and get_effort at 16 times equal the "
         f"planner's within {err:.2e}")
+
+
+FLEET_AUDIT = 16       # scenarios of the 1024-boat fleet audited in fp64
+
+
+def phase_fleet(smi):
+    """The scenario-parallel fleet (``lqrrt_tpu_torch/parallel/fleet.py``,
+    plain PyTorch: no kernel of A-F is on its path) at full width.
+
+    (a) ``tools/bench_fleet.py``'s configuration through the port's
+    ``bench_fleet.bench`` (what its ``main`` runs): 1024 boat scenarios,
+    batch 64, capacity 1024, ``nn_block=256``, H = 100, a 2.0 s budget in
+    chunks of 8 rounds after a 1-round warm-up, cold and warm extraction;
+    the record, the peak memory; gates: ``elapsed_s`` within the budget
+    plus one measured round, every size <= capacity, every plan from its
+    x0 and feasible under the boat's circles.  Then 64 rounds at
+    ``max_time=None`` (the bench's round cap): goal rate > 0.5 and the fp64
+    ``tree_audit`` of 16 scenarios; one round in its parts (NN scan,
+    steer, the rest of the expand, commit), synchronised, median of 3, its
+    busy share (``torch.profiler``), and one round under
+    ``torch.cuda.set_sync_debug_mode("error")``.
+    (b) Per-scenario worlds: a circle of its own for each of the 1024
+    scenarios (``circles_free_data``, ``per_scenario_data=True``), 16
+    rounds; no scenario's node inside its own circle plus margin, and
+    some inside another scenario's.
+    (c) One round at S = 8, batch 64, capacity 1024 on the card and on the
+    CPU from the same trees and (S, B, n) candidates: the trees equal
+    within the round-parity phase's tolerances.
+    (d) ``lqrrt_tpu_torch.demos.fleet_demo`` with its defaults exits 0."""
+    from lqrrt_tpu_torch.core.commit import commit_batch_dense
+    from lqrrt_tpu_torch.core.nearest import make_nearest
+    from lqrrt_tpu_torch.core.rounds import make_extend, scenario_leading
+    from lqrrt_tpu_torch.core.sampling import sample_batch
+    from lqrrt_tpu_torch.core.steer import make_steer
+    from lqrrt_tpu_torch.core.tree import TreeArrays
+    from lqrrt_tpu_torch.demos import fleet_demo
+    from lqrrt_tpu_torch.ops.collision import circles_free_data
+    from lqrrt_tpu_torch.parallel import FleetPlanner
+    from lqrrt_tpu_torch.tools import bench_fleet
+
+    # (a) the 1024-boat fleet
+    dev = "cuda"
+    args = bench_fleet.parse_args([])
+    torch.cuda.reset_peak_memory_stats()
+    rec, fleet, plans, prob, x0s, goals = bench_fleet.bench(args)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"fleet bench_fleet [{smi}]: {json.dumps(rec)}")
+    log(f"fleet peak_mem_GiB={peak:.3f} (max_memory_allocated)")
+    S, cap = args.scenarios, args.capacity
+    per_round = fleet._per_round_s
+    if rec["elapsed_s"] > args.max_time + per_round:
+        raise AssertionError(f"fleet: elapsed {rec['elapsed_s']} s past the "
+                             f"{args.max_time} s budget plus one round "
+                             f"({per_round:.4f} s)")
+    sizes = fleet.trees.size.cpu().numpy()
+    starts = np.stack([plans[s][0] for s in range(S)])
+    states = torch.as_tensor(np.concatenate([plans[s] for s in range(S)]))
+    feas = prob["constraints"].is_feasible(
+        states, torch.zeros(len(states), 3))
+    if (sizes > cap).any() or not np.allclose(starts, x0s, atol=1e-5):
+        raise AssertionError("fleet: a tree past capacity or a plan not "
+                             "from its x0")
+    if not bool(feas.all()):
+        raise AssertionError(f"fleet: {int((~feas).sum())} plan states "
+                             "inside the buoys")
+    log(f"fleet plan checks: {S} plans ({len(states)} states) from their "
+        f"x0, feasible; sizes <= {cap}; elapsed_s {rec['elapsed_s']} <= "
+        f"{args.max_time} + one round ({per_round:.4f} s)")
+
+    t0 = time.perf_counter()
+    st = fleet.plan(x0s, goals, prob["sample_space"], goal_bias=0.25,
+                    rounds=args.rounds)
+    rate = float(st["goal_found"].mean())
+    log(f"fleet {args.rounds} rounds (max_time=None) [{smi}]: goal_rate="
+        f"{rate:.4f} elapsed_s={st['elapsed_s']:.4f} expansions_per_s="
+        f"{st['expansions_per_s']:.1f} mean_nodes={st['sizes'].mean():.1f} "
+        f"wall_s={time.perf_counter() - t0:.3f}")
+    if not rate > 0.5:
+        raise AssertionError(f"fleet: goal rate {rate} at {args.rounds} "
+                             "rounds")
+    bad = {}
+    for s in range(0, S, S // FLEET_AUDIT):
+        t = TreeArrays(*[f[s] for f in fleet.trees])
+        res = tree_audit(t, prob["dynamics"], prob["dt"],
+                         wrap=prob["wrap_dims"])
+        for k, v in res.items():
+            bad[k] = bad.get(k, 0) + v
+    rows = bad.pop("rows")
+    log(f"fleet fp64 audit of {FLEET_AUDIT} scenarios ({rows} rows): "
+        f"failing rows {bad}")
+    if any(bad.values()):
+        raise AssertionError(f"fleet: audit failed: {bad}")
+
+    # one round in its parts, its busy share, and sync-free
+    n, m = 6, 3
+    spec = fleet.spec
+    sc = torch.arange(S, device=dev)[:, None]
+    ss = fleet._tensor(prob["sample_space"]).expand(S, n, 2)
+    gb = fleet._tensor(0.25).expand(n)
+    g = fleet._tensor(goals)
+    goal_rows = g[:, None, :].expand(S, spec.batch, n).reshape(-1, n)
+    common = (prob["dynamics"], prob["erf"],
+              prob["constraints"].is_feasible)
+    nearest = make_nearest(prob["erf"], min(spec.nn_block, cap))
+    steer = make_steer(*common, spec.horizon_steps, spec.dt, 0.05,
+                       saturate=prob["saturate"],
+                       goal_buffer=prob["constraints"].goal_buffer)
+    wrap_mask = np.zeros(n, bool)
+    wrap_mask[list(prob["wrap_dims"])] = True
+    extend = make_extend(spec, prob["dynamics"], prob["lqr"], prob["erf"],
+                         prob["constraints"].is_feasible, 0.05,
+                         prob["constraints"].goal_buffer,
+                         wrap_mask=wrap_mask, saturate=prob["saturate"])
+    trees = fleet.trees
+
+    def parts():
+        times = {}
+
+        def part(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+            return r
+
+        xr = part("sample", lambda: sample_batch(fleet._gen, spec.batch, ss,
+                                                 gb, g))
+        pids, _ = part("nn_scan", lambda: nearest(trees.state, trees.S,
+                                                  trees.size, xr))
+        x0, K0 = part("gather", lambda: (
+            trees.state[sc, pids.long()].reshape(-1, n),
+            trees.K[sc, pids.long()].reshape(-1, m, n)))
+        part("steer", lambda: steer(x0, K0, xr.reshape(-1, n), goal_rows))
+        c = part("expand_after_nn", lambda: extend(
+            pids.reshape(-1), x0, K0, xr.reshape(-1, n), goal_rows))
+        part("commit", lambda: commit_batch_dense(
+            trees, spec.dt, cap, *scenario_leading(c, S, spec.batch)))
+        part("whole_round", lambda: fleet._run_rounds(
+            trees, 1, ss, gb, g, goal_rows))
+        return times
+
+    runs = [parts() for _ in range(4)]
+    med = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
+    busy_ms, kernels = device_busy(
+        lambda: fleet._run_rounds(trees, 1, ss, gb, g, goal_rows))
+    log(f"fleet round parts on the card [{smi}] (ms, synchronised, median "
+        f"of 3; 'steer' alone, 'expand_after_nn' is steer + lqr + wrap + "
+        f"goal cost): " + " ".join(f"{k}={v:.3f}" for k, v in med.items())
+        + f"; device kernel time in one round {busy_ms:.3f} ms in {kernels} "
+        f"kernels (torch.profiler), busy share "
+        f"{busy_ms / med['whole_round']:.3f} of the unprofiled round")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fleet._run_rounds(trees, 1, ss, gb, g, goal_rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"fleet sync-free round under sync_debug_mode='error': ok, "
+        f"enqueue_s={enqueue:.3f} total_s={time.perf_counter() - t0:.3f}")
+    del fleet, trees, plans
+
+    # (b) a world of its own for each scenario
+    rng = np.random.default_rng(29)
+    centers = np.stack([rng.uniform(8.0, 32.0, S), rng.uniform(-6.0, 6.0, S)],
+                       1).astype(np.float32)[:, None, :]
+    radii = rng.uniform(1.5, 3.0, (S, 1)).astype(np.float32)
+    margin = 1.0
+    pred = circles_free_data(margin=margin)
+    wf = FleetPlanner(
+        prob["dynamics"], prob["lqr"], prob["erf"], pred,
+        prob["constraints"].goal_buffer, horizon=prob["horizon"],
+        dt=prob["dt"], n_scenarios=S, batch_size=args.batch, capacity=cap,
+        nn_block=256, saturate=prob["saturate"], wrap_dims=prob["wrap_dims"],
+        per_scenario_data=True, device=dev)
+    st = wf.plan(x0s, goals, prob["sample_space"], goal_bias=0.25, rounds=16,
+                 feasibility_data={"centers": centers, "radii": radii})
+    live = (torch.arange(wf.trees.state.shape[1], device=dev)
+            < wf.trees.size[:, None])
+
+    def inside(c, r):
+        data = {"centers": torch.as_tensor(c[:, None], device=dev),
+                "radii": torch.as_tensor(r[:, None], device=dev)}
+        return int((~pred(wf.trees.state, None, data) & live).sum())
+
+    own = inside(centers, radii)
+    other = inside(np.roll(centers, 1, 0), np.roll(radii, 1, 0))
+    log(f"fleet per-scenario worlds [{smi}]: {S} scenarios, 16 rounds, "
+        f"elapsed_s={st['elapsed_s']:.4f} goal_rate="
+        f"{st['goal_found'].mean():.4f} mean_nodes={st['sizes'].mean():.1f};"
+        f" nodes inside their own circle + {margin} m: {own}, inside the "
+        f"next scenario's: {other}")
+    if own or not other:
+        raise AssertionError("fleet: per-scenario worlds not kept apart")
+    del wf
+
+    # (c) one round on the card against the CPU
+    Sc = 8
+    sub = np.arange(Sc) * (S // Sc)
+    small = {}
+    for d in ("cpu", dev):
+        f = FleetPlanner(
+            prob["dynamics"], prob["lqr"], prob["erf"],
+            prob["constraints"].is_feasible, prob["constraints"].goal_buffer,
+            horizon=prob["horizon"], dt=prob["dt"], n_scenarios=Sc,
+            batch_size=args.batch, capacity=cap, nn_block=256,
+            saturate=prob["saturate"], wrap_dims=prob["wrap_dims"],
+            device=d)
+        f._build(n, m)
+        small[d] = f
+    rng = np.random.default_rng(31)
+    lo, hi = prob["sample_space"][:, 0], prob["sample_space"][:, 1]
+    xrs = [rng.uniform(lo, hi, (Sc, args.batch, n)).astype(np.float32)
+           for _ in range(4)]
+    g8 = torch.as_tensor(goals[sub])
+    rows8 = g8.repeat_interleave(args.batch, 0)
+    cpu = small["cpu"]
+    t_cpu = cpu._seed(torch.as_tensor(x0s[sub]), g8)
+    for xr in xrs[:3]:
+        cpu._round(t_cpu, torch.as_tensor(xr), rows8)
+    t_gpu = TreeArrays(*[t.to(dev) for t in t_cpu])
+    cpu._round(t_cpu, torch.as_tensor(xrs[3]), rows8)
+    small[dev]._round(t_gpu, torch.as_tensor(xrs[3], device=dev),
+                      rows8.to(dev))
+    a = {k: v.cpu() for k, v in t_cpu._asdict().items()}
+    b = {k: v.cpu() for k, v in t_gpu._asdict().items()}
+    live = torch.arange(a["state"].shape[1]) < a["size"][:, None]
+    match = ((a["parent"] == b["parent"]) & (a["edge_len"] == b["edge_len"])
+             & live)
+    row_match = float(match.sum() / live.sum())
+    dx = (a["state"] - b["state"]).abs().amax(-1)[match]
+    de = (a["edge_x"] - b["edge_x"]).abs().amax((1, 2))[match]
+    same = {k: bool(torch.equal(a[k], b[k]))
+            for k in ("size", "goal_found", "in_goal", "n_children")}
+    log(f"fleet round card vs cpu (S={Sc}, B={args.batch}, capacity={cap}):"
+        f" equal {same}, row_match={row_match:.4f} max_abs_state_err="
+        f"{float(dx.max()):.3e} max_abs_edge_x_err={float(de.max()):.3e}")
+    if not (same["size"] and same["goal_found"] and row_match >= 0.99
+            and float(dx.max()) <= TOL_STEER
+            and float(de.max()) <= TOL_STEER):
+        raise AssertionError("fleet: the card's round disagrees with the "
+                             "CPU's")
+
+    # (d) the fleet demo
+    t0 = time.perf_counter()
+    rc = fleet_demo.main([])
+    log(f"fleet demo: exit {rc} in {time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        raise AssertionError(f"fleet demo exited {rc}")
+    return rec
 
 
 def main() -> int:
@@ -2410,6 +2681,7 @@ def main() -> int:
           smi)
     timed("host surface", phase_host_surface, rewire_planner, smi)
     l_demos = timed("demos", phase_demos, smi)
+    timed("fleet", phase_fleet, smi)
     # every planner path's launches of A and B, the paths of 8, 9 and 10
     paths = {"boat": l_boat, "car": l_car, "quadrotor": l_quad,
              "grid boat": l_grid,

@@ -22,6 +22,10 @@ Models: ``models.boat`` (a constant LQR), ``models.car`` and
 ``models.quadrotor`` (an LQR re-linearized and re-solved at every node),
 ``models.double_integrator``.
 
+Fleet: ``parallel.FleetPlanner`` grows many scenarios' trees at once on
+one device (the boat fleet of ``demos/fleet_demo.py`` and
+``tools/bench_fleet.py``).
+
 Host side: ``Tree`` (``Planner.get_tree``'s snapshot), ``utils``
 (checkpoints, metrics sinks, the replan watchdog, the phase timer) and
 ``runtime.TrajectoryServer`` (the plan in a C seqlock for controllers).

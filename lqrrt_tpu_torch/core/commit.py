@@ -1,6 +1,6 @@
 """Batch commits of steered candidates into the tree (port of
-lqrrt_tpu/core/commit.py ``commit_batch_dense_all`` and
-``commit_batch_refine``).
+lqrrt_tpu/core/commit.py ``commit_batch_dense_all``, ``commit_batch_refine``
+and, over a fleet's scenario axis, ``commit_batch_dense``).
 
 The JAX functions donate the tree's buffers and return new arrays; this
 port MUTATES the given tree's tensors in place and returns the same tree.
@@ -52,6 +52,57 @@ def commit_batch_dense_all(tree: TreeArrays, dt: float, limit: int, pids,
     tree.goal_found.logical_or_((in_goal_c & committed).any())
     tree.size.copy_(torch.clamp(tree.size + B, max=limit))
     return tree
+
+
+def commit_batch_dense(trees: TreeArrays, dt: float, limit: int, pids,
+                       length, x_seq, u_seq, xnew, S_new, K_new, in_goal,
+                       gcost) -> TreeArrays:
+    """The sorted dense commit of S scenario trees at once (JAX's
+    ``jax.vmap(commit_batch_dense)``, the fleet's commit).
+
+    Trees are scenario-leading (``core/tree.py``); the candidates are too:
+    pids, length, in_goal, gcost (S, B), x_seq (S, H, n, B), u_seq
+    (S, H, m, B), xnew (S, B, n), S_new (S, B, n, n), K_new (S, B, m, n).
+    Per scenario, as JAX: the candidates in a stable valid-first order
+    (valid = ``length >= 1``) land at rows ``start + rank``, ``start =
+    min(size, limit)``, all B of them (rows past the valid ones are
+    written but stay past ``size``; the trees need ``slack >= B`` rows past
+    ``limit``); only ``committed = valid & (start + rank < limit)`` rows
+    count a child of their parent or set ``goal_found``; ``size = min(size
+    + n_valid, limit)``.  The rank is the stable sort's inverse
+    permutation, counted with two prefix sums, so each candidate is
+    written straight to its row: index copies, no sort, no sync."""
+    n_sc, B = pids.shape
+    dev = pids.device
+    valid = length >= 1
+    vi = valid.to(torch.int32)
+    n_valid = vi.sum(1, dtype=torch.int32)                  # (S,)
+    rank = torch.where(valid, vi.cumsum(1) - 1,
+                       n_valid[:, None] + (1 - vi).cumsum(1) - 1)
+    start = torch.clamp(trees.size, max=limit)[:, None]     # (S, 1)
+    rows = (start + rank).long()                            # (S, B)
+    committed = valid & (start + rank < limit)
+    sc = torch.arange(n_sc, device=dev)[:, None]
+    pids_l = pids.long()
+    node_time = (torch.gather(trees.node_time, 1, pids_l)
+                 + length.float() * dt)
+
+    trees.state[sc, rows] = xnew
+    trees.S[sc, rows] = S_new
+    trees.K[sc, rows] = K_new
+    trees.parent[sc, rows] = pids.to(torch.int32)
+    # the node axis of the time-major edges is minor: index through
+    # (S, N, H, .) views of the buffers and of the rollouts
+    trees.edge_x.permute(0, 3, 1, 2)[sc, rows] = x_seq.permute(0, 3, 1, 2)
+    trees.edge_u.permute(0, 3, 1, 2)[sc, rows] = u_seq.permute(0, 3, 1, 2)
+    trees.edge_len[sc, rows] = length.to(torch.int32)
+    trees.node_time[sc, rows] = node_time
+    trees.in_goal[sc, rows] = in_goal
+    trees.goal_cost[sc, rows] = gcost
+    trees.n_children.scatter_add_(1, pids_l, committed.to(torch.int32))
+    trees.goal_found.logical_or_((in_goal & committed).any(1))
+    trees.size.copy_(torch.clamp(trees.size + n_valid, max=limit))
+    return trees
 
 
 _GOAL_OFFSET = 1e9   # goal-reaching candidates outrank any cost-to-go score

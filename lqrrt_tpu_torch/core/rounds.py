@@ -1,11 +1,14 @@
 """One expansion round: sample -> nearest -> steer -> commit (port of
 lqrrt_tpu/core/rounds.py ``RoundSpec``, ``Candidates``, ``make_expand``,
 ``commit_candidates``, ``make_round`` and ``make_refine_round``; of the
-grow commits, the dense commit-all branch only).
+grow commits, ``commit_candidates`` has the dense commit-all branch only;
+and of the fleet's round, ``parallel/fleet.py``'s vmapped ``make_round``,
+as ``make_fleet_round``).
 
 ``make_expand`` is the per-candidate compute: nearest under the LQR metric,
-gather the parent's state and gain, steer with the first-entry goal stop,
-the endpoint LQR, wrapping of the angle dims, and the goal cost-to-go.
+gather the parent's state and gain, then ``make_extend``: steer with the
+first-entry goal stop, the endpoint LQR, wrapping of the angle dims, and
+the goal cost-to-go.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .commit import commit_batch_dense_all, commit_batch_refine
+from .commit import (commit_batch_dense, commit_batch_dense_all,
+                     commit_batch_refine)
 from .nearest import make_nearest
 from .sampling import sample_batch
 from .steer import make_steer
@@ -23,9 +27,10 @@ from .tree import TreeArrays
 
 class RoundSpec(NamedTuple):
     """Static configuration of an expansion round.  The JAX spec's
-    ``commit_all`` and ``lane_block`` have no counterpart: the dense
-    commit-all is the only commit here, and its block-column kernel takes
-    any offset."""
+    ``commit_all`` and ``lane_block`` have no counterpart: the Planner's
+    grow commit is the dense commit-all, whose block-column kernel takes
+    any offset, and the fleet's round calls the sorted dense commit
+    itself."""
     nstates: int
     ncontrols: int
     batch: int              # candidates per round
@@ -49,28 +54,24 @@ class Candidates(NamedTuple):
     gcost: torch.Tensor     # (B,) f32
 
 
-def make_expand(spec: RoundSpec, dynamics: Callable, lqr: Callable,
+def make_extend(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                 erf: Callable, is_feasible: Callable, error_tol,
                 goal_buffer, wrap_mask=None,
-                saturate: Callable | None = None,
-                nearest_fn: Callable | None = None) -> Callable:
-    """Build expand(tree, xrand, goal) -> Candidates.  ``nearest_fn``
-    replaces the plain blocked scan (e.g. with the nn_const kernel)."""
-    nearest = nearest_fn if nearest_fn is not None else make_nearest(
-        erf, block=min(spec.nn_block, spec.capacity))
+                saturate: Callable | None = None) -> Callable:
+    """Build extend(pids, x0, K0, xrand, goal) -> Candidates: the part of
+    an expansion after the nearest pick, shared by ``make_expand`` and the
+    fleet's round.  Steer with the first-entry goal stop, the endpoint LQR,
+    wrapping of the angle dims, and the goal cost-to-go, for R rows: x0
+    and xrand (R, n), K0 (R, m, n), goal (n,) or one a row (R, n)."""
     steer = make_steer(dynamics, erf, is_feasible, spec.horizon_steps,
                        spec.dt, error_tol, saturate=saturate,
                        goal_buffer=goal_buffer)
     wrap_dims = ([] if wrap_mask is None
                  else [int(d) for d in np.flatnonzero(wrap_mask)])
 
-    def expand(tree: TreeArrays, xrand, goal) -> Candidates:
+    def extend(pids, x0, K0, xrand, goal) -> Candidates:
         from ..ops.angles import wrap_angle
 
-        pids, _ = nearest(tree.state, tree.S, tree.size, xrand)
-        pl = pids.long()
-        x0 = tree.state[pl]
-        K0 = tree.K[pl]
         res = steer(x0, K0, xrand, goal)
         length = res.length
         # effort of the last committed step (step 0 for an empty rollout)
@@ -91,6 +92,26 @@ def make_expand(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                           u_seq=res.u_seq, xnew=xnew,
                           S_new=S_new.contiguous(), K_new=K_new.contiguous(),
                           in_goal=res.in_goal, gcost=gcost)
+
+    return extend
+
+
+def make_expand(spec: RoundSpec, dynamics: Callable, lqr: Callable,
+                erf: Callable, is_feasible: Callable, error_tol,
+                goal_buffer, wrap_mask=None,
+                saturate: Callable | None = None,
+                nearest_fn: Callable | None = None) -> Callable:
+    """Build expand(tree, xrand, goal) -> Candidates.  ``nearest_fn``
+    replaces the plain blocked scan (e.g. with the nn_const kernel)."""
+    nearest = nearest_fn if nearest_fn is not None else make_nearest(
+        erf, block=min(spec.nn_block, spec.capacity))
+    extend = make_extend(spec, dynamics, lqr, erf, is_feasible, error_tol,
+                         goal_buffer, wrap_mask=wrap_mask, saturate=saturate)
+
+    def expand(tree: TreeArrays, xrand, goal) -> Candidates:
+        pids, _ = nearest(tree.state, tree.S, tree.size, xrand)
+        pl = pids.long()
+        return extend(pids, tree.state[pl], tree.K[pl], xrand, goal)
 
     return expand
 
@@ -181,3 +202,54 @@ def make_refine_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
         return rewire(tree, gen, start)
 
     return round_fn
+
+
+def make_fleet_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
+                     erf: Callable, is_feasible: Callable, error_tol,
+                     goal_buffer, wrap_mask=None,
+                     saturate: Callable | None = None) -> Callable:
+    """The fleet's grow round over S scenario trees (JAX's
+    ``jax.vmap(make_round(...))`` of ``parallel/fleet.py``, whose slack
+    takes ``commit_batch_dense``).
+
+    round(trees, xrand (S, B, n), goal_rows (S·B, n)) -> trees (in place).
+    Each scenario's candidates find their nearest node in its own tree
+    (``make_nearest`` over the scenario axis); then the S × B candidates are ONE batch of
+    S·B rows for the steer, the endpoint lqr, the wrap and the goal cost,
+    each row with its scenario's goal (``goal_rows``), and go back to
+    (S, B) for the commit.  ``is_feasible`` sees rows of that batch."""
+    nearest = make_nearest(erf, block=min(spec.nn_block, spec.capacity))
+    extend = make_extend(spec, dynamics, lqr, erf, is_feasible, error_tol,
+                         goal_buffer, wrap_mask=wrap_mask, saturate=saturate)
+
+    def round_fn(trees: TreeArrays, xrand, goal_rows) -> TreeArrays:
+        n_sc, B, n = xrand.shape
+        R = n_sc * B
+        pids, _ = nearest(trees.state, trees.S, trees.size, xrand)
+        sc = torch.arange(n_sc, device=xrand.device)[:, None]
+        pl = pids.long()
+        x0, K0 = trees.state[sc, pl], trees.K[sc, pl]
+        c = extend(pids.reshape(R), x0.reshape(R, n),
+                   K0.reshape((R,) + K0.shape[2:]), xrand.reshape(R, n),
+                   goal_rows)
+        return commit_batch_dense(trees, spec.dt, spec.capacity,
+                                  *scenario_leading(c, n_sc, B))
+
+    return round_fn
+
+
+def scenario_leading(c: Candidates, n_sc: int, B: int) -> Candidates:
+    """Candidates of S·B flattened rows (scenario-major) -> the fleet
+    commit's layout: (S, B, ...) per candidate, (S, H, ., B) edges (a
+    view of the time-major rollouts)."""
+    def rows(t):
+        return t.reshape((n_sc, B) + t.shape[1:])
+
+    def edges(t):
+        return t.reshape(t.shape[:2] + (n_sc, B)).permute(2, 0, 1, 3)
+
+    return Candidates(pids=rows(c.pids), length=rows(c.length),
+                      x_seq=edges(c.x_seq), u_seq=edges(c.u_seq),
+                      xnew=rows(c.xnew), S_new=rows(c.S_new),
+                      K_new=rows(c.K_new), in_goal=rows(c.in_goal),
+                      gcost=rows(c.gcost))

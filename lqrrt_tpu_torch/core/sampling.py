@@ -9,13 +9,21 @@ import torch
 def sample_batch(gen: torch.Generator, batch: int, sample_space, goal_bias,
                  bias_target) -> torch.Tensor:
     """Draw (batch, n) candidates: uniform in sample_space (n, 2), and per
-    dim i the bias target's value with probability goal_bias[i]."""
-    n = sample_space.shape[0]
+    dim i the bias target's value with probability goal_bias[i].
+
+    Leading axes of sample_space (..., n, 2) and bias_target (..., n) draw
+    that many batches at once, (..., batch, n): a fleet's (S, B, n) in one
+    draw from ``gen``, each scenario in its own space toward its own
+    target (JAX draws each from its own key: the streams differ)."""
+    n = sample_space.shape[-2]
+    lead = tuple(sample_space.shape[:-2])
     dev = sample_space.device
-    lo, hi = sample_space[:, 0], sample_space[:, 1]
-    xr = torch.rand((batch, n), generator=gen, device=dev) * (hi - lo) + lo
-    take_goal = torch.rand((batch, n), generator=gen, device=dev) < goal_bias
-    return torch.where(take_goal, bias_target, xr)
+    lo = sample_space[..., None, :, 0]
+    hi = sample_space[..., None, :, 1]
+    shape = lead + (batch, n)
+    xr = torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+    take_goal = torch.rand(shape, generator=gen, device=dev) < goal_bias
+    return torch.where(take_goal, bias_target[..., None, :], xr)
 
 
 def normalize_goal_bias(goal_bias, nstates: int, device) -> torch.Tensor:

@@ -34,11 +34,11 @@ def make_steer(dynamics: Callable, erf: Callable, is_feasible: Callable,
                horizon_steps: int, dt: float, error_tol,
                saturate: Callable | None = None,
                goal_buffer=None) -> Callable:
-    """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal (n,)]).
+    """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal]).
 
     ``error_tol`` is a scalar (2-norm threshold) or a per-dim vector
-    (elementwise |e| <= tol).  ``goal`` is required iff ``goal_buffer`` is
-    set."""
+    (elementwise |e| <= tol).  ``goal``, (n,) or one a row (B, n), is
+    required iff ``goal_buffer`` is set."""
     tol_np = np.asarray(error_tol, np.float32)
     per_dim = tol_np.ndim > 0
     tol = Const(tol_np)

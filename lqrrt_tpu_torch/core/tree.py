@@ -6,6 +6,11 @@ which is the steer's natural output stacking; ``parent`` and ``edge_len``
 are int32; ``size`` and ``goal_found`` are 0-d tensors on the device, so a
 chunk never has to ask the host for them.  Unlike JAX's immutable arrays,
 the port updates these tensors IN PLACE (commit, stash, reseed).
+
+A fleet (``parallel/fleet.py``) holds S trees in one ``TreeArrays`` with a
+leading scenario axis on every field: ``state`` (S, N, n), ``edge_x``
+(S, H, n, N), ``size`` and ``goal_found`` (S,).  ``capacity``,
+``valid_mask``, ``init_tree`` and ``best_node`` serve both forms.
 """
 from __future__ import annotations
 
@@ -32,10 +37,12 @@ class TreeArrays(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.state.shape[0]
+        return self.state.shape[-2]
 
     def valid_mask(self) -> torch.Tensor:
-        return torch.arange(self.capacity, device=self.size.device) < self.size
+        """(..., N) bool: rows below each tree's size."""
+        return (torch.arange(self.capacity, device=self.size.device)
+                < self.size[..., None])
 
 
 def init_tree(capacity: int, horizon_steps: int, nstates: int,
@@ -46,41 +53,49 @@ def init_tree(capacity: int, horizon_steps: int, nstates: int,
     ``slack`` spare rows past the capacity take the dense commit's block;
     ``root_pad`` > 1 fills rows [1, root_pad) with inert copies of the root
     (row 0 wins every NN tie) so commits start at aligned columns — the
-    same layout as the JAX tree, row for row."""
+    same layout as the JAX tree, row for row.
+
+    Leading axes of ``x0`` (n,) seed that many trees at once: x0 (S, n),
+    S0 (S, n, n), K0 (S, m, n), goal_cost0 and in_goal0 (S,) give a fleet
+    of S trees, each seeded as JAX's ``jax.vmap(init_tree)``."""
     N, H, n, m = capacity + slack, horizon_steps, nstates, ncontrols
     P = max(int(root_pad), 1)
+    lead = tuple(x0.shape[:-1])
     dev = x0.device
     f32, i32 = torch.float32, torch.int32
-    state = torch.zeros((N, n), dtype=f32, device=dev)
-    state[:P] = x0
-    S = torch.zeros((N, n, n), dtype=f32, device=dev)
-    S[:P] = S0
-    K = torch.zeros((N, m, n), dtype=f32, device=dev)
-    K[:P] = K0
-    in_goal = torch.zeros((N,), dtype=torch.bool, device=dev)
-    in_goal[0] = in_goal0
-    goal_cost = torch.full((N,), float("inf"), dtype=f32, device=dev)
-    goal_cost[0] = goal_cost0
+
+    def zeros(*shape, dtype=f32):
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
+
+    state = zeros(N, n)
+    state[..., :P, :] = x0[..., None, :]
+    S = zeros(N, n, n)
+    S[..., :P, :, :] = S0[..., None, :, :]
+    K = zeros(N, m, n)
+    K[..., :P, :, :] = K0[..., None, :, :]
+    in_goal = zeros(N, dtype=torch.bool)
+    in_goal[..., 0] = in_goal0
+    goal_cost = torch.full(lead + (N,), float("inf"), dtype=f32, device=dev)
+    goal_cost[..., 0] = goal_cost0
     return TreeArrays(
         state=state, S=S, K=K,
-        parent=torch.full((N,), -1, dtype=i32, device=dev),
-        edge_x=torch.zeros((H, n, N), dtype=f32, device=dev),
-        edge_u=torch.zeros((H, m, N), dtype=f32, device=dev),
-        edge_len=torch.zeros((N,), dtype=i32, device=dev),
-        node_time=torch.zeros((N,), dtype=f32, device=dev),
+        parent=torch.full(lead + (N,), -1, dtype=i32, device=dev),
+        edge_x=zeros(H, n, N), edge_u=zeros(H, m, N),
+        edge_len=zeros(N, dtype=i32), node_time=zeros(N),
         in_goal=in_goal, goal_cost=goal_cost,
-        n_children=torch.zeros((N,), dtype=i32, device=dev),
-        size=torch.full((), P, dtype=i32, device=dev),
-        goal_found=in_goal[0].clone())
+        n_children=zeros(N, dtype=i32),
+        size=torch.full(lead, P, dtype=i32, device=dev),
+        goal_found=in_goal[..., 0].clone())
 
 
 def best_node(tree: TreeArrays) -> torch.Tensor:
     """Best branch: among goal nodes the shortest duration, else the least
     cost-to-go.  ``torch.argmin`` returns the first minimum, like
-    ``jnp.argmin``, so the lowest index wins ties.  Returns a 0-d int64."""
+    ``jnp.argmin``, so the lowest index wins ties.  Returns a 0-d int64,
+    or (S,) for a fleet (JAX's ``jax.vmap(best_node)``)."""
     valid = tree.valid_mask()
     t_masked = torch.where(tree.in_goal & valid, tree.node_time,
                            float("inf"))
     c_masked = torch.where(valid, tree.goal_cost, float("inf"))
-    return torch.where(tree.goal_found, torch.argmin(t_masked),
-                       torch.argmin(c_masked))
+    return torch.where(tree.goal_found, torch.argmin(t_masked, dim=-1),
+                       torch.argmin(c_masked, dim=-1))

@@ -187,4 +187,5 @@ def grid_free_data(origin, resolution: float,
         hit = occ.reshape(-1)[flat] != 0
         return ~torch.where(inb, hit, True)
 
+    is_feasible.grid_data = True    # the fleet refuses per-scenario grids
     return is_feasible
