@@ -126,7 +126,17 @@ exits non-zero:
    the peak memory, the budget, capacity and plan checks; 64 rounds with
    a goal rate > 0.5 and an fp64 audit of 16 trees; a round's parts, its
    busy share and a sync-free round; per-scenario worlds (a circle a
-   scenario); one round card vs CPU at 8 scenarios; the fleet demo.
+   scenario) and per-scenario grids (the buoy raster moved a scenario,
+   with a peak-memory gate against a per-row copy); one round card vs CPU
+   at 8 scenarios; the fleet demo;
+13. multi-device planning (``lqrrt_tpu_torch/parallel``) on an NCCL
+   group of world size 1: a mesh round (gather) bit for bit against the
+   plain round, a topk round against the CPU's, the one-shard map round
+   against steering under the whole grid; full-width boat replans with
+   ``Planner(mesh=...)`` (gather on the restart path, topk on the host
+   loop, a sharded grid with the restart stash) beside the replan without
+   a mesh, kernels A and B counted; a sync-free mesh chunk; the
+   collectives bench at world size 1.
 
 The last two lines are a JSON object with the kernels' checks and times and
 ``{"ok": true, "device": {...}}``.  In the kernels line every ``ms``,
@@ -142,6 +152,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2129,7 +2140,7 @@ def refine_parts(planner, prob, nearest_fn, device, xr, start):
                          nearest_fn=nearest_fn)
     round_fn = make_refine_round(
         *common, saturate=prob["saturate"], nearest_fn=nearest_fn,
-        draw=lambda gen, nb, ss, gb, bt, prev_plan: xr_d[:nb])
+        xrand_gen=lambda gen, nb: xr_d[:nb])
     st = torch.tensor(start, device=device)
     return spec, expand, lambda tree, goal: round_fn(
         tree, None, goal, None, None, None, start=st)
@@ -2352,7 +2363,12 @@ def phase_fleet(smi):
     (b) Per-scenario worlds: a circle of its own for each of the 1024
     scenarios (``circles_free_data``, ``per_scenario_data=True``), 16
     rounds; no scenario's node inside its own circle plus margin, and
-    some inside another scenario's.
+    some inside another scenario's.  Then a grid of its own for each
+    (``grid_free_data`` over (1024, 96, 200) grids: the boat's buoy field
+    at 0.25 m, moved by U(-3, 3) m a scenario), 16 rounds: no node in its
+    own scenario's occupied cells, some in the next scenario's, and the
+    peak memory less the circles run's below twice the grids' bytes (a
+    grid copied to each steered row would be 1.26 GB).
     (c) One round at S = 8, batch 64, capacity 1024 on the card and on the
     CPU from the same trees and (S, B, n) candidates: the trees equal
     within the round-parity phase's tolerances.
@@ -2364,7 +2380,9 @@ def phase_fleet(smi):
     from lqrrt_tpu_torch.core.steer import make_steer
     from lqrrt_tpu_torch.core.tree import TreeArrays
     from lqrrt_tpu_torch.demos import fleet_demo
-    from lqrrt_tpu_torch.ops.collision import circles_free_data
+    from lqrrt_tpu_torch.models import boat
+    from lqrrt_tpu_torch.ops.collision import (circles_free_data,
+                                               grid_free_data)
     from lqrrt_tpu_torch.parallel import FleetPlanner
     from lqrrt_tpu_torch.tools import bench_fleet
 
@@ -2500,6 +2518,9 @@ def phase_fleet(smi):
     radii = rng.uniform(1.5, 3.0, (S, 1)).astype(np.float32)
     margin = 1.0
     pred = circles_free_data(margin=margin)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     wf = FleetPlanner(
         prob["dynamics"], prob["lqr"], prob["erf"], pred,
         prob["constraints"].goal_buffer, horizon=prob["horizon"],
@@ -2525,7 +2546,62 @@ def phase_fleet(smi):
         f"next scenario's: {other}")
     if own or not other:
         raise AssertionError("fleet: per-scenario worlds not kept apart")
+    torch.cuda.synchronize()
+    peak_circles = torch.cuda.max_memory_allocated()
     del wf
+
+    # (b2) a grid of its own for each scenario: the buoy field moved
+    centers0, radii0 = prob["obstacles"]
+    shift = rng.uniform(-3.0, 3.0, (S, 1, 2)).astype(np.float32)
+    g0 = boat.buoy_grid(centers0, radii0)
+    Hg, Wg = g0.occ.shape
+    gx = g0.origin[0] + (np.arange(Wg) + 0.5) * g0.resolution
+    gy = g0.origin[1] + (np.arange(Hg) + 0.5) * g0.resolution
+    occ = np.zeros((S, Hg, Wg), bool)
+    for k in range(len(radii0)):
+        cx = centers0[k, 0] + shift[:, 0, 0]
+        cy = centers0[k, 1] + shift[:, 0, 1]
+        occ |= ((gx[None, None, :] - cx[:, None, None]) ** 2
+                + (gy[None, :, None] - cy[:, None, None]) ** 2
+                <= (radii0[k] + 1.0) ** 2)
+    gpred = grid_free_data(g0.origin, g0.resolution)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gf = FleetPlanner(
+        prob["dynamics"], prob["lqr"], prob["erf"], gpred,
+        prob["constraints"].goal_buffer, horizon=prob["horizon"],
+        dt=prob["dt"], n_scenarios=S, batch_size=args.batch, capacity=cap,
+        nn_block=256, saturate=prob["saturate"], wrap_dims=prob["wrap_dims"],
+        per_scenario_data=True, device=dev)
+    st = gf.plan(x0s, goals, prob["sample_space"], goal_bias=0.25,
+                 rounds=16, feasibility_data=occ)
+    torch.cuda.synchronize()
+    peak_grids = torch.cuda.max_memory_allocated()
+    live = (torch.arange(gf.trees.state.shape[1], device=dev)
+            < gf.trees.size[:, None])
+    occ_d = torch.as_tensor(occ, device=dev)
+    own = int((~gpred(gf.trees.state, None, occ_d) & live).sum())
+    other = int((~gpred(gf.trees.state, None, occ_d.roll(1, 0))
+                 & live).sum())
+    grid_bytes = occ.nbytes
+    log(f"fleet per-scenario grids [{smi}]: {S} scenarios, ({S}, {Hg}, "
+        f"{Wg}) grids ({grid_bytes / 2**20:.1f} MiB on the device), 16 "
+        f"rounds, elapsed_s={st['elapsed_s']:.4f} goal_rate="
+        f"{st['goal_found'].mean():.4f} mean_nodes={st['sizes'].mean():.1f};"
+        f" nodes in their own occupied cells: {own}, in the next "
+        f"scenario's: {other}; peak memory {peak_grids / 2**30:.3f} GiB "
+        f"against {peak_circles / 2**30:.3f} GiB with circles (difference "
+        f"{(peak_grids - peak_circles) / 2**20:.1f} MiB, gate < 2 x the "
+        f"grids' {grid_bytes / 2**20:.1f} MiB; one grid a steered row "
+        f"would be {S * args.batch * Hg * Wg / 2**30:.2f} GiB)")
+    if own or not other:
+        raise AssertionError("fleet: per-scenario grids not kept apart")
+    if peak_grids - peak_circles >= 2 * grid_bytes:
+        raise AssertionError("fleet: per-scenario grids took "
+                             f"{peak_grids - peak_circles} B past the "
+                             "circles run: a copy of the grids")
+    del gf
 
     # (c) one round on the card against the CPU
     Sc = 8
@@ -2581,6 +2657,313 @@ def phase_fleet(smi):
     if rc != 0:
         raise AssertionError(f"fleet demo exited {rc}")
     return rec
+
+
+MESH_B, MESH_CAP, MESH_TOPK = 8192, 32768, 1024
+MESH_SPLIT_REPS = 5
+
+
+def tree_clone(tree):
+    return type(tree)(*[t.clone() for t in tree])
+
+
+def trees_agree(a, b, label):
+    """The round-parity tolerances on two trees (any devices): size and
+    goal_found equal, >= 99% of the live rows with the same parent and
+    edge length, states and the edges' committed steps within TOL_STEER
+    there (the steps past an edge's length are padding)."""
+    a = {k: v.cpu() for k, v in a._asdict().items()}
+    b = {k: v.cpu() for k, v in b._asdict().items()}
+    live = torch.arange(a["state"].shape[0]) < a["size"]
+    rows = (a["parent"] == b["parent"]) & (a["edge_len"] == b["edge_len"])
+    match = float((rows & live).sum() / live.sum())
+    dx = float((a["state"] - b["state"]).abs()[rows & live].max())
+    steps = (torch.arange(a["edge_x"].shape[0])[:, None, None]
+             < a["edge_len"][None, None, :])
+    de = float(torch.where(steps, (a["edge_x"] - b["edge_x"]).abs(),
+                           0.0).amax((0, 1))[rows & live].max())
+    ok = (bool(torch.equal(a["size"], b["size"]))
+          and bool(torch.equal(a["goal_found"], b["goal_found"]))
+          and match >= 0.99 and dx <= TOL_STEER and de <= TOL_STEER)
+    log(f"{label}: size {int(a['size'])} / {int(b['size'])}, "
+        f"row_match={match:.4f} max_abs_state_err={dx:.3e} "
+        f"max_abs_edge_x_err={de:.3e}")
+    if not ok:
+        raise AssertionError(f"{label}: the trees disagree")
+
+
+def phase_mesh(smi):
+    """Multi-device planning (``lqrrt_tpu_torch/parallel``) on this one
+    card: an NCCL process group of world size 1 (a ``FileStore`` in a
+    temporary directory), meshes from ``init_device_mesh``, the group
+    destroyed at the end.  At world size 1 every collective is a copy on
+    the device; the multi-rank behaviour is held against JAX on the CPU.
+
+    (1) gather parity: one mesh round (gather) and one plain round from
+    the same grown tree and the same (B, n) candidates, the boat at batch
+    8192, capacity 32768, kernels A and B on both: the trees equal bit for
+    bit; then each round timed from clones of that tree, and the gather
+    alone.  (2) topk parity: a topk round (k = 1024) on the card against the
+    same round on the CPU (plain versions; the k best by a stable sort of
+    the scores), batch 8192, capacity 16384: the round-parity tolerances.
+    (3) exact truncation: ``make_map_sharded_round`` with one shard (no
+    predicate while steering, the boat's buoy raster at 0.25 m after)
+    against the plain round steering under ``grid_free_data`` on the whole
+    grid, the same candidates, batch 8192, capacity 32768: the same
+    tolerances.  (4) full-width replans (batch 8192, capacity 32768, 2.0
+    s) of the boat's ``default_problem()``: without a mesh (seeds 0 and
+    1: the spread another random stream gives), then
+    ``Planner(mesh=...)`` with ``collective="gather"`` (the fused restart
+    path), ``collective="topk"`` with k = 1024 and ``refine=False`` (the
+    host loop, where topk takes effect), and a one-shard
+    ``feasibility_grid`` (the buoy field rasterised at 0.05 m, no other
+    predicate; the host loop with the restart stash): the goal, the plan's
+    checks (off every occupied cell of the full grid), kernel A launched in
+    each, kernel B in the first two (the grid round takes the sorted
+    commit).  (5) one mesh restart chunk under sync-debug mode 'error'.
+    (6) ``tools/bench_collectives.py``'s port at world size 1.  Returns
+    each mesh replan's launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "store"), 1)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+    try:
+        return mesh_steps(smi, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_steps(smi, dev):
+    from lqrrt_tpu_torch.core.rounds import (Candidates, RoundSpec,
+                                             commit_candidates, make_expand,
+                                             make_round)
+    from lqrrt_tpu_torch.core.sampling import sample_batch
+    from lqrrt_tpu_torch.core.tree import init_tree
+    from lqrrt_tpu_torch.models import boat
+    from lqrrt_tpu_torch.ops.collision import grid_free_data
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import make_nearest_const
+    from lqrrt_tpu_torch.parallel import mesh as meshlib
+    from lqrrt_tpu_torch.parallel.map_sharded import (ShardedGrid,
+                                                      make_map_sharded_round)
+    from lqrrt_tpu_torch.parallel.sharded import (candidate_scores,
+                                                  gather_candidates,
+                                                  make_sharded_round)
+    from lqrrt_tpu_torch.tools import bench_collectives
+
+    mesh = meshlib.make_mesh(1, device_type=dev)
+    prob = boat.default_problem()
+    n, m, B = 6, 3, MESH_B
+    H = int(round(prob["horizon"] / prob["dt"]))
+    wrap_mask = np.zeros(n, bool)
+    wrap_mask[list(prob["wrap_dims"])] = True
+    gbuf = prob["constraints"].goal_buffer
+    args = (prob["dynamics"], prob["lqr"], prob["erf"])
+    common = dict(wrap_mask=wrap_mask, saturate=prob["saturate"])
+    nn_a = make_nearest_const(WRAP)
+    rng = np.random.default_rng(41)
+    lo, hi = prob["sample_space"][:, 0], prob["sample_space"][:, 1]
+
+    def candidates(device=dev):
+        x = rng.uniform(lo, hi, (B, n)).astype(np.float32)
+        x[:, 0] *= 0.4                 # near the young tree
+        return torch.as_tensor(x, device=device)
+
+    def seed_tree(cap, device=dev):
+        spec = RoundSpec(n, m, B, H, cap, prob["dt"], nn_block=1024,
+                         slack=B)
+        x0 = torch.as_tensor(prob["x0"], device=device)
+        S0, K0 = prob["lqr"](x0, torch.zeros(m, device=device))
+        tree = init_tree(cap, H, n, m, x0, S0, K0,
+                         torch.tensor(1e9, device=device),
+                         torch.tensor(False, device=device), slack=B,
+                         root_pad=512)
+        return spec, tree
+
+    goal = torch.as_tensor(prob["goal"], device=dev)
+    feas = prob["constraints"].is_feasible
+
+    # (1) gather parity, bit for bit
+    spec, tree = seed_tree(MESH_CAP)
+    xr = candidates()
+    make_round(spec, *args, feas, 0.05, gbuf, xrand_gen=lambda g, b: xr,
+               nearest_fn=nn_a, **common)(tree, None, goal, None, None, None)
+    xr = candidates()
+    rounds = {
+        "plain": make_round(spec, *args, feas, 0.05, gbuf,
+                            xrand_gen=lambda g, b: xr, nearest_fn=nn_a,
+                            **common),
+        "mesh": make_sharded_round(spec, mesh, *args, feas, 0.05, gbuf,
+                                   xrand_gen=lambda g, b: xr,
+                                   nearest_fn=nn_a, **common)}
+    plain, meshed = tree_clone(tree), tree_clone(tree)
+    rounds["plain"](plain, None, goal, None, None, None)
+    rounds["mesh"](meshed, None, goal, None, None, None)
+    torch.cuda.synchronize()
+    same = {f: bool(torch.equal(a, b))
+            for f, a, b in zip(plain._fields, plain, meshed)}
+    log(f"mesh gather parity (B={B}, capacity={MESH_CAP}, world size 1): "
+        f"size {int(meshed.size)}, bit for bit {all(same.values())}")
+    if not all(same.values()):
+        raise AssertionError(f"mesh gather round differs: {same}")
+    # the round's split: each round from a clone of the same tree with the
+    # same candidates, alternated, CUDA events; the gather alone
+    cand = make_expand(spec, *args, feas, 0.05, gbuf, nearest_fn=nn_a,
+                       **common)(tree, xr, goal)
+    gather_ms = cuda_ms(lambda: gather_candidates(cand, mesh, "dp"))
+    del cand
+    round_ms = {k: [] for k in rounds}
+    for _ in range(MESH_SPLIT_REPS):
+        for k, rf in rounds.items():
+            t = tree_clone(tree)
+            torch.cuda.synchronize()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            rf(t, None, goal, None, None, None)
+            e.record()
+            e.synchronize()
+            round_ms[k].append(s.elapsed_time(e))
+            del t
+    med = {k: statistics.median(v) for k, v in round_ms.items()}
+    log(f"mesh round split [{smi}] (B={B}, capacity {MESH_CAP}, world size "
+        f"1, median of {MESH_SPLIT_REPS}): plain round {med['plain']:.3f} "
+        f"ms, mesh gather round {med['mesh']:.3f} ms (difference "
+        f"{med['mesh'] - med['plain']:+.3f} ms), the gather alone "
+        f"{gather_ms:.3f} ms; plain {[round(v, 3) for v in round_ms['plain']]}"
+        f", mesh {[round(v, 3) for v in round_ms['mesh']]}")
+
+    # (2) topk parity: the card's mesh round against the CPU's plain one
+    spec2, t2 = seed_tree(MESH_CAP // 2)
+    make_round(spec2, *args, feas, 0.05, gbuf,
+               xrand_gen=lambda g, b: candidates(), nearest_fn=nn_a,
+               **common)(t2, None, goal, None, None, None)
+    xr = candidates()
+    t_cpu = type(t2)(*[t.cpu() for t in t2])
+    make_sharded_round(spec2, mesh, *args, feas, 0.05, gbuf,
+                       xrand_gen=lambda g, b: xr, nearest_fn=nn_a,
+                       collective="topk", topk=MESH_TOPK, **common)(
+        t2, None, goal, None, None, None)
+    c = make_expand(spec2, *args, feas, 0.05, gbuf, **common)(
+        t_cpu, xr.cpu(), goal.cpu())
+    score = candidate_scores(t_cpu, c, spec2.dt)
+    order = torch.sort(score, stable=True).indices[:MESH_TOPK]
+    win = Candidates(**{f: (v[..., order] if f in ("x_seq", "u_seq")
+                            else v[order]) for f, v in c._asdict().items()})
+    win = win._replace(length=torch.where(score[order] < torch.inf,
+                                          win.length, 0))
+    commit_candidates(spec2, t_cpu, win)
+    trees_agree(t2, t_cpu, f"mesh topk parity card vs cpu (B={B}, "
+                f"k={MESH_TOPK}, capacity {MESH_CAP // 2})")
+
+    # (3) exact truncation on one map shard
+    centers, radii = prob["obstacles"]
+    g = boat.buoy_grid(centers, radii, 0.25)
+    map_mesh = meshlib.make_mesh(1, axis="map", device_type=dev)
+    grid = ShardedGrid(g.occ, g.origin, g.resolution, 1)
+    free = lambda x, u: torch.ones(x.shape[:-1], dtype=torch.bool,  # noqa
+                                   device=x.device)
+    ss = torch.as_tensor(prob["sample_space"], device=dev)
+    gb = torch.tensor([0.3, 0.3, 0, 0, 0, 0], device=dev)
+    gen_a = torch.Generator(device=dev).manual_seed(7)
+    gen_b = torch.Generator(device=dev).manual_seed(7)
+    cut, whole = tree_clone(tree), tree_clone(tree)
+    make_map_sharded_round(spec, map_mesh, grid, *args, free, 0.05, gbuf,
+                           nearest_fn=nn_a, **common)(
+        cut, grid.slab(0, dev), gen_a, goal, ss, gb, goal)
+    occ = torch.as_tensor(g.occ, device=dev)
+    pred = grid_free_data(g.origin, g.resolution)
+    c = make_expand(spec, *args, lambda x, u: pred(x, u, occ), 0.05, gbuf,
+                    nearest_fn=nn_a, **common)(
+        whole, sample_batch(gen_b, B, ss, gb, goal), goal)
+    commit_candidates(spec, whole, c, commit_all=False)
+    trees_agree(cut, whole, "mesh exact truncation, one map shard vs the "
+                f"whole grid while steering (B={B}, capacity {MESH_CAP})")
+
+    # (4) full-width replans, beside the replan without a mesh
+    bias = [0.3, 0.3, 0, 0, 0, 0]
+    counters = planner_counters()
+    rates, out = {}, {}
+    # the mesh planner draws its candidates from ``rank_generator``, the
+    # plain one from its seed's generator: a second seed shows the spread
+    # that another stream alone gives
+    for seed in (0, 1):
+        base = full_width_planner(prob, seed=seed)
+        base.warmup(prob["x0"], prob["sample_space"], goal_bias=bias)
+        replan(f"mesh phase: boat without a mesh, seed {seed}", prob, base,
+               bias, 2.0, smi, counters)
+        rates[f"no mesh seed {seed}"] = base.stats["expansions_per_s"]
+        del base
+    fine = boat.buoy_grid(centers, radii, 0.05)
+    dp_map = meshlib.make_mesh_dp_map(1, 1, device_type=dev)
+    free_prob = boat.default_problem(obstacles=False)
+    for label, pr, kw in (
+            ("gather", prob, dict(mesh=mesh)),
+            ("topk", prob, dict(mesh=mesh, collective="topk",
+                                topk=MESH_TOPK, refine=False)),
+            ("grid", free_prob, dict(mesh=dp_map, feasibility_grid=ShardedGrid(
+                fine.occ, fine.origin, fine.resolution, 1)))):
+        planner = full_width_planner(pr, **kw)
+        planner.warmup(pr["x0"], pr["sample_space"], goal_bias=bias)
+        name = f"mesh {label} boat"
+        reached, launches = replan(name, pr, planner, bias, 2.0, smi,
+                                   counters)
+        st = planner.stats
+        rates[label] = st["expansions_per_s"]
+        if not reached:
+            raise AssertionError(f"{name}: goal not reached: {st}")
+        check_plan(pr, planner)
+        if label == "grid":
+            if kw["feasibility_grid"].occupied_host(
+                    planner.x_seq[:, :2]).any():
+                raise AssertionError(f"{name}: a plan state on the grid")
+        need = ("nn_const",) if label == "grid" else ("nn_const",
+                                                      "block_write")
+        if min(launches[k] for k in need) < 1:
+            raise AssertionError(f"{name}: a kernel was not launched: "
+                                 f"{launches}")
+        kinds = sorted({k[3] for k in planner._chunk_cache})
+        log(f"{name} checks: goal, plan from x0, feasible, in the goal box, "
+            f"dynamically consistent{', off the grid' * (label == 'grid')};"
+            f" chunks {kinds}, restarts {st['restarts']}, launches "
+            f"{launches}")
+        out[f"mesh {label}"] = launches
+        if label == "gather":
+            chunk = planner._get_restart_chunk(None, 0)
+            x0 = planner._tensor(prob["x0"])
+            cur = planner._seed_tree(x0, planner.goal)
+            best = planner._seed_tree(x0, planner.goal)
+            pool = planner._tensor(np.linspace(prob["x0"], prob["goal"],
+                                               256))
+            score = planner._tensor(planner._RSCORE0)
+            gbt = planner._tensor(bias)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                chunk(cur, best, pool, score, 0, planner.goal, ss, gbt,
+                      planner.goal)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            enqueue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            n_cycles, F = planner._restart_chunk_shape
+            log(f"mesh sync-free chunk ({n_cycles}x{F} rounds, gather "
+                f"each round) under sync_debug_mode='error': ok, "
+                f"enqueue_s={enqueue:.3f} total_s="
+                f"{time.perf_counter() - t0:.3f}")
+        del planner
+    log(f"mesh replans [{smi}], expansions/s at 2.0 s, world size 1: "
+        + " ".join(f"{k}={v:.1f}" for k, v in rates.items()))
+
+    # (6) the collectives bench, one rank
+    bargs = bench_collectives.parse_args(["--device", dev])
+    for rec in bench_collectives.bench(bargs, mesh):
+        log(f"bench_collectives (world size 1: local copies, not "
+            f"interconnect numbers) [{smi}]: {json.dumps(rec)}")
+    return out
 
 
 def main() -> int:
@@ -2682,6 +3065,7 @@ def main() -> int:
     timed("host surface", phase_host_surface, rewire_planner, smi)
     l_demos = timed("demos", phase_demos, smi)
     timed("fleet", phase_fleet, smi)
+    l_mesh = timed("mesh", phase_mesh, smi)
     # every planner path's launches of A and B, the paths of 8, 9 and 10
     paths = {"boat": l_boat, "car": l_car, "quadrotor": l_quad,
              "grid boat": l_grid,
@@ -2689,7 +3073,7 @@ def main() -> int:
              **{f"double integrator field {i}": v
                 for i, v in enumerate(l_dyn)},
              "double integrator leaf_rewire": l_rewire,
-             **{f"demo {k}": v for k, v in l_demos.items()}}
+             **{f"demo {k}": v for k, v in l_demos.items()}, **l_mesh}
     a_paths = {k: v["nn_const"] for k, v in paths.items()
                if v.get("nn_const")}
     c_paths = {"car": l_car["nn_general"], "quadrotor": l_quad["nn_general"],

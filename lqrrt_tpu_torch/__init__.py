@@ -22,9 +22,14 @@ Models: ``models.boat`` (a constant LQR), ``models.car`` and
 ``models.quadrotor`` (an LQR re-linearized and re-solved at every node),
 ``models.double_integrator``.
 
-Fleet: ``parallel.FleetPlanner`` grows many scenarios' trees at once on
-one device (the boat fleet of ``demos/fleet_demo.py`` and
-``tools/bench_fleet.py``).
+Fleet: ``parallel.FleetPlanner`` grows many scenarios' trees at once (the
+boat fleet of ``demos/fleet_demo.py`` and ``tools/bench_fleet.py``).
+
+Several devices: one process a device under ``torch.distributed``
+(``parallel.mesh``: ``init_distributed``, ``make_mesh`` and its 2-D
+forms); ``Planner(mesh=...)`` shards each round's candidates over ranks,
+``Planner(mesh=..., feasibility_grid=parallel.map_sharded.ShardedGrid(...))``
+shards an occupancy grid, ``FleetPlanner(mesh=...)`` the scenarios.
 
 Host side: ``Tree`` (``Planner.get_tree``'s snapshot), ``utils``
 (checkpoints, metrics sinks, the replan watchdog, the phase timer) and

@@ -21,6 +21,24 @@ def _all_true(x, u):
 _all_true.circles = (np.zeros((0, 2), np.float32), np.zeros((0,), np.float32))
 
 
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of a dict / list / tuple tree (and of ``rest``,
+    trees of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def host_leaf(a) -> torch.Tensor:
+    """One leaf of feasibility_data as a tensor, floats as float32."""
+    t = a.detach() if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a))
+    return t.float() if t.is_floating_point() else t
+
+
 class Constraints:
     def __init__(self, nstates: int, ncontrols: int, goal_buffer,
                  search_buffer=None, is_feasible: Callable = None,

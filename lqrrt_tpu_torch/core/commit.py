@@ -1,9 +1,13 @@
 """Batch commits of steered candidates into the tree (port of
-lqrrt_tpu/core/commit.py ``commit_batch_dense_all``, ``commit_batch_refine``
-and, over a fleet's scenario axis, ``commit_batch_dense``).
+lqrrt_tpu/core/commit.py: ``commit_batch``, ``commit_batch_dense`` on one
+tree or over a fleet's scenario axis, ``commit_batch_dense_all`` and
+``commit_batch_refine``).
 
 The JAX functions donate the tree's buffers and return new arrays; this
 port MUTATES the given tree's tensors in place and returns the same tree.
+A write the reference drops (``mode="drop"`` at row N) is here a write of
+the row's own value back to it, at rows distinct from every kept write,
+or an add of zero: nothing syncs, and no two writes race.
 """
 from __future__ import annotations
 
@@ -11,6 +15,58 @@ import torch
 
 from ..ops.kernels.write_kernel import block_write
 from .tree import TreeArrays
+
+
+def commit_batch(tree: TreeArrays, dt: float, pids, length, x_seq, u_seq,
+                 xnew, S_new, K_new, in_goal, gcost) -> TreeArrays:
+    """The masked scatter commit (JAX's ``commit_batch``): every candidate
+    with ``length >= 1`` lands at row ``size + (its rank among them)``,
+    in batch order, while that row is below the array's N rows (slack
+    included, as JAX's ``tree.capacity``); the rest are dropped and
+    ``size`` saturates at N.
+
+    Candidate k is given the distinct row ``(size + j_k) % N``: j_k its
+    rank among the kept candidates, or n_kept plus its rank among the
+    dropped ones; a dropped candidate's row is written back with its own
+    value.  So every write is an ``index_copy_`` at distinct rows, which
+    needs B <= N."""
+    B = pids.shape[0]
+    N = tree.capacity
+    if B > N:
+        raise ValueError(f"commit_batch needs batch {B} <= the tree's "
+                         f"{N} rows")
+    valid = length >= 1
+    vi = valid.to(torch.int32)
+    pos = tree.size + vi.cumsum(0) - 1
+    ok = valid & (pos < N)
+    oki = ok.to(torch.int32)
+    n_ok = oki.sum(dtype=torch.int32)
+    j = torch.where(ok, oki.cumsum(0) - 1, n_ok + (1 - oki).cumsum(0) - 1)
+    rows = ((tree.size + j) % N).long()
+    pids_l = pids.long()
+    node_time = tree.node_time[pids_l] + length.float() * dt
+
+    def put(buf, new, dim=0):
+        old = buf.index_select(dim, rows)
+        shape = [1] * buf.dim()
+        shape[dim] = B
+        buf.index_copy_(dim, rows, torch.where(ok.reshape(shape),
+                                               new.to(buf.dtype), old))
+
+    put(tree.state, xnew)
+    put(tree.S, S_new)
+    put(tree.K, K_new)
+    put(tree.parent, pids)
+    put(tree.edge_x, x_seq, dim=2)
+    put(tree.edge_u, u_seq, dim=2)
+    put(tree.edge_len, length)
+    put(tree.node_time, node_time)
+    put(tree.in_goal, in_goal)
+    put(tree.goal_cost, gcost)
+    tree.n_children.index_add_(0, torch.where(ok, pids_l, 0), oki)
+    tree.goal_found.logical_or_((in_goal & ok).any())
+    tree.size.add_(n_ok)
+    return tree
 
 
 def commit_batch_dense_all(tree: TreeArrays, dt: float, limit: int, pids,
@@ -58,7 +114,8 @@ def commit_batch_dense(trees: TreeArrays, dt: float, limit: int, pids,
                        length, x_seq, u_seq, xnew, S_new, K_new, in_goal,
                        gcost) -> TreeArrays:
     """The sorted dense commit of S scenario trees at once (JAX's
-    ``jax.vmap(commit_batch_dense)``, the fleet's commit).
+    ``jax.vmap(commit_batch_dense)``, the fleet's commit), or of one tree
+    (pids (B,), JAX's ``commit_batch_dense``: the map-sharded rounds').
 
     Trees are scenario-leading (``core/tree.py``); the candidates are too:
     pids, length, in_goal, gcost (S, B), x_seq (S, H, n, B), u_seq
@@ -72,6 +129,12 @@ def commit_batch_dense(trees: TreeArrays, dt: float, limit: int, pids,
     + n_valid, limit)``.  The rank is the stable sort's inverse
     permutation, counted with two prefix sums, so each candidate is
     written straight to its row: index copies, no sort, no sync."""
+    if pids.dim() == 1:   # one tree: a scenario axis of 1, views of it
+        one = TreeArrays(*(f.unsqueeze(0) for f in trees))
+        commit_batch_dense(one, dt, limit, *(a.unsqueeze(0) for a in (
+            pids, length, x_seq, u_seq, xnew, S_new, K_new, in_goal,
+            gcost)))
+        return trees
     n_sc, B = pids.shape
     dev = pids.device
     valid = length >= 1

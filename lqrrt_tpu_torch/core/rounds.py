@@ -1,9 +1,8 @@
 """One expansion round: sample -> nearest -> steer -> commit (port of
 lqrrt_tpu/core/rounds.py ``RoundSpec``, ``Candidates``, ``make_expand``,
-``commit_candidates``, ``make_round`` and ``make_refine_round``; of the
-grow commits, ``commit_candidates`` has the dense commit-all branch only;
-and of the fleet's round, ``parallel/fleet.py``'s vmapped ``make_round``,
-as ``make_fleet_round``).
+``commit_candidates``, ``make_round`` and ``make_refine_round``; and of
+the fleet's round, ``parallel/fleet.py``'s vmapped ``make_round``, as
+``make_fleet_round``).
 
 ``make_expand`` is the per-candidate compute: nearest under the LQR metric,
 gather the parent's state and gain, then ``make_extend``: steer with the
@@ -17,8 +16,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .commit import (commit_batch_dense, commit_batch_dense_all,
-                     commit_batch_refine)
+from .commit import (commit_batch, commit_batch_dense,
+                     commit_batch_dense_all, commit_batch_refine)
 from .nearest import make_nearest
 from .sampling import sample_batch
 from .steer import make_steer
@@ -27,10 +26,10 @@ from .tree import TreeArrays
 
 class RoundSpec(NamedTuple):
     """Static configuration of an expansion round.  The JAX spec's
-    ``commit_all`` and ``lane_block`` have no counterpart: the Planner's
-    grow commit is the dense commit-all, whose block-column kernel takes
-    any offset, and the fleet's round calls the sorted dense commit
-    itself."""
+    ``commit_all`` is ``commit_candidates``' argument here (true for the
+    Planner's rounds, false for the map-sharded ones), and its
+    ``lane_block`` has no counterpart: the block-column kernel of the
+    dense commit-all takes any offset."""
     nstates: int
     ncontrols: int
     batch: int              # candidates per round
@@ -38,7 +37,8 @@ class RoundSpec(NamedTuple):
     capacity: int           # logical tree capacity
     dt: float
     nn_block: int = 1024
-    slack: int = 0          # spare rows past capacity; must be >= batch
+    slack: int = 0          # spare rows past capacity; >= batch takes a
+                            # dense commit
 
 
 class Candidates(NamedTuple):
@@ -117,22 +117,24 @@ def make_expand(spec: RoundSpec, dynamics: Callable, lqr: Callable,
 
 
 def commit_candidates(spec: RoundSpec, tree: TreeArrays, c: Candidates,
-                      mode: str = "grow") -> TreeArrays:
-    """Commit a round's candidates in place: ``mode="grow"`` appends them
-    (the dense commit-all), ``mode="refine"`` replaces leaves of a full
-    tree (``commit_batch_refine``)."""
+                      mode: str = "grow", commit_all: bool = True
+                      ) -> TreeArrays:
+    """Commit a round's candidates in place, selected as JAX's
+    ``commit_candidates``: ``mode="refine"`` replaces leaves of a full
+    tree (``commit_batch_refine``); ``mode="grow"`` appends them, with
+    ``slack >= batch`` through the dense commit-all (every row lands) or,
+    ``commit_all=False``, the sorted dense commit (valid rows first),
+    else through the masked scatter ``commit_batch``."""
+    args = (c.pids, c.length, c.x_seq, c.u_seq, c.xnew, c.S_new, c.K_new,
+            c.in_goal, c.gcost)
     if mode == "refine":
-        return commit_batch_refine(
-            tree, spec.dt, spec.capacity, c.pids, c.length, c.x_seq,
-            c.u_seq, c.xnew, c.S_new, c.K_new, c.in_goal, c.gcost)
-    if spec.slack < c.pids.shape[0]:
-        raise NotImplementedError(
-            "only the dense commit-all path is ported (slack >= batch, which "
-            "every single-device Planner has); the scatter and sorted "
-            "commits serve the mesh rounds, ROADMAP queue 1, item 16")
-    return commit_batch_dense_all(
-        tree, spec.dt, spec.capacity, c.pids, c.length, c.x_seq, c.u_seq,
-        c.xnew, c.S_new, c.K_new, c.in_goal, c.gcost)
+        return commit_batch_refine(tree, spec.dt, spec.capacity, *args)
+    if spec.slack >= c.pids.shape[0]:
+        if commit_all:
+            return commit_batch_dense_all(tree, spec.dt, spec.capacity,
+                                          *args)
+        return commit_batch_dense(tree, spec.dt, spec.capacity, *args)
+    return commit_batch(tree, spec.dt, *args)
 
 
 def make_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
@@ -164,18 +166,16 @@ def make_refine_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                       goal_buffer, wrap_mask=None,
                       xrand_gen: Callable | None = None,
                       saturate: Callable | None = None,
-                      nearest_fn: Callable | None = None,
-                      draw: Callable | None = None) -> Callable:
+                      nearest_fn: Callable | None = None) -> Callable:
     """The round of a full tree: ``half = max(batch // 2, 1)`` candidates
     expand and replace leaves (``commit_batch_refine``), then ``batch -
     half`` targets are rewired (``core/rewire.py``).
 
     round(tree, gen, goal, sample_space, goal_bias, bias_target,
-          prev_plan=None, start=None) -> tree (updated in place).
-    The half batch is ``draw(gen, half, sample_space, goal_bias,
-    bias_target, prev_plan)`` when given (the planner's sampler), else
-    ``xrand_gen(gen, half)``, else ``sample_batch``; the rewire's window
-    starts at ``start`` (a 0-d tensor) or is drawn from ``gen`` after the
+          start=None) -> tree (updated in place).
+    The half batch is ``xrand_gen(gen, half)`` when given (the planner's
+    sampler), else ``sample_batch``; the rewire's window starts at
+    ``start`` (a 0-d tensor) or is drawn from ``gen`` after the
     candidates."""
     from .rewire import make_rewire
 
@@ -188,11 +188,8 @@ def make_refine_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                          wrap_mask=wrap_mask, saturate=saturate)
 
     def round_fn(tree, gen, goal, sample_space, goal_bias, bias_target,
-                 prev_plan=None, start=None):
-        if draw is not None:
-            xrand = draw(gen, half, sample_space, goal_bias, bias_target,
-                         prev_plan)
-        elif xrand_gen is not None:
+                 start=None):
+        if xrand_gen is not None:
             xrand = xrand_gen(gen, half)
         else:
             xrand = sample_batch(gen, half, sample_space, goal_bias,

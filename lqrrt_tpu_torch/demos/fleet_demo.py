@@ -5,7 +5,8 @@ replanning: 1k simultaneous boat scenarios").
 Every scenario starts at the boat's x0 with a goal perturbed from the
 default one (a regatta fanning out to different stations); the fleet
 (``lqrrt_tpu_torch/parallel/fleet.py``) grows all their trees at once.  A
-fleet sharded over several devices is ROADMAP queue 1, item 16.
+fleet sharded over several devices takes ``FleetPlanner(mesh=...)``, one
+process a device (``parallel/mesh.py``).
 
 Run:  python -m lqrrt_tpu_torch.demos.fleet_demo [--scenarios 64]
           [--rounds 16] [--batch 64] [--device cuda]

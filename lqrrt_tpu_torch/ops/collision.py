@@ -151,18 +151,33 @@ class OccupancyGrid:
         return is_feasible
 
 
+def _lead(data: torch.Tensor, core: int, x: torch.Tensor) -> torch.Tensor:
+    """Per-scenario data (L..., *core) against states (L..., B..., n): a
+    view with a singleton for each batch axis of x after the leading axes
+    L, so it broadcasts row by row (JAX: the predicate under the fleet's
+    ``vmap``).  Shared data (no leading axes) broadcasts as it is."""
+    lead = data.dim() - core
+    k = x.dim() - 1 - lead
+    if lead == 0 or k <= 0:
+        return data
+    return data.reshape(data.shape[:lead] + (1,) * k + data.shape[lead:])
+
+
 def circles_free_data(pos_dims: Sequence[int] = (0, 1),
                       margin: float = 0.0) -> Callable:
     """is_feasible(x, u, data) over a dynamic circle field: data =
     {"centers": (K, 2), "radii": (K,)} tensors; a slot with radius < 0 is
-    inactive (K is fixed: a new K builds new chunks)."""
+    inactive (K is fixed: a new K builds new chunks).  Leading axes on
+    the data, (S, K, 2) and (S, K), give each of S scenarios its own
+    field: x is then (S, ..., n)."""
     dims = tuple(int(d) for d in pos_dims)
     m = float(margin)
 
     def is_feasible(x, u, data):
         del u
         p = _pos(x, dims)[..., None, :]                      # (..., 1, 2)
-        centers, radii = data["centers"], data["radii"]
+        centers = _lead(data["centers"], 2, x)
+        radii = _lead(data["radii"], 1, x)
         d2 = ((centers - p) ** 2).sum(-1)                    # (..., K)
         hit = (radii >= 0.0) & ~(d2 > (radii + m) ** 2)
         return ~hit.any(-1)
@@ -174,18 +189,25 @@ def grid_free_data(origin, resolution: float,
                    pos_dims: Sequence[int] = (0, 1)) -> Callable:
     """is_feasible(x, u, occ) over a dynamic occupancy grid: ``occ`` (the
     feasibility_data) is an (H, W) tensor, nonzero = occupied, under the
-    fixed transform (origin, resolution).  Out of bounds is occupied."""
+    fixed transform (origin, resolution).  Out of bounds is occupied.
+    Leading axes on ``occ``, (S, H, W), give each of S scenarios its own
+    grid: x is then (S, ..., n), and each state reads its scenario's grid
+    in place (one gather into the S grids; no copy of a grid a row)."""
     org = Const(np.asarray(origin, np.float32))
     res = float(resolution)
     dims = tuple(int(d) for d in pos_dims)
 
     def is_feasible(x, u, occ):
         del u
-        H, W = occ.shape  # noqa: N806
+        H, W = occ.shape[-2:]  # noqa: N806
         p = _pos(x, dims)
         inb, flat = _grid_cells(p, org.like(p), res, H, W)
+        lead = occ.shape[:-2]
+        if lead:
+            # each state's scenario: its index over the leading axes
+            sc = torch.arange(occ[..., 0, 0].numel(), device=occ.device)
+            flat = flat + _lead(sc.reshape(lead), 0, x) * (H * W)
         hit = occ.reshape(-1)[flat] != 0
         return ~torch.where(inb, hit, True)
 
-    is_feasible.grid_data = True    # the fleet refuses per-scenario grids
     return is_feasible

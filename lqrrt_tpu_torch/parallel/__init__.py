@@ -1,6 +1,8 @@
-"""Scenario parallelism (port of lqrrt_tpu/parallel): ``FleetPlanner``, a
-fleet of independent planners on one device.  The mesh paths (sharded
-rounds, sharded maps) are ROADMAP queue 1, item 16."""
+"""Parallel planning (port of lqrrt_tpu/parallel): ``FleetPlanner``, a
+fleet of independent planners (its scenarios sharded over ranks with
+``mesh=``); ``mesh`` (meshes over ``torch.distributed``), ``sharded`` (the
+candidate batch sharded over ranks) and ``map_sharded`` (an occupancy
+grid sharded over ranks)."""
 from .fleet import FleetPlanner
 
 __all__ = ["FleetPlanner"]

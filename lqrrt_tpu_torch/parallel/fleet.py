@@ -1,5 +1,5 @@
 """Scenario parallelism: many independent planner instances at once (port
-of lqrrt_tpu/parallel/fleet.py ``FleetPlanner``, on one device).
+of lqrrt_tpu/parallel/fleet.py ``FleetPlanner``).
 
 The BASELINE.json "pod-scale fleet replanning" config: 1k simultaneous boat
 scenarios.  Each scenario owns a fixed-capacity tree; the S trees are one
@@ -12,15 +12,26 @@ other's trees.
 
 All scenarios share the model (dynamics, lqr, erf, feasibility); start
 states, goals, sample spaces and, with ``per_scenario_data=True``,
-obstacle data are per scenario.  One ``torch.Generator`` on the fleet's
-device draws every scenario's candidates (JAX splits a key a scenario:
-the streams differ, as they do for the ``Planner``).
+obstacle data are per scenario.  The data stays one copy with a leading
+scenario axis on the device: the predicate is called on scenario-leading
+views of the steered rows, x (S, B, n) and u (S, B, m), with the data
+(S, ...), which is JAX's ``vmap`` read literally; ``circles_free_data``
+and ``grid_free_data`` take such leading axes, so an (S, H, W) grid is
+never copied a row.  One ``torch.Generator`` on the fleet's device draws
+every scenario's candidates (JAX splits a key a scenario: the streams
+differ, as they do for the ``Planner``).
+
+``mesh=`` (a 1-D mesh, ``parallel.mesh.make_fleet_mesh``) shards the
+scenario axis: each rank owns a contiguous block of S / n_dev scenarios,
+takes its block of every per-scenario input, and runs its rounds with no
+collective, drawing from its own generator (``sharded.rank_generator``).
+``plan`` returns the whole fleet's stats on every rank (an all-gather of
+each per-scenario array, JAX's multi-process ``_fetch``); the ranks agree
+on each chunk's length and on the budget's end over the host's gloo
+group; ``extract_plans`` serves the scenarios the rank owns.
 
 Callbacks are batch-leading (see the package docstring).  The device is
 explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
-Not ported yet, raising: ``mesh=`` (the scenario axis sharded over
-devices, ROADMAP queue 1, item 16) and a per-scenario occupancy grid
-(``grid_free_data`` with ``per_scenario_data=True``, item 20).
 """
 from __future__ import annotations
 
@@ -30,10 +41,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..constraints import host_leaf, tree_map
 from ..core.rounds import RoundSpec, make_fleet_round
 from ..core.sampling import sample_batch
 from ..core.tree import TreeArrays, best_node, init_tree
-from ..planner import _host_leaf, _tree_map
+from . import mesh as meshlib
 
 
 class FleetPlanner:
@@ -60,16 +72,7 @@ class FleetPlanner:
         """``per_scenario_data=True``: ``is_feasible(x, u, data)`` is 3-arg
         and ``plan(..., feasibility_data=tree)`` gives each scenario its own
         obstacle data (every leaf's leading axis is the scenario); the
-        predicate sees one entry a steered row, its scenario's."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP queue 1, item 16): the "
-                "fleet holds every scenario on one device")
-        if per_scenario_data and getattr(is_feasible, "grid_data", False):
-            raise NotImplementedError(
-                "a per-scenario occupancy grid (grid_free_data with "
-                "per_scenario_data=True) is not ported yet (ROADMAP queue 1, "
-                "item 20)")
+        predicate sees x (S, B, n) and u (S, B, m) with that data."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available; "
@@ -80,6 +83,16 @@ class FleetPlanner:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.n_scenarios = int(n_scenarios)
+        self._n_local, self._offset = self.n_scenarios, 0
+        if mesh is not None:
+            meshlib.check_device(mesh, self.device)
+            n_dev = meshlib.axis_size(mesh, axis)
+            if self.n_scenarios % n_dev != 0:
+                raise ValueError(
+                    f"n_scenarios={self.n_scenarios} is not divisible by the "
+                    f"mesh '{axis}' axis size {n_dev}")
+            self._n_local = self.n_scenarios // n_dev
+            self._offset = meshlib.axis_index(mesh, axis) * self._n_local
         self.per_scenario_data = bool(per_scenario_data)
         self.dt = float(dt)
         self.horizon_steps = max(int(round(horizon / dt)), 1)
@@ -88,8 +101,12 @@ class FleetPlanner:
         self.goal_buffer = np.asarray(goal_buffer, np.float32)
         self.mesh = mesh
         self.axis = axis
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
+        if mesh is None:
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(int(seed))
+        else:
+            from .sharded import rank_generator
+            self._gen = rank_generator(seed, mesh, axis, self.device)
         self.sys_time = sys_time if sys_time is not None else time.time
         self.spec = RoundSpec(
             nstates=-1, ncontrols=-1, batch=int(batch_size),
@@ -99,7 +116,11 @@ class FleetPlanner:
                         is_feasible=is_feasible, error_tol=error_tol,
                         saturate=saturate, wrap_dims=tuple(wrap_dims))
         self._round = None
-        self._data_rows = None     # per-scenario data, one entry a row
+        # this rank's per-scenario data (S, ...), in a box the round's
+        # predicate reads: the round holds no reference to the fleet, so
+        # a dropped fleet frees its trees without waiting for the cycle
+        # collector
+        self._data_box = [None]
         self.trees: Optional[TreeArrays] = None  # scenario-leading
         self.last_extract_timings = None
 
@@ -120,8 +141,13 @@ class FleetPlanner:
             wrap_mask[list(self._mk["wrap_dims"])] = True
         feas = user_feas = self._mk["is_feasible"]
         if self.per_scenario_data:
+            n_sc, box = self._n_local, self._data_box
+
             def feas(x, u):
-                return user_feas(x, u, self._data_rows)
+                # the steered rows are scenario-major: (S·B, .) -> (S, B, .)
+                ok = user_feas(x.reshape(n_sc, -1, x.shape[-1]),
+                               u.reshape(n_sc, -1, u.shape[-1]), box[0])
+                return ok.reshape(x.shape[:-1])
         self._round = make_fleet_round(
             self.spec, self._mk["dynamics"], self._mk["lqr"],
             self._mk["erf"], feas, self._mk["error_tol"], self.goal_buffer,
@@ -141,15 +167,20 @@ class FleetPlanner:
         return init_tree(self.spec.capacity, self.spec.horizon_steps, n, m,
                          x0s, S0, K0, g0, in_goal0, slack=self.spec.slack)
 
-    def _data_leaf(self, a, n_sc: int, B: int) -> torch.Tensor:
-        """One per-scenario data leaf (S, ...) -> one entry a steered row
-        (S·B, ...) on the device."""
-        t = _host_leaf(a).to(self.device)
-        if t.ndim == 0 or t.shape[0] != n_sc:
+    def _local(self, t):
+        """This rank's block of a per-scenario array (the whole of it
+        without a mesh)."""
+        return t[self._offset:self._offset + self._n_local]
+
+    def _data_leaf(self, a) -> torch.Tensor:
+        """One per-scenario data leaf (S, ...) -> this rank's block of it,
+        one copy on the device."""
+        t = host_leaf(a)
+        if t.ndim == 0 or t.shape[0] != self.n_scenarios:
             raise ValueError(f"feasibility_data leaves need a leading axis "
-                             f"of {n_sc} scenarios, got {tuple(t.shape)}")
-        rest = tuple(t.shape[1:])
-        return t[:, None].expand((n_sc, B) + rest).reshape((n_sc * B,) + rest)
+                             f"of {self.n_scenarios} scenarios, got "
+                             f"{tuple(t.shape)}")
+        return self._local(t).to(self.device).contiguous()
 
     def _run_rounds(self, trees, nrounds: int, sample_spaces, goal_bias,
                     goals, goal_rows):
@@ -202,16 +233,18 @@ class FleetPlanner:
                  else self._infer_ncontrols(x0s[0]))
             self._build(n, m)
         B = self.spec.batch
+        x0s, goals, sample_spaces = (self._local(t) for t in (
+            x0s, goals, sample_spaces))
+        n_sc = self._n_local
         goal_rows = goals[:, None, :].expand(n_sc, B, n).reshape(n_sc * B, n)
         if self.per_scenario_data:
-            self._data_rows = _tree_map(
-                lambda a: self._data_leaf(a, n_sc, B), feasibility_data)
+            self._data_box[0] = tree_map(self._data_leaf, feasibility_data)
         self.trees = None            # the last call's trees go before the new
         trees = self._seed(x0s, goals)
         args = (sample_spaces, goal_bias, goals, goal_rows)
 
         t0 = self.sys_time()
-        goal_time = np.full(n_sc, np.nan, np.float32)
+        goal_time = np.full(self.n_scenarios, np.nan, np.float32)
         if max_time is None:
             self._run_rounds(trees, rounds, *args)
             done = rounds
@@ -220,14 +253,17 @@ class FleetPlanner:
             per_round_s = getattr(self, "_per_round_s", None)
             while done < rounds:
                 remaining_s = max_time - (self.sys_time() - t0)
-                if remaining_s <= 0:
-                    break
                 nr = min(rounds_per_chunk, rounds - done)
                 if per_round_s is None:
                     nr = 1          # probe: bounds the overshoot to a round
-                else:
+                elif remaining_s > 0:
                     afford = max(int(remaining_s / per_round_s), 1)
                     nr = min(nr, afford)
+                stop = remaining_s <= 0
+                if self.mesh is not None:   # the first rank's clock rules
+                    stop, nr = meshlib.agree_first(stop, nr)
+                if stop:
+                    break
                 tc = self.sys_time()
                 self._run_rounds(trees, nr, *args)
                 found = self._fetch(trees.goal_found)  # also syncs the chunk
@@ -256,8 +292,12 @@ class FleetPlanner:
             goal_time_s=goal_time,
         )
 
-    @staticmethod
-    def _fetch(x) -> np.ndarray:
+    def _fetch(self, x) -> np.ndarray:
+        """A per-scenario array on the host: with a mesh, every rank's
+        block gathered over the scenario axis (the whole fleet's)."""
+        if self.mesh is not None:
+            from .sharded import all_gather_tiled
+            x = all_gather_tiled(x, meshlib.axis_group(self.mesh, self.axis))
         return x.cpu().numpy()
 
     def _infer_ncontrols(self, x0):
@@ -274,6 +314,7 @@ class FleetPlanner:
         return int(K0.shape[-2])
 
     def best_nodes(self) -> np.ndarray:
+        """Each scenario's best node, the whole fleet's."""
         return self._fetch(best_node(self.trees))
 
     def _chains(self) -> torch.Tensor:
@@ -292,7 +333,7 @@ class FleetPlanner:
     def _host_prefix(self, s: int, first: int) -> list:
         """The ids above ``first`` to scenario s's root, root first: the
         host finish of a chain deeper than the device walk."""
-        parent = self._fetch(self.trees.parent[s])
+        parent = self.trees.parent[s - self._offset].cpu().numpy()
         prefix = []
         cur = int(parent[first])
         while cur != -1:
@@ -312,22 +353,30 @@ class FleetPlanner:
         index, and ONE device->host transfer for every requested scenario.
 
         Returns {scenario: (P_s, n) x_seq}; ``last_extract_timings`` says
-        where the time went.
+        where the time went.  With a mesh, a rank serves the scenarios it
+        owns (all of them by default) and raises for another's.
         """
         if self.trees is None:
             raise RuntimeError("no trees; call plan() first")
-        req = (list(range(self.n_scenarios)) if scenarios is None
+        lo, n_loc = self._offset, self._n_local
+        req = (list(range(lo, lo + n_loc)) if scenarios is None
                else [int(s) for s in scenarios])
+        for s in req:
+            if not lo <= s < lo + n_loc:
+                raise ValueError(
+                    f"scenario {s} lives on rank {s // n_loc} of the mesh's "
+                    f"'{self.axis}' axis; this rank owns [{lo}, "
+                    f"{lo + n_loc})")
         t = self.trees
         H, n = t.edge_x.shape[1:3]
         tm = {}
         t0 = time.time()
-        chains = self._fetch(self._chains())                 # (S, D)
+        chains = self._chains().cpu().numpy()               # (S, D)
         tm["chain_walk_s"] = time.time() - t0
         t0 = time.time()
         # each requested row's chain, root first; one deeper than the
         # device walk (its first id not the root) is finished on the host
-        ch = chains[req]
+        ch = chains[np.asarray(req, np.int64) - lo]
         D = ch.shape[1]
         lens = (ch >= 0).sum(1)
         first = ch[np.arange(len(req)), D - lens]
@@ -342,7 +391,7 @@ class FleetPlanner:
         else:
             node = ch[ch >= 0]                   # row-major: chain order
         row0 = np.cumsum(lens) - lens            # each row's first pair
-        srow = np.repeat(np.asarray(req, np.int64), lens)
+        srow = np.repeat(np.asarray(req, np.int64) - lo, lens)
         pos = np.arange(node.size) - np.repeat(row0, lens)
         tm["pair_build_s"] = time.time() - t0
         t0 = time.time()
@@ -351,9 +400,9 @@ class FleetPlanner:
         si = torch.as_tensor(srow, device=self.device)
         ni = torch.as_tensor(node.astype(np.int64), device=self.device)
         P = node.size
-        packed = self._fetch(torch.cat([
+        packed = torch.cat([
             t.state[si, ni], t.edge_x[si, :, :, ni].reshape(P, H * n),
-            t.edge_len[si, ni].float()[:, None]], 1))
+            t.edge_len[si, ni].float()[:, None]], 1).cpu().numpy()
         states = packed[:, :n]
         edge_x = packed[:, n:n + H * n].reshape(P, H, n)
         edge_len = packed[:, -1].astype(np.int64)

@@ -1,4 +1,4 @@
-"""Planner facade (port of lqrrt_tpu/planner.py, its single-device paths).
+"""Planner facade (port of lqrrt_tpu/planner.py).
 
 Public surface as in the JAX package: ``update_plan``, ``warmup``,
 ``get_state``, ``get_effort``, ``set_goal``, ``kill_update``, ``unkill``,
@@ -7,25 +7,41 @@ loops, chosen as the JAX planner chooses them; in both the host reads one
 small stats vector per chunk, one chunk stale, and nothing inside a chunk
 syncs:
 - the restart loop (``refine=True`` and ``max_nodes`` at or above the
-  capacity): fused-restart chunks, each ``n_cycles`` cycles of [F grow
-  rounds -> stash-compare -> reseed with depth planting];
-- the host loop (``refine=False``, ``max_nodes`` below the capacity, or
-  ``refine_mode="leaf_rewire"``): grow chunks of ``rounds_per_chunk``
-  rounds on one tree, stopped at the budget, at the goal after
-  ``min_time``, or at min(max_nodes, capacity) rows; with
-  ``refine_mode="leaf_rewire"`` (and ``refine=True``, ``max_nodes`` at or
-  above the capacity) a full tree is not a stop: the rest of the budget
-  runs refine chunks on the same tree, each round a half batch of leaf
-  replacements (``core/commit.py`` ``commit_batch_refine``) and a half
-  batch of rewires (``core/rewire.py``).
+  capacity, no ``feasibility_grid``): fused-restart chunks, each
+  ``n_cycles`` cycles of [F grow rounds -> stash-compare -> reseed with
+  depth planting];
+- the host loop (``refine=False``, ``max_nodes`` below the capacity,
+  ``refine_mode="leaf_rewire"``, or a ``feasibility_grid``): grow chunks
+  of ``rounds_per_chunk`` rounds on one tree, stopped at the budget, at
+  the goal after ``min_time``, or at min(max_nodes, capacity) rows.  With
+  ``refine=True`` and the stop at the capacity a full tree is not a stop:
+  with ``refine_mode="leaf_rewire"`` the rest of the budget runs refine
+  chunks on the same tree, each round a half batch of leaf replacements
+  (``core/commit.py`` ``commit_batch_refine``) and a half batch of
+  rewires (``core/rewire.py``); in the restart mode (only reached with a
+  ``feasibility_grid``) the tree is stashed if it holds the best plan so
+  far, the informed pool is refreshed from a better incumbent, and a
+  fresh tree is seeded.
 
 A 3-arg ``is_feasible(x, u, data)`` (``Constraints(feasibility_data=...)``)
 reads its data from device tensors the planner keeps: each replan copies
 the constraints' data into them in place, so an update of values builds no
 chunk and moves no tensor.
 
-Not ported yet, raising ``NotImplementedError`` with the ROADMAP item:
-``mesh`` and ``feasibility_grid``.
+``mesh=`` (a ``DeviceMesh`` of ``parallel/mesh.py``; every rank builds
+the same planner and calls ``update_plan`` with the same arguments) shards
+each round's candidate batch over ``mesh_axis``: each rank draws
+batch / n_dev candidates from its own generator, expands them against its
+replica of the tree (kernel A or C as on one device), the candidates are
+exchanged (``collective``, ``parallel/sharded.py``) and every rank commits
+the same set, so the replicas stay identical.  The fused restart chunk
+always gathers, as JAX's does: ``collective="topk"`` takes effect on the
+host loop only.  ``feasibility_grid=ShardedGrid(...)`` (needs ``mesh``)
+shards an occupancy grid over ``map_axis`` (``parallel/map_sharded.py``):
+the rounds check the constraints' predicate while steering and the grid
+after it, and the prune and finish shortcuts are checked against the full
+grid on the host.  The ranks agree on every host decision (the budget, a
+kill) over a gloo group once a chunk (``parallel/mesh.py``).
 
 ``get_tree`` snapshots the last planning tree into the host ``Tree``
 (``lqrrt_tpu_torch/tree.py``); ``utils`` holds checkpoints, metrics sinks,
@@ -51,13 +67,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .constraints import Constraints
+from .constraints import Constraints, host_leaf, tree_map
 from .core.rounds import (RoundSpec, commit_candidates, make_expand,
                           make_refine_round)
 from .core.sampling import normalize_goal_bias, sample_batch
 from .core.steer import make_steer
 from .core.tree import TreeArrays, best_node, init_tree
 from .ops.angles import wrap_angle
+from .parallel import mesh as meshlib
 from .tree import Tree
 
 _FPR_PLAN_LEN = 256   # resampled previous-plan states kept for FPR biasing
@@ -96,17 +113,6 @@ def _chunk_stats(tree: TreeArrays) -> torch.Tensor:
         live.float()])
 
 
-def _tree_map(fn, tree, *rest):
-    """fn over the leaves of a dict / list / tuple tree (and of ``rest``,
-    trees of the same structure)."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, *xs) for xs in zip(tree, *rest))
-    return fn(tree, *rest)
-
-
 def _signature(tree):
     """Hashable structure, shapes and dtypes of a tree of tensors."""
     if isinstance(tree, dict):
@@ -114,13 +120,6 @@ def _signature(tree):
     if isinstance(tree, (list, tuple)):
         return (type(tree).__name__,) + tuple(_signature(v) for v in tree)
     return (tuple(tree.shape), tree.dtype)
-
-
-def _host_leaf(a) -> torch.Tensor:
-    """One leaf of feasibility_data as a tensor, floats as float32."""
-    t = a.detach() if isinstance(a, torch.Tensor) else torch.as_tensor(
-        np.asarray(a))
-    return t.float() if t.is_floating_point() else t
 
 
 class Planner:
@@ -222,19 +221,49 @@ class Planner:
         self.refine = bool(refine)
         self.refine_mode = refine_mode
         self.informed = float(informed)
-        # read only by the host loop's restart stash, which needs a
-        # feasibility_grid (ROADMAP queue 1, item 16)
+        # read by the host loop's restart stash only, as in JAX: the
+        # corridor noise shrinks by this factor at each better incumbent
         self.informed_anneal = float(informed_anneal)
+        if mesh is not None:
+            if not isinstance(mesh_axis, str):
+                mesh_axis = tuple(mesh_axis)   # hashable for the chunk cache
+            meshlib.check_device(mesh, self.device)
+            n_dev = meshlib.axis_size(mesh, mesh_axis)
+            if self.batch_size % n_dev != 0:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide by the mesh "
+                    f"'{mesh_axis}' axis size {n_dev}")
+        if feasibility_grid is not None:
+            if mesh is None:
+                raise ValueError("feasibility_grid requires mesh= (the grid "
+                                 "slabs shard over the mesh's map axis)")
+            names = tuple(mesh.mesh_dim_names or ())
+            if map_axis not in names:
+                raise ValueError(f"mesh has no '{map_axis}' axis for the "
+                                 f"sharded grid (axes: {names})")
+            n_map = meshlib.axis_size(mesh, map_axis)
+            if feasibility_grid.n_shards != n_map:
+                raise ValueError(
+                    f"grid has {feasibility_grid.n_shards} shards but mesh "
+                    f"'{map_axis}' axis has {n_map} ranks")
         self.mesh = mesh
         self.mesh_axis = mesh_axis
         self.collective = collective
         self.topk = topk
         self.feasibility_grid = feasibility_grid
         self.map_axis = map_axis
-        self._check_ported()
+        self._grid_slab = None          # this rank's slab, on the device
 
+        # ``_gen`` draws what every rank draws alike (the rewire's window);
+        # ``_rank_gen`` a rank's share of the candidates (the same
+        # generator without a mesh)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
+        self._rank_gen = self._gen
+        if mesh is not None:
+            from .parallel.sharded import rank_generator
+            self._rank_gen = rank_generator(seed, mesh, mesh_axis,
+                                            self.device)
         self._lqr_const = None          # lazily probed (_lqr_is_constant)
         self.nn_selected = None         # NN picked when a chunk is built
         self._chunk_cache = {}
@@ -253,16 +282,6 @@ class Planner:
         self.on_replan: Optional[Callable] = None
         if goal0 is not None:
             self.set_goal(goal0)
-
-    def _check_ported(self):
-        """Raise for the configurations this port does not have yet."""
-        def missing(what, item):
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1, item {item})")
-        if self.mesh is not None:
-            missing("mesh=", 16)
-        if self.feasibility_grid is not None:
-            missing("feasibility_grid=", 16)
 
     # ------------------------------------------------------------------ setup
 
@@ -371,12 +390,12 @@ class Planner:
         if data is None:
             self._feas_sig = None
             return
-        host = _tree_map(_host_leaf, data)
+        host = tree_map(host_leaf, data)
         sig = _signature(host)
         if sig in self._feas_bufs:
-            _tree_map(lambda b, a: b.copy_(a), self._feas_bufs[sig], host)
+            tree_map(lambda b, a: b.copy_(a), self._feas_bufs[sig], host)
         else:
-            self._feas_bufs[sig] = _tree_map(
+            self._feas_bufs[sig] = tree_map(
                 lambda a: a.to(self.device, copy=True), host)
         self._feas_sig = sig
 
@@ -424,20 +443,21 @@ class Planner:
 
         return pool
 
-    def _sampler(self, xrand_gen, n_fpr: int, informed_on: bool):
-        """draw(pool, frac, ss, gb, bt, prev_plan, nb=batch_size) -> (nb, n)
-        candidates: ``xrand_gen(gen, nb)`` when given; else ``sample_batch``
-        whose first frac * rows come, when ``informed_on``, from the
-        informed pool plus noise; with FPR, min(n_fpr, nb - 1) rows of
-        ``prev_plan`` lead the batch (the refine round draws half
-        batches)."""
-        B = self.batch_size
-        inf_scale = 0.05          # fixed: annealing is measured-harmful
-        gen, dev = self._gen, self.device
+    def _sampler(self, xrand_gen, n_fpr: int, informed_on: bool,
+                 n_dev: int = 1):
+        """draw(pool, frac, ss, gb, bt, prev_plan, nb=batch / n_dev,
+        scale=0.05) -> (nb, n) candidates from ``_rank_gen``:
+        ``xrand_gen(gen, nb)`` when given; else ``sample_batch`` whose
+        first frac * nb rows come, when ``informed_on``, from the informed
+        pool plus noise of ``scale`` times the sample space; with FPR,
+        min(max(n_fpr // n_dev, 1), nb - 1) rows of ``prev_plan`` lead the
+        batch (a rank's share; the refine round draws half batches)."""
+        B = self.batch_size // n_dev
+        gen, dev = self._rank_gen, self.device
         wrap_dims = list(self.wrap_dims)
         ar_b = torch.arange(B, device=dev)
 
-        def base_sample(nb, pool_c, frac, ss, gb, bt):
+        def base_sample(nb, pool_c, frac, ss, gb, bt, scale):
             fresh = sample_batch(gen, nb, ss, gb, bt)
             if not informed_on:
                 return fresh
@@ -445,25 +465,26 @@ class Planner:
             # incumbent-plan pool plus noise (inert while frac == 0)
             r = torch.randint(0, pool_c.shape[0], (nb,), generator=gen,
                               device=dev)
-            scale = (ss[:, 1] - ss[:, 0]) * inf_scale
+            noise = (ss[:, 1] - ss[:, 0]) * scale
             noisy = pool_c[r] + torch.randn(fresh.shape, generator=gen,
-                                            device=dev) * scale
+                                            device=dev) * noise
             for d in wrap_dims:
                 noisy[:, d] = wrap_angle(noisy[:, d])
             noisy = torch.clamp(noisy, ss[:, 0], ss[:, 1])
             take = ar_b[:nb] < frac * nb
             return torch.where(take[:, None], noisy, fresh)
 
-        def draw(pool_c, frac, ss, gb, bt, prev_plan, nb=B):
+        def draw(pool_c, frac, ss, gb, bt, prev_plan, nb=B, scale=0.05):
             if xrand_gen is not None:
                 return xrand_gen(gen, nb)
             if n_fpr > 0:
-                n_take = min(n_fpr, nb - 1)
-                fresh = base_sample(nb - n_take, pool_c, frac, ss, gb, bt)
+                n_take = min(max(n_fpr // n_dev, 1), nb - 1)
+                fresh = base_sample(nb - n_take, pool_c, frac, ss, gb, bt,
+                                    scale)
                 rows = torch.randint(0, prev_plan.shape[0], (n_take,),
                                      generator=gen, device=dev)
                 return torch.cat([prev_plan[rows], fresh], 0)
-            return base_sample(nb, pool_c, frac, ss, gb, bt)
+            return base_sample(nb, pool_c, frac, ss, gb, bt, scale)
 
         return draw
 
@@ -484,6 +505,12 @@ class Planner:
 
     # ------------------------------------------------- grow / refine chunk
 
+    def _stash_on(self) -> bool:
+        """True when a full tree restarts (the restart stash) rather than
+        stopping or refining in place."""
+        return (self.refine and self.refine_mode == "restart"
+                and self.max_nodes >= self.capacity)
+
     def _get_chunk(self, xrand_gen, n_fpr: int, commit: str = "grow"):
         """The host loop's chunk: ``rounds_per_chunk`` rounds on one tree,
         then its stats (``_chunk_stats``).  ``commit="grow"`` appends a
@@ -491,47 +518,92 @@ class Planner:
         ``core.rounds.make_refine_round`` fed by the planner's sampler:
         ``half = max(batch // 2, 1)`` candidates replace leaves, then
         ``batch - half`` targets are rewired, the window's start drawn from
-        the planner's generator.
+        the planner's generator.  With a mesh the rounds are the sharded
+        bodies (``parallel/sharded.py``, with a grid
+        ``parallel/map_sharded.py``'s dp x map body).
 
         chunk(tree, goal, sample_space, goal_bias, bias_target,
-              prev_plan=None) updates ``tree`` IN PLACE and returns the stats
-        tensor.  The informed pool stays inert on this path (the JAX host
-        loop refreshes it only in its restart stash, which needs a
-        feasibility_grid), so every row not taken by FPR is a fresh
-        sample.  The cache key holds ``commit`` at index 3, as the JAX
-        planner's."""
+              prev_plan=None, informed=None) updates ``tree`` IN PLACE and
+        returns the stats tensor.  ``informed`` is (pool, frac, scale), the
+        informed-restart mix, used only where the restart stash can
+        refresh it (a feasibility_grid; as in JAX, the pool stays inert
+        until a restart stashes a goal incumbent), so every other row not
+        taken by FPR is a fresh sample.  The cache key holds ``commit`` at
+        index 3, as the JAX planner's."""
         key = (self.constraints._feasibility_version, xrand_gen, n_fpr,
                commit, self._feas_sig)
         if key in self._chunk_cache:
             return self._chunk_cache[key]
         spec = self._spec()
-        draw = self._sampler(xrand_gen, n_fpr, informed_on=False)
+        mesh = self.mesh
+        n_dev = 1 if mesh is None else meshlib.axis_size(mesh,
+                                                         self.mesh_axis)
+        informed_on = (xrand_gen is None and self.informed > 0.0
+                       and self._stash_on())
+        draw = self._sampler(xrand_gen, n_fpr, informed_on, n_dev)
         n_inner = self.rounds_per_chunk
-        if commit == "refine":
-            refine_round = make_refine_round(
-                spec, self.dynamics, self.lqr, self.erf, self._feasibility(),
-                self.error_tol, self.constraints.goal_buffer,
-                wrap_mask=self._wrap_mask(), saturate=self.saturate,
-                nearest_fn=self._nearest_override(),
-                draw=lambda gen, nb, ss, gb, bt, prev_plan: draw(
-                    None, 0.0, ss, gb, bt, prev_plan, nb))
+        held = {}    # this call's sampler arguments, read by the rounds
 
-            def one_round(tree, goal, ss, gb, bt, prev_plan):
-                refine_round(tree, self._gen, goal, ss, gb, bt, prev_plan)
+        def drawn(gen, nb):
+            return draw(*held["args"], nb=nb, scale=held["scale"])
+
+        common = dict(wrap_mask=self._wrap_mask(), saturate=self.saturate,
+                      nearest_fn=self._nearest_override())
+        args = (self.dynamics, self.lqr, self.erf, self._feasibility(),
+                self.error_tol, self.constraints.goal_buffer)
+        if mesh is not None and self.feasibility_grid is not None:
+            from .parallel.map_sharded import make_dp_map_round_body
+            if commit != "grow":
+                raise ValueError("feasibility_grid supports commit='grow' "
+                                 "(the restart-stash anytime path)")
+            body = make_dp_map_round_body(
+                spec, mesh, self.feasibility_grid, *args, xrand_gen=drawn,
+                dp_axis=self.mesh_axis, map_axis=self.map_axis, **common)
+            slab = self._slab()
+
+            def one_round(tree, goal, ss, gb, bt):
+                body(tree, slab, self._rank_gen, goal, ss, gb, bt)
+        elif mesh is not None:
+            from .parallel.sharded import make_sharded_round_body
+            body = make_sharded_round_body(
+                spec, mesh, *args, xrand_gen=drawn, axis=self.mesh_axis,
+                collective=self.collective, topk=self.topk, commit=commit,
+                **common)
+
+            def one_round(tree, goal, ss, gb, bt):
+                body(tree, self._rank_gen, goal, ss, gb, bt,
+                     rewire_gen=self._gen)
+        elif commit == "refine":
+            refine_round = make_refine_round(spec, *args, xrand_gen=drawn,
+                                             **common)
+
+            def one_round(tree, goal, ss, gb, bt):
+                refine_round(tree, self._gen, goal, ss, gb, bt)
         else:
             expand = self._expand(spec)
 
-            def one_round(tree, goal, ss, gb, bt, prev_plan):
-                xrand = draw(None, 0.0, ss, gb, bt, prev_plan)
+            def one_round(tree, goal, ss, gb, bt):
+                xrand = drawn(self._gen, self.batch_size)
                 commit_candidates(spec, tree, expand(tree, xrand, goal))
 
-        def chunk(tree, goal, ss, gb, bt, prev_plan=None):
+        def chunk(tree, goal, ss, gb, bt, prev_plan=None, informed=None):
+            pool, frac, scale = informed or (None, 0.0, 0.05)
+            held.update(args=(pool, frac, ss, gb, bt, prev_plan),
+                        scale=scale)
             for _ in range(n_inner):
-                one_round(tree, goal, ss, gb, bt, prev_plan)
+                one_round(tree, goal, ss, gb, bt)
             return _chunk_stats(tree)
 
         self._chunk_cache[key] = chunk
         return chunk
+
+    def _slab(self) -> torch.Tensor:
+        """This rank's slab of the feasibility grid, on the device (put
+        there once a planner)."""
+        if self._grid_slab is None:
+            self._grid_slab = self.feasibility_grid.slab(
+                meshlib.axis_index(self.mesh, self.map_axis), self.device)
+        return self._grid_slab
 
     # ------------------------------------------------------- restart chunk
 
@@ -545,7 +617,14 @@ class Planner:
         chunk(cur, best, pool, score, start, goal, sample_space, goal_bias,
               bias_target, prev_plan) updates its first four arguments IN
         PLACE; ``score`` has the layout of _RSCORE0.  ``xrand_gen(gen,
-        batch)`` replaces the sampler; ``prev_plan`` feeds FPR."""
+        batch)`` replaces the sampler; ``prev_plan`` feeds FPR.
+
+        With a mesh each rank draws batch / n_dev candidates (its share of
+        the informed mix and of FPR) from its own generator, expands them
+        against its replica, and the candidates are all-gathered and
+        committed on every rank: always gathered, whatever ``collective``
+        says, as JAX's restart chunk does (``lqrrt_tpu/planner.py``
+        ``grow``)."""
         key = (self.constraints._feasibility_version, xrand_gen, n_fpr,
                "restart", self._feas_sig)
         if key in self._chunk_cache:
@@ -557,9 +636,14 @@ class Planner:
         self._restart_chunk_shape = (n_cycles, F)
         expand = self._expand(spec)
         informed_on = xrand_gen is None and self.informed > 0.0
-        draw = self._sampler(xrand_gen, n_fpr, informed_on)
+        mesh = self.mesh
+        n_dev = 1 if mesh is None else meshlib.axis_size(mesh,
+                                                         self.mesh_axis)
+        draw = self._sampler(xrand_gen, n_fpr, informed_on, n_dev)
         inf_frac = float(self.informed)
         pool_fn = self._pool_fn()
+        if mesh is not None:
+            from .parallel.sharded import gather_candidates
         DP = 32                   # planted-prefix cap (static)
         seed_size = max(self.root_pad, 1)
         ar_dp = torch.arange(DP, device=self.device)
@@ -572,7 +656,10 @@ class Planner:
                                     inf_frac, 0.0) if informed_on else 0.0)
                 for _ in range(F):
                     xrand = draw(pool, frac, ss, gb, bt, prev_plan)
-                    commit_candidates(spec, cur, expand(cur, xrand, goal))
+                    cand = expand(cur, xrand, goal)
+                    if mesh is not None:
+                        cand = gather_candidates(cand, mesh, self.mesh_axis)
+                    commit_candidates(spec, cur, cand)
                 # ---- stash-compare (goal first, then time | cost) ----
                 b = best_node(cur)
                 gf = cur.goal_found
@@ -664,7 +751,6 @@ class Planner:
         best branch as the plan.  Returns True iff a goal was reached."""
         if self.goal is None:
             raise RuntimeError("goal not set; call set_goal or pass goal0")
-        self._check_ported()
         self.unkill()
         x0 = self._tensor(x0)
         if x0.shape != (self.nstates,):
@@ -690,8 +776,7 @@ class Planner:
             prev_plan = self._tensor(plan)
         self._load_feasibility_data()
         loop = (self._run_restart_loop
-                if (self.refine and self.refine_mode == "restart"
-                    and self.max_nodes >= self.capacity)
+                if self._stash_on() and self.feasibility_grid is None
                 else self._run_host_loop)
         return loop(x0, sample_space, goal_bias, bias_target, t_min, t_max,
                     xrand_gen, n_fpr, prev_plan, pruning, finish_on_goal)
@@ -727,8 +812,8 @@ class Planner:
         into pinned memory plus an event), one chunk stale."""
         chunk_fn = self._get_restart_chunk(xrand_gen, n_fpr)
         n_cycles, F = self._restart_chunk_shape
-        cur = self._seed_tree(x0, self.goal)
-        best = self._seed_tree(x0, self.goal)
+        cur = self._replicated(self._seed_tree(x0, self.goal))
+        best = self._replicated(self._seed_tree(x0, self.goal))
         pool = self._tensor(np.linspace(x0.cpu().numpy(),
                                         self.goal.cpu().numpy(),
                                         _FPR_PLAN_LEN, dtype=np.float32))
@@ -744,14 +829,14 @@ class Planner:
                   f"rounds/chunk (fused restarts), "
                   f"capacity {self.capacity}")
         while True:
-            elapsed = self.sys_time() - t0
-            if self._killed:
+            killed, over, past_min = self._agree(t0, t_min, t_max)
+            if killed:
                 if self.printing:
                     print("[lqrrt] killed; salvaging best-so-far")
                 break
-            if elapsed >= t_max:
+            if over:
                 break
-            if any_goal and elapsed >= t_min:
+            if any_goal and past_min:
                 break
             chunk_fn(cur, best, pool, score, rounds, self.goal,
                      sample_space, goal_bias, bias_target, prev_plan)
@@ -771,46 +856,114 @@ class Planner:
             restarts=restarts, elapsed=elapsed, t0=t0, pruning=pruning,
             finish_on_goal=finish_on_goal)
 
+    def _agree(self, t0, t_min, t_max):
+        """(killed, past t_max, past t_min) now: this rank's, or with a
+        mesh true on any rank (one all-reduce over the host's gloo group),
+        so the ranks take the same number of chunks whatever their clocks
+        and wherever ``kill_update`` was called."""
+        elapsed = self.sys_time() - t0
+        flags = (self._killed, elapsed >= t_max, elapsed >= t_min)
+        return flags if self.mesh is None else meshlib.agree_any(*flags)
+
+    def _replicated(self, tree: TreeArrays) -> TreeArrays:
+        """``tree`` as the first rank's on every rank of the mesh."""
+        if self.mesh is None:
+            return tree
+        from .parallel.sharded import replicate_tree
+        return replicate_tree(tree, self.mesh)
+
+    def _score_tree(self, tree: TreeArrays):
+        """(plan-quality key, lower = better) of a tree, one fetch: goal
+        trees first by their best goal time, then by the best node's
+        cost-to-go (``best_node``'s criterion)."""
+        b = best_node(tree)
+        g, d, c = torch.stack([
+            tree.goal_found.float(),
+            torch.where(tree.goal_found, _at(tree.node_time, b), torch.inf),
+            _at(tree.goal_cost, b)]).cpu().tolist()
+        return (0, d) if g > 0.5 else (1, c)
+
     def _run_host_loop(self, x0, sample_space, goal_bias, bias_target,
                        t_min, t_max, xrand_gen, n_fpr, prev_plan, pruning,
                        finish_on_goal) -> bool:
         """Anytime loop over chunks on one tree (``refine=False``,
-        ``max_nodes`` below the capacity, or ``leaf_rewire``): stops at
-        min(max_nodes, capacity) rows, at the budget, or at the goal after
-        ``t_min``, on stats one chunk stale, so ``max_nodes`` holds at chunk
-        granularity.  With ``leaf_rewire``, ``refine=True`` and the stop at
-        the capacity, a full tree swaps in the refine chunk and carries on
-        (no reseed, no restart), as the JAX host loop does."""
+        ``max_nodes`` below the capacity, ``leaf_rewire``, or a
+        feasibility_grid): stops at min(max_nodes, capacity) rows, at the
+        budget, or at the goal after ``t_min``, on stats one chunk stale,
+        so ``max_nodes`` holds at chunk granularity.  With ``refine=True``
+        and the stop at the capacity a full tree is not a stop: with
+        ``leaf_rewire`` the refine chunk runs on it (no reseed, no
+        restart); in the restart mode (a feasibility_grid) the restart
+        stash keeps the tree if it holds the best plan so far, refreshes
+        the informed pool on the device from a better goal incumbent
+        (the corridor noise shrinking by ``informed_anneal``), and seeds a
+        fresh tree; the plan comes from the best of the stash and the last
+        tree, as the JAX host loop does."""
         chunk_fn = self._get_chunk(xrand_gen, n_fpr)
-        tree = self._seed_tree(x0, self.goal)
+        tree = self._replicated(self._seed_tree(x0, self.goal))
         node_cap = min(self.max_nodes, self.capacity)
-        rewire_on = (self.refine and self.refine_mode == "leaf_rewire"
-                     and node_cap >= self.capacity)
+        refine_on = self.refine and node_cap >= self.capacity
+        informed = None
+        if xrand_gen is None and self.informed > 0.0 and self._stash_on():
+            informed = (self._tensor(np.linspace(
+                x0.cpu().numpy(), self.goal.cpu().numpy(), _FPR_PLAN_LEN,
+                dtype=np.float32)), 0.0, 0.05)
         bufs = self._stats_buffers()
         t0 = self.sys_time()
-        rounds = 0
+        rounds = restarts = 0
         size, goal_found, n_live = 1, False, 1
         pending = None
+        best_stash, best_key, best_size = None, None, 1
+        pool_time = None             # incumbent time the informed pool holds
+        overall_goal = False
         if self.printing:
             print(f"[lqrrt] planning: budget [{t_min}, {t_max}]s, "
                   f"batch {self.batch_size} x {self.rounds_per_chunk} "
                   f"rounds/chunk, capacity {self.capacity}")
         while True:
-            elapsed = self.sys_time() - t0
-            if self._killed:
+            killed, over, past_min = self._agree(t0, t_min, t_max)
+            if killed:
                 if self.printing:
                     print("[lqrrt] killed; salvaging best-so-far")
                 break
             if size >= node_cap:
-                if not rewire_on:
+                if not refine_on:
                     break
-                chunk_fn = self._get_chunk(xrand_gen, n_fpr, commit="refine")
-            if elapsed >= t_max:
+                if self.refine_mode == "leaf_rewire":
+                    chunk_fn = self._get_chunk(xrand_gen, n_fpr,
+                                               commit="refine")
+                else:
+                    # the restart stash: the in-flight chunk's stats score
+                    # the full tree
+                    st = self._fetched(pending)
+                    n_live = int(st[5])
+                    goal_cur = bool(st[1] > 0.5)
+                    key_cur = ((0, float(st[2])) if goal_cur
+                               else (1, float(st[3])))
+                    overall_goal |= goal_cur
+                    improved = best_key is None or key_cur < best_key
+                    if improved:
+                        best_stash, best_key, best_size = tree, key_cur, \
+                            n_live
+                    if (informed is not None and improved
+                            and key_cur[0] == 0
+                            and (pool_time is None
+                                 or key_cur[1] < pool_time - 0.05)):
+                        pool_time = key_cur[1]
+                        best = torch.tensor(int(st[4]), device=self.device)
+                        informed = (self._pool_fn()(tree, best),
+                                    self.informed,
+                                    max(self.informed_anneal * informed[2],
+                                        0.015))
+                    restarts += 1
+                    tree = self._replicated(self._seed_tree(x0, self.goal))
+                    size, goal_found, pending = 1, False, None
+            if over:
                 break
-            if goal_found and elapsed >= t_min:
+            if (goal_found or overall_goal) and past_min:
                 break
             stats = chunk_fn(tree, self.goal, sample_space, goal_bias,
-                             bias_target, prev_plan)
+                             bias_target, prev_plan, informed)
             buf = bufs[(rounds // self.rounds_per_chunk) % 2]
             ev = self._fetch_async(stats, buf)
             rounds += self.rounds_per_chunk
@@ -819,15 +972,26 @@ class Planner:
                 size, goal_found, n_live = (int(st[0]), bool(st[1] > 0.5),
                                             int(st[5]))
             pending = (buf, ev)
+        key_fin = None
         if pending is not None:
             st = self._fetched(pending)
             size, goal_found, n_live = (int(st[0]), bool(st[1] > 0.5),
                                         int(st[5]))
+            key_fin = ((0, float(st[2])) if goal_found
+                       else (1, float(st[3])))
         elapsed = self.sys_time() - t0
+        if best_stash is not None:
+            # the plan: the best of the stash and the last tree
+            if key_fin is None:              # broke right after a restart
+                key_fin = self._score_tree(tree)
+            overall_goal |= key_fin[0] == 0
+            if not key_fin < best_key:
+                tree, n_live = best_stash, best_size
         return self._commit_plan(
-            tree, int(best_node(tree)), goal_found, n_live=n_live,
-            tree_rows=size, rounds=rounds, restarts=0, elapsed=elapsed,
-            t0=t0, pruning=pruning, finish_on_goal=finish_on_goal)
+            tree, int(best_node(tree)), overall_goal or goal_found,
+            n_live=n_live, tree_rows=size, rounds=rounds, restarts=restarts,
+            elapsed=elapsed, t0=t0, pruning=pruning,
+            finish_on_goal=finish_on_goal)
 
     def _commit_plan(self, tree, best_id: int, goal_reached: bool, *,
                      n_live, tree_rows, rounds, restarts, elapsed, t0,
@@ -944,6 +1108,16 @@ class Planner:
                                 self._tensor(np.tile(src, (M, 1))))
         reached = res.reached.cpu().numpy().reshape(M, M)
         length = res.length.cpu().numpy().reshape(M, M)
+        grid = self.feasibility_grid
+        if grid is not None:
+            # the shortcut steer checks the local predicates only: check
+            # each shortcut's steps against the FULL grid on the host
+            pos = [int(d) for d in grid.pos_dims]
+            xs = res.x_seq[:, pos, :].permute(2, 0, 1).cpu().numpy()
+            occ = grid.occupied_host(xs)                     # (M*M, H)
+            steps = np.arange(occ.shape[1])[None, :]
+            bad = (occ & (steps < length.reshape(-1, 1))).any(1)
+            reached = reached & ~bad.reshape(M, M)
 
         segs = []          # (kind, i, j): "steer" uses res, "edge" original
         i = 0
@@ -1009,6 +1183,13 @@ class Planner:
             cut = k + 1 if costs[k] < cur else 0
         else:
             cut = 0
+        grid = self.feasibility_grid
+        if grid is not None and cut >= 1:
+            # keep the grid-feasible prefix of the terminal connection only
+            pos = [int(d) for d in grid.pos_dims]
+            occ = grid.occupied_host(xs0[:cut, pos].cpu().numpy())
+            if occ.any():
+                cut = int(np.argmax(occ))
         if cut >= 1:
             fx = xs0.cpu().numpy()[:cut]
             fu = res.u_seq[:, :, 0].cpu().numpy()[:cut]

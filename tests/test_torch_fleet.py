@@ -635,16 +635,33 @@ def test_constructor_keywords_match_jax():
 
 
 def test_constructor_errors(monkeypatch):
+    """A one-rank mesh and per-scenario grids construct (both raised
+    before they were ported); a mesh on another device type raises; and
+    CUDA asked for without CUDA, and the wrong scenario count."""
+    import tempfile
+
+    import torch.distributed as dist
+    from lqrrt_tpu_torch.parallel import mesh as meshlib
+
     prob = di.default_problem()
     args = (prob["dynamics"], prob["lqr"], prob["erf"],
             prob["constraints"].is_feasible, prob["constraints"].goal_buffer)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        FleetPlanner(*args, horizon=1.0, n_scenarios=2, mesh=object(),
-                     device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tempfile.mktemp()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = meshlib.make_fleet_mesh(1, device_type="cpu")
+        fleet = FleetPlanner(*args, horizon=1.0, n_scenarios=2, mesh=mesh,
+                             device="cpu")
+        assert (fleet._n_local, fleet._offset) == (2, 0)
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: True)
+            with pytest.raises(ValueError, match="device is cuda"):
+                FleetPlanner(*args, horizon=1.0, n_scenarios=2, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     grid = grid_free_data(origin=(0.0, 0.0), resolution=0.5)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        FleetPlanner(*args[:3], grid, args[4], horizon=1.0, n_scenarios=2,
-                     per_scenario_data=True, device="cpu")
+    FleetPlanner(*args[:3], grid, args[4], horizon=1.0, n_scenarios=2,
+                 per_scenario_data=True, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         FleetPlanner(*args, horizon=1.0, n_scenarios=2)
@@ -690,3 +707,183 @@ def test_fleet_demo_small(capsys):
     assert out[3].startswith("fleet: scenario 0 plan has ")
     rate = float(out[2].split()[3].rstrip(","))
     assert rc == (0 if rate > 0.5 else 1)
+
+
+# ---- per-scenario occupancy grids ------------------------------------------
+
+def _scenario_walls(S, Hg=32, Wg=64):
+    """S grids over x in [-2, 14), y in [-4, 4) at 0.25 m: scenario s a
+    wall at x in [1 + 0.5 s, 1.5 + 0.5 s), with a gap at y in [-0.5, 0.5)
+    for even s."""
+    occ = np.zeros((S, Hg, Wg), bool)
+    for s in range(S):
+        occ[s, :, 12 + 2 * s:14 + 2 * s] = True
+        if s % 2 == 0:
+            occ[s, 14:18, 12 + 2 * s:14 + 2 * s] = False
+    return occ, (-2.0, -4.0), 0.25
+
+
+def test_grid_predicate_with_leading_axes_reads_each_scenario_grid():
+    """x (S, B, n) against (S, H, W) grids: each row is its own scenario's
+    verdict, as the 2-D grid gives it; circles the same with (S, K, 2)."""
+    occ, origin, res = _scenario_walls(5)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.uniform(-3, 15, (5, 200, 4)).astype(np.float32))
+    pred = grid_free_data(origin, res)
+    got = pred(x, None, torch.from_numpy(occ))
+    assert got.shape == (5, 200)
+    for s in range(5):
+        assert torch.equal(got[s], pred(x[s], None, torch.from_numpy(occ[s])))
+    assert not got.all() and got.any()
+    cpred = circles_free_data(margin=0.1)
+    data = {"centers": torch.from_numpy(rng.uniform(0, 10, (5, 3, 2)).astype(
+        np.float32)), "radii": torch.full((5, 3), 1.5)}
+    got = cpred(x, None, data)
+    for s in range(5):
+        assert torch.equal(got[s], cpred(x[s], None, {
+            k: v[s] for k, v in data.items()}))
+
+
+def test_fleet_per_scenario_grid_round_equals_jax():
+    """The fleet's round with a grid a scenario (``grid_free_data``,
+    ``per_scenario_data=True``) against JAX's vmapped round with each
+    scenario's grid, three rounds at S = 4 on the same candidates: the
+    trees row for row (the round-lockstep tolerances above); no node in its
+    own scenario's wall, some in another's; the (S, H, W) grids are the one
+    copy the predicate reads."""
+    from lqrrt_tpu.ops import collision as jcollision
+
+    S, n, m = LS, 4, 2
+    occ, origin, res = _scenario_walls(S)
+    jprob, tprob = jdi.default_problem(), di.default_problem()
+    jf = JFleet(jprob["dynamics"], jprob["lqr"], jprob["erf"],
+                jcollision.grid_free_data(origin, res),
+                jprob["constraints"].goal_buffer, horizon=LH * DT, dt=DT,
+                n_scenarios=S, batch_size=LB, capacity=LCAP, nn_block=LBLK,
+                saturate=jprob["saturate"], per_scenario_data=True)
+    jf._build(n, m)
+    gb = jprob["constraints"].goal_buffer
+    jgrid = jcollision.grid_free_data(origin, res)
+
+    def jround(t, xr, goal, data):
+        return jrounds.make_round(
+            jf.spec, jprob["dynamics"], jprob["lqr"], jprob["erf"],
+            lambda x, u: jgrid(x, u, data), 0.05, gb,
+            xrand_gen=lambda k, b: k, saturate=jprob["saturate"])(
+                t, xr, goal, None, None, None)
+
+    vround = jax.jit(jax.vmap(jround))
+    jS, jK = (np.asarray(a) for a in jprob["lqr"](None, None))
+    pf = FleetPlanner(tprob["dynamics"], interop.lqr_from_numpy(jS, jK),
+                      tprob["erf"], grid_free_data(origin, res), gb,
+                      horizon=LH * DT, dt=DT, n_scenarios=S, batch_size=LB,
+                      capacity=LCAP, nn_block=LBLK,
+                      saturate=tprob["saturate"], per_scenario_data=True,
+                      device="cpu")
+    pf._build(n, m)
+    pf._data_box[0] = torch.from_numpy(occ)
+    rng = np.random.default_rng(17)
+    x0s = np.zeros((S, n), np.float32)
+    x0s[:, 1] = rng.uniform(-1, 1, S)
+    goals = np.tile(np.asarray(tprob["goal"]), (S, 1))
+    goals[:, 0] = 4.0
+    jtrees = jf._vseed(jnp.asarray(x0s), jnp.asarray(goals))
+    ptrees = interop.tree_from_numpy(jax.device_get(jtrees), device="cpu")
+    goal_rows = torch.from_numpy(np.repeat(goals, LB, 0))
+    for _ in range(3):
+        xr = rng.uniform([-1, -3, -2, -2], [6, 3, 2, 2],
+                         (S, LB, n)).astype(np.float32)
+        jtrees = vround(jtrees, jnp.asarray(xr), jnp.asarray(goals),
+                        jnp.asarray(occ))
+        pf._round(ptrees, torch.from_numpy(xr), goal_rows)
+        got, want = _np(ptrees), _np(jax.device_get(jtrees))
+        np.testing.assert_array_equal(got["size"], want["size"])
+        for f in ("parent", "edge_len", "in_goal", "n_children"):
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        for f in ("state", "edge_x"):
+            np.testing.assert_allclose(got[f], want[f], atol=1e-3,
+                                       err_msg=f)
+    inside = _in_walls(got, occ, origin, res)
+    assert inside.trace() == 0 and inside.sum() > 0, inside
+    pf.plan(x0s, goals, tprob["sample_space"], goal_bias=0.2, rounds=1,
+            feasibility_data=occ)
+    assert tuple(pf._data_box[0].shape) == occ.shape   # no copy a row
+
+
+def _in_walls(t, occ, origin, res):
+    """(S, S) counts: nodes of scenario i inside scenario j's wall."""
+    S, Hg, Wg = occ.shape
+    out = np.zeros((S, S), int)
+    for i in range(S):
+        p = t["state"][i, :t["size"][i], :2]
+        c = np.floor((p - np.asarray(origin)) / res).astype(int)
+        ok = (c[:, 0] >= 0) & (c[:, 0] < Wg) & (c[:, 1] >= 0) & (
+            c[:, 1] < Hg)
+        for j in range(S):
+            out[i, j] = int(occ[j, c[ok, 1], c[ok, 0]].sum())
+    return out
+
+
+# ---- the fleet on a 2-rank mesh ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def fleet_job():
+    import tempfile
+
+    import _torch_mesh_worker as W
+
+    tmp = tempfile.mkdtemp(prefix="torch_fleet2_")
+    prob = di.default_problem()
+    S0, K0 = prob["lqr"](torch.zeros(4), torch.zeros(2))
+    procs = W.spawn(2, dict(jS=S0.numpy(), jK=K0.numpy()), ["fleet"], tmp)
+    return W.collect(procs, tmp, timeout=240)
+
+
+def test_fleet_mesh_whole_fleet_stats_on_every_rank(fleet_job):
+    """8 scenarios over 2 ranks, 4 each: ``plan`` gathers the whole fleet's
+    sizes, goals and best nodes on both ranks, each rank's block is its
+    own trees, the budget's chunks follow the first rank's clock on both
+    (the other rank's alone would stop after one round), and an
+    indivisible scenario count raises naming both numbers."""
+    a, b = fleet_job
+    for k in ("fixed/sizes", "fixed/goal_found", "fixed/best"):
+        np.testing.assert_array_equal(a[f"fleet/{k}"], b[f"fleet/{k}"])
+    sizes = a["fleet/fixed/sizes"]
+    assert sizes.shape == (8,) and (sizes > 1).all()
+    np.testing.assert_array_equal(a["fleet/fixed/local_sizes"], sizes[:4])
+    np.testing.assert_array_equal(b["fleet/fixed/local_sizes"], sizes[4:])
+    assert not np.array_equal(sizes[:4], sizes[4:])   # own generators
+    assert int(a["fleet/budget/rounds"]) == int(b["fleet/budget/rounds"]) > 1
+    for o in (a, b):
+        assert str(o["fleet/indivisible"]) == (
+            "n_scenarios=7 is not divisible by the mesh 'scenario' axis "
+            "size 2")
+
+
+def test_fleet_mesh_serves_the_owned_plans(fleet_job):
+    a, b = fleet_job
+    np.testing.assert_array_equal(a["fleet/owned"], [0, 1, 2, 3])
+    np.testing.assert_array_equal(b["fleet/owned"], [4, 5, 6, 7])
+    assert "lives on rank 1" in str(a["fleet/refused"])
+    assert "lives on rank 0" in str(b["fleet/refused"])
+    rng = np.random.default_rng(0)
+    x0s = np.zeros((8, 4), np.float32)
+    x0s[:, 1] = rng.uniform(-1, 1, 8)
+    np.testing.assert_allclose(a["fleet/plan_starts"], x0s[:4], atol=1e-6)
+    np.testing.assert_allclose(b["fleet/plan_starts"], x0s[4:], atol=1e-6)
+
+
+def test_fleet_mesh_per_scenario_grids(fleet_job):
+    """Per-scenario grids on the mesh: each rank reads its block of the
+    (8, 32, 48) grids; no node in its own scenario's wall."""
+    a, b = fleet_job
+    S = 8
+    occ = np.zeros((S, 32, 48), bool)
+    for s in range(S):
+        occ[s, :, 12 + s:14 + s] = True
+    t = {"state": np.concatenate([a["fleet/grid/state"],
+                                  b["fleet/grid/state"]]),
+         "size": np.concatenate([a["fleet/grid/size"],
+                                 b["fleet/grid/size"]])}
+    inside = _in_walls(t, occ, (-2.0, -4.0), 0.25)
+    assert inside.trace() == 0 and inside.sum() > 0

@@ -2,6 +2,7 @@
 B=512, capacity=4096 (512 root-pad rows, as at full width), and the car
 (a per-node lqr) at B=64, capacity=512, mirroring the JAX end-to-end checks
 (tests/test_planner_e2e.py, tests/test_models.py)."""
+import contextlib
 import subprocess
 import sys
 import time
@@ -146,20 +147,53 @@ def test_kill_update_preempts():
     assert not planner._killed
 
 
+@contextlib.contextmanager
+def _world1_mesh(kind):
+    """A one-rank gloo world and a CPU mesh in it: 1-D "dp", or
+    ("dp", "map") of 1 x 1 for a sharded grid."""
+    import tempfile
+
+    import torch.distributed as dist
+    from lqrrt_tpu_torch.parallel import mesh as meshlib
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tempfile.mktemp()}", world_size=1,
+        rank=0)
+    try:
+        yield (meshlib.make_mesh(1, device_type="cpu") if kind == "dp" else
+               meshlib.make_mesh_dp_map(1, 1, device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("kw", [
     dict(refine=False), dict(refine_mode="leaf_rewire"),
-    dict(max_nodes=1000), dict(mesh=object()),
-    dict(feasibility_grid=object())])
+    dict(max_nodes=1000), dict(mesh="dp", refine=False),
+    dict(feasibility_grid="buoys", refine=False)])
 def test_off_restart_path_raises(kw):
     """Off the restart path: refine=False, max_nodes below the capacity
     and refine_mode="leaf_rewire" plan through the host loop (grow chunks,
     then refine chunks for leaf_rewire once the tree is full; no restarts,
-    max_nodes held at chunk granularity); what is not ported yet raises."""
+    max_nodes held at chunk granularity); so do a one-rank mesh with
+    refine=False (the sharded grow body) and a feasibility_grid (the buoy
+    field rasterised into a one-slab ShardedGrid on a 1 x 1 dp x map mesh,
+    the constraints holding the circles as the local predicate), which
+    raised before the mesh was ported."""
     prob = boat.default_problem()
-    if not {"refine", "max_nodes", "refine_mode"} & set(kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _planner(prob, **kw)
-        return
+    with contextlib.ExitStack() as stack:
+        if "mesh" in kw:
+            kw = dict(kw, mesh=stack.enter_context(_world1_mesh("dp")))
+        if "feasibility_grid" in kw:
+            from lqrrt_tpu_torch.parallel.map_sharded import ShardedGrid
+
+            g = boat.buoy_grid(*prob["obstacles"])
+            kw = dict(kw, mesh=stack.enter_context(_world1_mesh("map")),
+                      feasibility_grid=ShardedGrid(g.occ, g.origin,
+                                                   g.resolution, 1))
+        _off_restart_path(prob, kw)
+
+
+def _off_restart_path(prob, kw):
     planner = _planner(prob, nn_impl="nn_const", rounds_per_chunk=2, **kw)
     if "refine_mode" in kw:
         # a clock that holds still for 8 chunks: 7 rounds fill the 4096 rows
@@ -185,6 +219,9 @@ def test_off_restart_path_raises(kw):
     feas = prob["constraints"].is_feasible(
         torch.from_numpy(planner.x_seq[1:]), torch.from_numpy(planner.u_seq))
     assert feas.all()
+    if planner.feasibility_grid is not None:
+        assert not planner.feasibility_grid.occupied_host(
+            planner.x_seq[:, :2]).any()
 
 
 def test_feasibility_data_raises():

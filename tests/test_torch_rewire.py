@@ -681,14 +681,14 @@ def test_zero_length_rows_hold_their_parents_state_jax_does_not(
 
 def test_leaf_rewire_with_a_grid_raises():
     """The reference's ValueError for leaf_rewire with a feasibility_grid
-    (lqrrt_tpu/planner.py:251); without the grid the mode is ported, and
-    mesh= and feasibility_grid= alone still name ROADMAP item 16."""
+    (lqrrt_tpu/planner.py:251); without the grid the mode is ported; a
+    feasibility_grid alone needs a mesh, as the reference's
+    (lqrrt_tpu/planner.py:123-125)."""
     prob = di.default_problem()
     args = (prob["dynamics"], prob["lqr"], prob["constraints"])
     with pytest.raises(ValueError, match="leaf_rewire"):
         Planner(*args, horizon=2.0, refine_mode="leaf_rewire",
                 feasibility_grid=object(), device="cpu")
     Planner(*args, horizon=2.0, refine_mode="leaf_rewire", device="cpu")
-    for kw in (dict(mesh=object()), dict(feasibility_grid=object())):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            Planner(*args, horizon=2.0, device="cpu", **kw)
+    with pytest.raises(ValueError, match="requires mesh"):
+        Planner(*args, horizon=2.0, device="cpu", feasibility_grid=object())
