@@ -8,14 +8,16 @@ exits non-zero:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: compile the CUDA kernels from ``lqrrt_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ``ptxas``'s resource lines; every
-   instance of kernels A and E, kernel D's four (one a model: the boat,
+   instance of kernels A (n = 1-20), C (n = 1-20 and the one that takes n
+   at run time) and E, kernel D's four (one a model: the boat,
    the car, the quadrotor, the double integrator) and all 15 of the stage
    scaffold's ``stage_kernel`` (F2, F3) without spills;
 3. kernel A (nn_const) vs its plain PyTorch version at N = 40960,
    B = 8192 with an fp64 brute-force anchor: the boat's n = 6 (wrap dim 2)
    at sizes 0 to 32768, the root-pad tie at sizes 1024 and 32768, NaN
-   state rows inside and past size, n = 4, 12 and 16 wrapped at the first
-   and the last dim and unwrapped; id match >= 0.999 at each; then the
+   state rows inside and past size, n = 4, 12, 16, 17 and 20 wrapped at
+   the first and the last dim and unwrapped; id match >= 0.999 at each;
+   then the
    wrapper's time with its dispatch and alone, its launch alone, its prep
    alone and the plain version's time;
 4. kernel B (block_write) vs its plain version, bit for bit, at C = 6 and
@@ -27,7 +29,9 @@ exits non-zero:
    with an fp64 brute-force anchor, at sizes 0 to 32768 (partial tiles,
    node partitions with no live row); the root-pad tie (id 0, also across
    partitions), NaN S rows inside and past size, a non-symmetric S; both
-   times, the wrapper alone and the launch alone;
+   times, the wrapper alone and the launch alone; then n = 20 (the last
+   template instance) and n = 24 (the run-time instance) at sizes 4097 and
+   32768, wrapped at dim 0 and unwrapped;
 5b. kernel E (nn_expand) in each cross-term mode (fma, bf16, bf16x3) vs
    its plain version at N = 40960, B = 8192, boat S and boat-scale data,
    sizes 512 / 8704 / 32768, wrap dim 2 and unwrapped: id match, fp64
@@ -104,6 +108,13 @@ exits non-zero:
    integrator's shapes (n = 4 unwrapped, its S, N = 40960, size 32768,
    B = 8192) against its plain version, with its times and bound; and a
    small replan with an untagged erf, which takes the scan;
+9'. past 16 states (fault 22): the double integrator stacked five times
+   (n = 20, a constant lqr, ``nn_impl="auto"``) at full width, a 3.0 s
+   replan through kernel A's n = 20 instance that reaches the goal; then
+   the measurement tools: ``tools.profile_round`` for the boat
+   at full width (every phase's ms, the knockout deltas, the busy share,
+   kernel A composed at three live sizes) and ``tools.exp_quality`` in
+   short form (``hard_problem``, batch 2048, 0.2 and 1.0 s, 3 seeds);
 10. ``refine_mode="leaf_rewire"`` at full width on the double integrator's
    five circles (2.0 s): the grow chunk fills the tree, refine chunks
    (leaf replacement through kernel A at B = 4096, and the rewire) run on
@@ -235,12 +246,12 @@ def phase_kernel_a():
     fp64 brute-force anchor: the boat's n = 6 (wrap dim 2) at every size
     of A_SIZES (partial tiles, node partitions with no live row, size 0);
     the root-pad tie at sizes 1024 and 32768; NaN state rows inside and
-    past size; n = 4, 12 and 16 wrapped at the first and the last dim and
-    unwrapped.  Gates: id match >= 0.999, fp64 excess and anchors <=
-    TOL_EXCESS.  Then the times at n = 6, size 32768: the wrapper with its
-    dispatch, alone (``device_ms``), its launch alone and its prep alone
-    (the candidate mean and the fill of the keys), and the plain
-    version."""
+    past size; n = 4, 12, 16, 17 and 20 (the 64-row tiles, one candidate
+    a thread; timed) wrapped at the first and the last dim and unwrapped.
+    Gates: id match >= 0.999, fp64 excess and anchors <= TOL_EXCESS.
+    Then the times at n = 6, size 32768: the wrapper with its dispatch,
+    alone (``device_ms``), its launch alone and its prep alone (the
+    candidate mean and the fill of the keys), and the plain version."""
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import (nn_const,
                                                        nn_const_plain)
     from lqrrt_tpu_torch.tools.exp_steer_kernel import device_ms
@@ -280,12 +291,12 @@ def phase_kernel_a():
     st_nan[32768 + 5:] = math.nan
     check_nn(fns, f"n={NS} NaN rows", st_nan, S, xr, 32768, WRAP,
              dead=dead[:32768], gate_ids=True)
-    for n in (4, 12, 16):
+    for n in (4, 12, 16, 17, 20):
         for wrap in (0, n - 1, None):
             st_n, S_n, xr_n = const_inputs(n, wrap, "cuda", 30 + n)
             for size in (4097, 32768):
                 check_nn(fns, f"n={n} wrap={wrap}", st_n, S_n, xr_n, size,
-                         wrap, gate_ids=True)
+                         wrap, timed=n > 16, gate_ids=True)
 
     size = A_SIZES[-1]
     sz = torch.tensor(size, dtype=torch.int32, device="cuda")
@@ -438,7 +449,9 @@ def phase_kernel_c():
     partitions with no live row, size 0); then the root-pad tie, NaN S rows
     inside and past size, and a non-symmetric S at size 32768; then the
     times: the wrapper with its dispatch, alone (``device_ms``, the fold
-    included) and the launch alone on folded rows."""
+    included) and the launch alone on folded rows.  Last, n = 20 (the last
+    template instance) and 24 (``nn_general_any_kernel``, n at run time),
+    wrapped at dim 0 and unwrapped, at sizes 4097 and 32768."""
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import (
         EMPTY_KEY, _launch, nn_general, nn_general_fold, nn_general_plain)
     from lqrrt_tpu_torch.tools.exp_steer_kernel import device_ms
@@ -514,6 +527,24 @@ def phase_kernel_c():
         out[n] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                       device_ms=alone, launch_device_ms=launch,
                       id_match=match)
+    for n in (20, 24):
+        match, max_err = {}, 0.0
+        for wrap in (0, None):
+            scale = torch.full((n,), 10.0, device=dev)
+            if wrap is not None:
+                scale[wrap] = math.pi
+            states = (torch.rand((N_BENCH, n), generator=g, device=dev) * 2
+                      - 1) * scale
+            xr = (torch.rand((B_BENCH, n), generator=g, device=dev) * 2
+                  - 1) * scale
+            A = torch.randn((N_BENCH, n, n), generator=g, device=dev) * 0.3
+            S = A @ A.mT + 0.1 * torch.eye(n, device=dev)
+            for size in (4097, 32768):
+                _, match[f"wrap={wrap} size={size}"], err = check_nn(
+                    fns, f"n={n} wrap={wrap}", states, S, xr, size, wrap,
+                    timed=True)
+                max_err = max(max_err, err)
+        out[n] = dict(max_abs_err=max_err, id_match=match)
     return out
 
 
@@ -751,6 +782,9 @@ def phase_exp_steer_kernel(smi):
 
 
 D_MODELS = ("car", "quadrotor", "double_integrator")
+# nn_const_kernel (n = 1-20, wrapped or not), nn_expand_kernel (6),
+# nn_general_kernel (n = 1-20, wrapped or not), nn_general_any_kernel (2)
+N_ACE_INSTANCES = 40 + 6 + 40 + 2
 N_D_INSTANCES = 4      # steer_rollout_kernel: boat, car, quadrotor, double
                        # integrator
 
@@ -1963,6 +1997,86 @@ def phase_untagged_erf(smi):
         "x0, feasible, in the goal box, dynamically consistent")
 
 
+def phase_stacked(smi):
+    """Fault 22 on the card: the double integrator stacked five times
+    (``double_integrator.stacked_problem()``: n = 20, m = 10, one
+    constant lqr) under ``nn_impl="auto"`` at full width (batch 8192,
+    capacity 32768), goal bias 0.5, a 3.0 s replan.  n = 20 is past the
+    16 states of the package's other models and at the JAX constant-metric
+    kernel's own limit: the planner takes kernel A's n = 20 instance
+    (``nn_selected == "nn_const"``) where it raised before; kernel B
+    commits.  Gates: the replan does not raise, launches A and B and not
+    C, reaches the goal, and its plan passes ``check_plan``."""
+    from lqrrt_tpu_torch.models import double_integrator as di
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_general
+
+    prob = di.stacked_problem()
+    planner = full_width_planner(prob)
+    planner.warmup(prob["x0"], prob["sample_space"], goal_bias=0.5)
+    counters = {**planner_counters(), "nn_general": nn_general}
+    reached, launches = replan("double integrator x5 (n = 20)", prob,
+                               planner, 0.5, 3.0, smi, counters)
+    if (not reached or planner.nn_selected != "nn_const"
+            or launches["nn_const"] < 1 or launches["nn_general"]
+            or launches["block_write"] < 1):
+        raise AssertionError(f"n = 20: goal={reached} "
+                             f"nn={planner.nn_selected} launches={launches}")
+    check_plan(prob, planner)
+    log("double integrator x5 (n = 20) checks: nn=nn_const, A and B "
+        "launched, no C launch, goal, plan from x0, feasible, in the goal "
+        "box, dynamically consistent")
+    return launches
+
+
+def phase_profile_round(smi):
+    """``lqrrt_tpu_torch.tools.profile_round`` for the boat at full width
+    (batch 8192, capacity 32768; one timed chunk of 8 rounds a knockout
+    variant): every phase's ms, the knockout deltas, the busy share and
+    A composed at live sizes 8192, 16384 and 32768.  Gates: kernel A is
+    the NN, every time finite and positive."""
+    from lqrrt_tpu_torch.tools import profile_round
+
+    rec = profile_round.main(["--models", "boat", "--chunks", "1"])
+    r = rec["models"]["boat"]
+    times = [*r["phases_ms"].values(), *r["nn_composed_ms"].values(),
+             r["round_ms"], r["knockout_ms"]["round_ms"],
+             r["busy"]["device_ms"]]
+    log(f"profile_round boat [{smi}]: nn={r['nn']} round_ms="
+        f"{r['round_ms']:.3f} " + " ".join(
+            f"{k}={v:.3f}" for k, v in r["phases_ms"].items())
+        + " knockout " + " ".join(
+            f"{k}={v:.3f}" for k, v in r["knockout_ms"].items())
+        + f" device_ms={r['busy']['device_ms']:.3f} kernels="
+        f"{r['busy']['kernels']} busy_share={r['busy']['busy_share']:.3f} "
+        "A composed " + " ".join(
+            f"{k}={v:.4f}" for k, v in r["nn_composed_ms"].items()))
+    if (r["nn"] != "nn_const"
+            or not all(math.isfinite(t) and t > 0 for t in times)):
+        raise AssertionError(f"profile_round boat: {r}")
+
+
+def phase_exp_quality(smi):
+    """``lqrrt_tpu_torch.tools.exp_quality`` in short form:
+    ``boat.hard_problem`` at batch 2048, budgets 0.2 and 1.0 s, seeds 777,
+    101 and 202.  Gates: every replan returns, every reached plan has a
+    finite positive duration, and at 1.0 s at least one seed reaches the
+    goal."""
+    from lqrrt_tpu_torch.tools import exp_quality
+
+    rec = exp_quality.main(["--instances", "hard", "--budgets", "0.2,1.0",
+                            "--seeds", "777,101,202"])
+    hard = rec["instances"]["hard"]
+    curve = hard["curve"]
+    log(f"exp_quality hard_problem, batch {hard['batch']} [{smi}]: "
+        + " ".join(f"{b} s: mean {v['mean']} goal {v['goal']} seeds "
+                   f"{v['seeds']};" for b, v in curve.items())
+        + f" gain 0.2 -> 1.0 s {hard['gain_0p2_to_1p0_pct']} %")
+    durs = [d for v in curve.values() for d in v["seeds"] if d is not None]
+    if (not all(math.isfinite(d) and d > 0 for d in durs)
+            or all(d is None for d in curve["1.0"]["seeds"])):
+        raise AssertionError(f"exp_quality: {curve}")
+
+
 TOL_TIME = 1e-4        # |node_time - the fp64 chain sum| (s)
 
 
@@ -2158,6 +2272,7 @@ def phase_refine_round_parity(planner, smi):
     from lqrrt_tpu_torch.core.rounds import commit_candidates
     from lqrrt_tpu_torch.models import double_integrator as di
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import make_nearest_const
+    from lqrrt_tpu_torch.utils import timing
 
     prob = di.default_problem()
     half = planner.batch_size // 2
@@ -2244,7 +2359,7 @@ def phase_refine_round_parity(planner, smi):
     runs = [parts(type(base)(*[t.clone() for t in base])) for _ in range(6)]
     med = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
     tree = type(base)(*[t.clone() for t in base])
-    busy_ms, kernels = device_busy(lambda: round_fn(tree, goal_d))
+    busy_ms, kernels = timing.device_busy(lambda: round_fn(tree, goal_d))
     share = busy_ms / med["whole_round"]
     log(f"refine round parts on the card [{smi}] (ms, synchronised, median "
         f"of 5): " + " ".join(f"{k}={v:.3f}" for k, v in med.items())
@@ -2252,26 +2367,6 @@ def phase_refine_round_parity(planner, smi):
         f"{kernels} kernels (torch.profiler), busy share "
         f"{share:.3f} of the unprofiled round")
     return med
-
-
-def device_busy(fn):
-    """(device kernel ms, kernel count) of one synchronised call of fn,
-    from ``torch.profiler`` (``utils.timing.device_trace``)."""
-    import tempfile
-
-    from lqrrt_tpu_torch.utils.timing import device_trace
-
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
-        fn()
-        torch.cuda.synchronize()
-    busy_us, kernels = 0.0, 0
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            busy_us += getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-            kernels += e.count
-    return busy_us / 1e3, kernels
 
 
 def phase_host_surface(planner, smi):
@@ -2385,6 +2480,7 @@ def phase_fleet(smi):
                                                grid_free_data)
     from lqrrt_tpu_torch.parallel import FleetPlanner
     from lqrrt_tpu_torch.tools import bench_fleet
+    from lqrrt_tpu_torch.utils import timing
 
     # (a) the 1024-boat fleet
     dev = "cuda"
@@ -2490,7 +2586,7 @@ def phase_fleet(smi):
 
     runs = [parts() for _ in range(4)]
     med = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
-    busy_ms, kernels = device_busy(
+    busy_ms, kernels = timing.device_busy(
         lambda: fleet._run_rounds(trees, 1, ss, gb, g, goal_rows))
     log(f"fleet round parts on the card [{smi}] (ms, synchronised, median "
         f"of 3; 'steer' alone, 'expand_after_nn' is steer + lqr + wrap + "
@@ -2990,19 +3086,22 @@ def main() -> int:
     ptxas = ptxas_summary(BODIES)
     for line in ptxas:
         log(f"  ptxas {line}")
-    # kernels A, D and E: every instance without spills
-    ae_ptxas = [line for line in ptxas
-                if line.startswith(("nn_const_kernel", "nn_expand_kernel"))]
+    # kernels A, C, D and E: every instance without spills
+    ace_ptxas = [line for line in ptxas
+                if line.startswith(("nn_const_kernel", "nn_expand_kernel",
+                                    "nn_general_kernel",
+                                    "nn_general_any_kernel"))]
     d_ptxas = [line for line in ptxas
                if line.startswith("steer_rollout_kernel")]
     # and the stage scaffold (F2, F3): every stage_kernel instance
     f_ptxas = [line for line in ptxas if line.startswith("stage_kernel")]
-    spilled = [line for line in ae_ptxas + d_ptxas + f_ptxas
+    spilled = [line for line in ace_ptxas + d_ptxas + f_ptxas
                if "spill 0/0 B" not in line]
-    if (len(ae_ptxas) != 38 or len(d_ptxas) != N_D_INSTANCES
+    if (len(ace_ptxas) != N_ACE_INSTANCES or len(d_ptxas) != N_D_INSTANCES
             or len(f_ptxas) != N_STAGE_KERNELS or spilled):
-        raise AssertionError(f"ptxas: kernels A and E: {len(ae_ptxas)} "
-                             f"instances (38 expected), D: {len(d_ptxas)} "
+        raise AssertionError(f"ptxas: kernels A, C and E: {len(ace_ptxas)} "
+                             f"instances ({N_ACE_INSTANCES} expected), D: "
+                             f"{len(d_ptxas)} "
                              f"({N_D_INSTANCES} expected, one a model), "
                              f"stage_kernel: {len(f_ptxas)} "
                              f"({N_STAGE_KERNELS} expected), spilling "
@@ -3058,6 +3157,9 @@ def main() -> int:
                   smi)
     a4 = timed("kernel A unwrapped", phase_kernel_a_unwrapped)
     timed("untagged erf", phase_untagged_erf, smi)
+    l_stacked = timed("double integrator x5 (n = 20)", phase_stacked, smi)
+    timed("profile_round boat", phase_profile_round, smi)
+    timed("exp_quality short", phase_exp_quality, smi)
     l_rewire, rewire_planner = timed("double integrator leaf_rewire",
                                      phase_leaf_rewire, smi)
     timed("refine round parity", phase_refine_round_parity, rewire_planner,
@@ -3073,6 +3175,7 @@ def main() -> int:
              **{f"double integrator field {i}": v
                 for i, v in enumerate(l_dyn)},
              "double integrator leaf_rewire": l_rewire,
+             "double integrator x5 (n = 20)": l_stacked,
              **{f"demo {k}": v for k, v in l_demos.items()}, **l_mesh}
     a_paths = {k: v["nn_const"] for k, v in paths.items()
                if v.get("nn_const")}
@@ -3124,7 +3227,7 @@ def main() -> int:
                  plain_ms=a4["plain_ms"], bound_ms=a4_bound[0],
                  bound_by=a4_bound[1],
                  id_match={str(k): v for k, v in a4["id_match"].items()}),
-             ptxas=[line for line in ae_ptxas
+             ptxas=[line for line in ace_ptxas
                     if line.startswith("nn_const_kernel")]),
         dict(name="block_write", route="cuda",
              source="lqrrt_tpu_torch/csrc/block_write.cu",
@@ -3144,7 +3247,9 @@ def main() -> int:
              launch_device_ms=cq["launch_device_ms"],
              device_ms_n4=c[4]["device_ms"], plain_ms=cq["plain_ms"],
              bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
-             id_match={f"n={n}": v["id_match"] for n, v in c.items()}),
+             id_match={f"n={n}": v["id_match"] for n, v in c.items()},
+             ptxas=[line for line in ace_ptxas
+                    if line.startswith("nn_general")]),
     ]
     for mode in e_replaces:
         # E: the cross term and the wrap's epilogue

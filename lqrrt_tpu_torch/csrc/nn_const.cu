@@ -34,7 +34,7 @@
 // - Register blocking: a thread holds kC candidates (w, r'_a, the running
 //   minimum), so each broadcast 16-byte shared load of a row feeds 4 kC
 //   pairs' work.
-// - The prep is in the block: warp 0 factors S (n <= 16, ~1-3 us, while the
+// - The prep is in the block: warp 0 factors S (n <= 20, ~1-3 us, while the
 //   first tiles land), each thread whitens its candidates, and each tile of
 //   raw state rows is whitened once by the block into a packed tile
 //   [x'_a, z, 0 pad] before the scan.  So the wrapper launches only the
@@ -69,14 +69,18 @@ using namespace lqrrt_nn;
 
 constexpr int kThreads = 128;
 constexpr int kStages = 3;
-constexpr int kTileRows = 128;   // rows a tile; a multiple of 4
-// n is a template argument (w lives in registers); 16 covers every model
-// of the package (boat 6, car 4, quadrotor 12)
-constexpr int kMaxStates = 16;
+// n is a template argument (w lives in registers); 20 is the reference's
+// limit for its constant-metric kernel (6(1 + n) + 2 <= 128 lanes)
+constexpr int kMaxStates = 20;
 
 template <int NS, bool WRAP>
 struct Cfg {
-  static constexpr int kCands = NS <= 8 ? 4 : 2;        // candidates a thread
+  // candidates a thread; one past 16 states, where w and the whitening's
+  // sums would not fit the registers with two
+  static constexpr int kCands = NS <= 8 ? 4 : (NS <= 16 ? 2 : 1);
+  // rows a tile, a multiple of 4; past 16 states the ring of 128-row tiles
+  // would not fit the 48 KB
+  static constexpr int kTileRows = NS <= 16 ? 128 : 64;
   static constexpr int kOff = WRAP ? 1 : 0;             // x'_a leads a row
   static constexpr int kRow = (NS + kOff + 3) / 4 * 4;  // floats a packed row
   static constexpr int kRaw = kTileRows * NS;           // floats a raw tile
@@ -112,11 +116,12 @@ nn_const_kernel(const float* __restrict__ states,  // (N, NS)
 
   int lo, hi;
   block_rows(size_ptr, N, lo, hi);
-  const int n_tiles = lo < hi ? (hi - lo + kTileRows - 1) / kTileRows : 0;
+  const int n_tiles =
+      lo < hi ? (hi - lo + C::kTileRows - 1) / C::kTileRows : 0;
 
   auto fetch = [&](int t) {
-    const int r0 = lo + t * kTileRows;
-    const int nr = min(kTileRows, hi - r0);
+    const int r0 = lo + t * C::kTileRows;
+    const int nr = min(C::kTileRows, hi - r0);
     const uint32_t bytes = static_cast<uint32_t>(nr * NS * 4) & ~15u;
     uint64_t* bar = full + t % kStages;
     mbar_expect_tx(bar, bytes);
@@ -157,8 +162,8 @@ nn_const_kernel(const float* __restrict__ states,  // (N, NS)
   for (int t = 0; t < n_tiles; ++t) {
     const int slot = t % kStages;
     mbar_wait(full + slot, (t / kStages) & 1);
-    const int r0 = lo + t * kTileRows;
-    const int nr = min(kTileRows, hi - r0);
+    const int r0 = lo + t * C::kTileRows;
+    const int nr = min(C::kTileRows, hi - r0);
     const float* rt = raw + slot * C::kRaw;
     float* pt = packed + (t & 1) * C::kPacked;
     const int in_smem = (nr * NS) & ~3;   // floats the bulk copy moved
@@ -167,8 +172,12 @@ nn_const_kernel(const float* __restrict__ states,  // (N, NS)
       auto at = [&](int p) {
         return r * NS + p < in_smem ? rt[r * NS + p] : __ldg(g + p);
       };
+      // past 16 states L is read afresh each tile: held in registers
+      // across the tile loop, its n(n + 1) / 2 entries spill
+      const float* Lt = Ls;
+      if constexpr (NS > 16) asm volatile("" : "+l"(Lt));
       float xc[NS], z[NS];
-      whiten<NS, NS>(at, NS, Ls, ctr, a, xc, z);
+      whiten<NS, NS>(at, NS, Lt, ctr, a, xc, z);
       float* row = pt + r * C::kRow;
       if constexpr (WRAP) row[0] = at(a) * kInvTwoPi;
 #pragma unroll
@@ -233,7 +242,7 @@ int launch(const float* states, const float* xr, const float* S,
   const int cand_tiles = (B + C::kBlockCands - 1) / C::kBlockCands;
   const int parts = node_parts(
       resident_blocks(nn_const_kernel<NS, WRAP>, kThreads, C::kSmem, cache),
-      cand_tiles, N, kTileRows);
+      cand_tiles, N, C::kTileRows);
   const dim3 grid(cand_tiles, parts);
   nn_const_kernel<NS, WRAP><<<grid, kThreads, C::kSmem, s>>>(
       states, xr, S, center, size, keys, ids, cost, N, B, a);
@@ -266,7 +275,8 @@ extern "C" int lqrrt_nn_const(const float* states, const float* xr,
     LQRRT_NN_CONST_CASE(7) LQRRT_NN_CONST_CASE(8) LQRRT_NN_CONST_CASE(9)
     LQRRT_NN_CONST_CASE(10) LQRRT_NN_CONST_CASE(11) LQRRT_NN_CONST_CASE(12)
     LQRRT_NN_CONST_CASE(13) LQRRT_NN_CONST_CASE(14) LQRRT_NN_CONST_CASE(15)
-    LQRRT_NN_CONST_CASE(16)
+    LQRRT_NN_CONST_CASE(16) LQRRT_NN_CONST_CASE(17) LQRRT_NN_CONST_CASE(18)
+    LQRRT_NN_CONST_CASE(19) LQRRT_NN_CONST_CASE(20)
     default:
       return static_cast<int>(cudaErrorInvalidValue);  // n > kMaxStates
   }

@@ -44,6 +44,12 @@
 //   never read.
 // - Every index into the register arrays is a compile-time constant (the
 //   row's layout is unrolled from an integer sequence), so nothing spills.
+// - n is a template argument up to kMaxStates (20, the constant-metric
+//   kernel's limit).  Past it, as the reference's kernel has no limit on n,
+//   one instance takes n at run time (nn_general_any_kernel): a thread a
+//   candidate, its r and e in shared memory (a column a thread), the packed
+//   rows read as broadcast loads from device memory; simple and right, not
+//   tuned, for models no package ships (n <= kMaxAnyStates).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -59,9 +65,12 @@ using namespace lqrrt_nn;
 constexpr int kThreads = 128;
 constexpr int kStages = 3;
 constexpr int kTileBytesTarget = 12 * 1024;
-// n is a template argument; 16 covers every model of the package (boat 6,
-// car 4, quadrotor 12)
-constexpr int kMaxStates = 16;
+// n is a template argument up to kMaxStates, a run-time argument of
+// nn_general_any_kernel up to kMaxAnyStates (its shared memory, 2 n
+// kAnyThreads floats, within the H100's 227 KB a block)
+constexpr int kMaxStates = 20;
+constexpr int kAnyThreads = 64;
+constexpr int kMaxAnyStates = 256;
 
 template <int NS>
 struct Cfg {
@@ -72,6 +81,9 @@ struct Cfg {
   static constexpr int kTileBytes = kTileRows * kRow * 4;
   static constexpr int kBlockCands = kThreads * kCands;
   static constexpr int kSmem = kStages * kTileBytes + kStages * 8;
+  // past 16 states ptxas, left to itself, caps the registers at 64 or 96
+  // and spills; one resident block a SM as the floor lifts the cap
+  static constexpr int kMinBlocks = NS > 16 ? 1 : 0;
 };
 
 // (row, column) of the p-th entry of the row-major upper triangle of n x n
@@ -126,7 +138,7 @@ __device__ __forceinline__ void row_costs(const float4* __restrict__ row,
 }
 
 template <int NS, bool WRAP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Cfg<NS>::kMinBlocks)
 nn_general_kernel(const float* __restrict__ rows,  // (N, kRow) packed
                   const float* __restrict__ xr,    // (B, NS), wrap dim first
                   const int* __restrict__ size_ptr,
@@ -252,6 +264,83 @@ int launch(const float* rows, const float* xr, const int* size,
   return static_cast<int>(cudaGetLastError());
 }
 
+// nn_general_kernel for n > kMaxStates, n at run time: thread b's r_b and
+// e = x_j - r_b in shared memory columns (rs, es: [n][kAnyThreads]), and the
+// same sums in the same order as row_costs
+template <bool WRAP>
+__global__ void __launch_bounds__(kAnyThreads)
+nn_general_any_kernel(const float* __restrict__ rows,  // (N, row_len)
+                      const float* __restrict__ xr,    // (B, n)
+                      const int* __restrict__ size_ptr,
+                      long long* __restrict__ keys, int N, int B, int n,
+                      int row_len) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* rs = reinterpret_cast<float*>(smem) + threadIdx.x;
+  float* es = rs + n * kAnyThreads;
+  const float two_pi = 2.0f * CUDART_PI_F;
+  const float inv_two_pi = 1.0f / two_pi;
+
+  int size = __ldg(size_ptr);
+  size = size < 0 ? 0 : (size > N ? N : size);
+  const int per = (size + gridDim.y - 1) / gridDim.y;
+  const int lo = blockIdx.y * per;
+  const int hi = min(lo + per, size);
+  const int b = blockIdx.x * kAnyThreads + threadIdx.x;
+  if (lo >= hi || b >= B) return;   // no barrier below: a thread alone
+  for (int k = 0; k < n; ++k)
+    rs[k * kAnyThreads] = __ldg(xr + static_cast<size_t>(b) * n + k);
+
+  float best = CUDART_INF_F;
+  int best_id = 0;
+  for (int j = lo; j < hi; ++j) {
+    const float* row = rows + static_cast<size_t>(j) * row_len;
+    for (int k = 0; k < n; ++k) {
+      float d = __ldg(row + k) - rs[k * kAnyThreads];
+      if (WRAP && k == 0) d -= two_pi * rintf(d * inv_two_pi);
+      es[k * kAnyThreads] = d;
+    }
+    const float* u = row + n;   // U_ik, row-major upper triangle
+    float acc = 0.f;
+    for (int i = 0; i < n; ++i) {
+      float t = __ldg(u++) * es[i * kAnyThreads];
+      for (int k = i + 1; k < n; ++k)
+        t = fmaf(__ldg(u++), es[k * kAnyThreads], t);
+      acc = i == 0 ? es[0] * t : fmaf(es[i * kAnyThreads], t, acc);
+    }
+    // NaN and -inf fail one of the two tests: never a winner
+    if (acc < best && acc > -CUDART_INF_F) {
+      best = acc;
+      best_id = j;
+    }
+  }
+  if (best < CUDART_INF_F) atomicMin(keys + b, pack_key(best, best_id));
+}
+
+template <bool WRAP>
+int launch_any(const float* rows, const float* xr, const int* size,
+               long long* keys, int N, int B, int n, cudaStream_t s) {
+  if (n > kMaxAnyStates) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = nn_general_any_kernel<WRAP>;
+  const int smem = 2 * n * kAnyThreads * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kAnyThreads,
+                                                smem);
+  const int cand_tiles = (B + kAnyThreads - 1) / kAnyThreads;
+  // at least 32 rows a partition
+  const int parts = node_parts((sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1),
+                               cand_tiles, N, 32);
+  const int tri = n * (n + 1) / 2;
+  const int row_len = (n + tri + 3) / 4 * 4;
+  kernel<<<dim3(cand_tiles, parts), kAnyThreads, smem, s>>>(
+      rows, xr, size, keys, N, B, n, row_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define LQRRT_NN_GENERAL_CASE(NS)                                         \
@@ -276,7 +365,10 @@ extern "C" int lqrrt_nn_general(const float* rows, const float* xr,
     LQRRT_NN_GENERAL_CASE(11) LQRRT_NN_GENERAL_CASE(12)
     LQRRT_NN_GENERAL_CASE(13) LQRRT_NN_GENERAL_CASE(14)
     LQRRT_NN_GENERAL_CASE(15) LQRRT_NN_GENERAL_CASE(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);  // n > kMaxStates
+    LQRRT_NN_GENERAL_CASE(17) LQRRT_NN_GENERAL_CASE(18)
+    LQRRT_NN_GENERAL_CASE(19) LQRRT_NN_GENERAL_CASE(20)
+    default:   // n > kMaxStates
+      return wrap ? launch_any<true>(rows, xr, size, keys, N, B, n, s)
+                  : launch_any<false>(rows, xr, size, keys, N, B, n, s);
   }
 }

@@ -7,6 +7,10 @@ Control u = [fx, fy] / mass    (m = 2)
 Linear dynamics, one constant (S, K) from the CARE, circular obstacles and
 no angle: the erf is ``torch.subtract``, so on the card the planner takes
 kernel A with no wrap dim.  Every callback is batch-leading.
+
+``stacked_problem()`` (no counterpart in the JAX package) plans ``COPIES``
+(5) point masses as one state of n = 20: the model at the constant-metric
+NN kernel's limit of 20 states.
 """
 from __future__ import annotations
 
@@ -72,4 +76,45 @@ def default_problem(obstacles: bool = True):
     return dict(dynamics=dynamics, lqr=make_lqr(), erf=erf,
                 constraints=constraints, x0=x0, goal=goal,
                 sample_space=sample_space, horizon=2.0, dt=0.05,
+                obstacles=(centers, radii), saturate=saturate, wrap_dims=())
+
+
+COPIES = 5   # stacked_problem's point masses: n = 20
+
+
+def stacked_problem():
+    """``COPIES`` double integrators planned as one: state
+    [px, py, vx, vy] of copy i at dims 4i..4i+3, effort [fx, fy] at
+    2i..2i+1, each copy from the origin to (10, 0) as in
+    ``default_problem``, with its goal box, sample space and effort limits;
+    the five circles stand in the way of copy 0 only.  One constant
+    (S, K) from the block-diagonal CARE."""
+    from ..constraints import Constraints
+
+    base = default_problem(obstacles=False)
+    k = COPIES
+    n, m = NSTATES * k, NCONTROLS * k
+
+    def f_stacked(x, u):
+        xs = x.reshape(x.shape[:-1] + (k, NSTATES))
+        us = u.reshape(u.shape[:-1] + (k, NCONTROLS))
+        return f(xs, us).reshape(x.shape)
+
+    eye = np.eye(k, dtype=np.float32)
+    Q = np.kron(eye, np.diag(np.array([1.0, 1.0, 0.3, 0.3], np.float32)))
+    R = np.kron(eye, 0.05 * np.eye(2, dtype=np.float32))
+    lqr = make_constant_lqr(np.kron(eye, A), np.kron(eye, B), Q, R)
+    centers, radii = default_problem()["obstacles"]
+    c = base["constraints"]
+    constraints = Constraints(
+        nstates=n, ncontrols=m, goal_buffer=np.tile(c.goal_buffer, k),
+        search_buffer=np.tile(c.search_buffer, (k, 1)),
+        is_feasible=collision.all_of(
+            collision.control_limits(-U_MAX * np.ones(m), U_MAX * np.ones(m)),
+            collision.circles_free(centers, radii, margin=0.1)))
+    return dict(dynamics=discretize(f_stacked, "rk4"), lqr=lqr, erf=erf,
+                constraints=constraints, x0=np.tile(base["x0"], k),
+                goal=np.tile(base["goal"], k),
+                sample_space=np.tile(base["sample_space"], (k, 1)),
+                horizon=base["horizon"], dt=base["dt"],
                 obstacles=(centers, radii), saturate=saturate, wrap_dims=())

@@ -29,11 +29,15 @@ rint(e_a / 2pi).  Its blocks merge their partial argmins with one 64-bit
 turns back into (ids, cost).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and its kernel
-for CUDA tensors; there is no other path.  Each header says what bounds the
-kernel on the H100 and what its design does about it.  ``nn_const.launches``
-and ``nn_general.launches`` count kernel launches.  Both kernels' blocks
-take slices of the live rows (``block_rows`` in csrc/nn_common.cuh) and
-merge their first minima on ``pack_keys``' keys.
+for CUDA tensors; there is no other path.  ``nn_const`` takes n <=
+``_MAX_STATES`` (20, the JAX constant-metric kernel's limit) on the card,
+``nn_general`` n <= ``_MAX_GENERAL_STATES`` (256: one instance a state
+dimension up to 20, then one that takes n at run time).  Each header
+says what bounds the kernel on the H100 and what its design does about
+it.  ``nn_const.launches`` and ``nn_general.launches`` count kernel
+launches.  Both kernels' blocks take slices of the live rows
+(``block_rows`` in csrc/nn_common.cuh) and merge their first minima on
+``pack_keys``' keys.
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ _TWO_PI = 2.0 * math.pi
 _INV_TWO_PI = 1.0 / _TWO_PI
 _ROUND = 12582912.0   # 1.5 * 2^23
 _PLAIN_BLOCK = 1024   # node rows per step of the plain version's scan
-_MAX_STATES = 16      # kMaxStates in csrc/nn_const.cu and nn_general.cu
+_MAX_STATES = 20      # kMaxStates in csrc/nn_const.cu
+_MAX_GENERAL_STATES = 256   # kMaxAnyStates in csrc/nn_general.cu
 
 
 def _rint(v):
@@ -267,7 +272,7 @@ def nn_general_plain(states, S, size, xrand, wrap_dim: Optional[int] = None,
                            states.device, block)
 
 
-def _check(name, states, S, size, xrand):
+def _check(name, states, S, size, xrand, max_states=None):
     for what, t in (("states", states), ("S", S), ("xrand", xrand)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {what} must be float32")
@@ -286,8 +291,9 @@ def _check(name, states, S, size, xrand):
                          f"{states.shape[1]}, got {tuple(S.shape)}")
     if states.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {states.device}")
-    if states.device.type == "cuda" and states.shape[1] > _MAX_STATES:
-        raise ValueError(f"{name}: the kernel takes n <= {_MAX_STATES} "
+    if (max_states is not None and states.device.type == "cuda"
+            and states.shape[1] > max_states):
+        raise ValueError(f"{name}: the kernel takes n <= {max_states} "
                          f"states, got {states.shape[1]}")
 
 
@@ -337,7 +343,7 @@ def nn_const(states, S, size, xrand, wrap_dim: Optional[int] = None):
     """(ids, cost) of each candidate's nearest live node under one shared
     S.  states (N, n), S (n, n) or (N, n, n) (row 0 used), size 0-d int32
     on the same device, xrand (B, n)."""
-    _check("nn_const", states, S, size, xrand)
+    _check("nn_const", states, S, size, xrand, _MAX_STATES)
     if states.device.type == "cpu":
         return nn_const_plain(states, S, size, xrand, wrap_dim)
     N, n = states.shape
@@ -360,7 +366,7 @@ def nn_general(states, S, size, xrand, wrap_dim: Optional[int] = None):
     """(ids, cost) of each candidate's nearest live node under its per-node
     S.  states (N, n), S (N, n, n), size 0-d int32 on the same device,
     xrand (B, n)."""
-    _check("nn_general", states, S, size, xrand)
+    _check("nn_general", states, S, size, xrand, _MAX_GENERAL_STATES)
     N, n = states.shape
     if S.shape != (N, n, n):
         raise ValueError(f"nn_general: S must be (N, n, n) = {(N, n, n)}, "

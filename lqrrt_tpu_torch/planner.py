@@ -52,8 +52,9 @@ The NN on CUDA is a hand-written kernel for an affine erf (subtract, or at
 most one wrapped angle dim): ``nn_const`` when the ``lqr`` is constant (the
 boat, the double integrator), ``nn_general`` for a per-node ``lqr`` (the
 car and the quadrotor); any other erf takes the plain blocked scan, as in
-the JAX planner.  ``nn_selected`` says which ran: "nn_const",
-"nn_general" or "scan".
+the JAX planner, and so does a constant ``lqr`` past nn_const's 20 states
+(``ops/kernels/nn_kernel.py`` ``_MAX_STATES``, the JAX kernel's limit).
+``nn_selected`` says which ran: "nn_const", "nn_general" or "scan".
 
 Callbacks are batch-leading (see the package docstring).  The device is
 explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
@@ -336,10 +337,15 @@ class Planner:
         tagged by make_erf.  "auto" on CUDA takes the nn_const kernel for a
         constant lqr, else the nn_general kernel, and the scan for any other
         erf, as the JAX planner does; "auto" on the CPU, and "scan", take
-        the scan.  "nn_const" and "nn_general" force that kernel's wrapper
-        (its plain version on CPU tensors) and raise ValueError for an erf
-        the kernels cannot take."""
-        from .ops.kernels.nn_kernel import (make_nearest_const,
+        the scan.  nn_const takes at most ``_MAX_STATES`` (20) states, the
+        JAX constant-metric kernel's limit; past it "auto" takes the scan
+        for a constant lqr, where the JAX planner raises on a TPU.
+        nn_general takes ``_MAX_GENERAL_STATES`` (256).  "nn_const" and
+        "nn_general" force that kernel's wrapper (its plain version on CPU
+        tensors) and raise ValueError, here, for an erf, an lqr or a state
+        dimension the kernel cannot take."""
+        from .ops.kernels.nn_kernel import (_MAX_GENERAL_STATES, _MAX_STATES,
+                                            make_nearest_const,
                                             make_nearest_general)
 
         dims = getattr(self.erf, "angle_dims", None)
@@ -361,11 +367,20 @@ class Planner:
             raise ValueError("nn_impl='nn_const' needs a constant lqr (one S "
                              "for the whole tree); this lqr varies with the "
                              "state: use 'nn_general'")
-        if self.nn_impl == "nn_const" or (self.nn_impl == "auto" and const):
-            self.nn_selected = "nn_const"
-            return make_nearest_const(wrap_dim)
-        self.nn_selected = "nn_general"
-        return make_nearest_general(wrap_dim)
+        impl = self.nn_impl
+        if impl == "auto":
+            impl = "nn_const" if const else "nn_general"
+        limit = _MAX_STATES if impl == "nn_const" else _MAX_GENERAL_STATES
+        if self.nstates > limit:
+            if self.nn_impl != "auto":
+                raise ValueError(
+                    f"nn_impl={impl!r} takes at most {limit} states, this "
+                    f"model has {self.nstates}: use 'auto' or 'scan'")
+            self.nn_selected = "scan"
+            return None
+        self.nn_selected = impl
+        return (make_nearest_const if impl == "nn_const"
+                else make_nearest_general)(wrap_dim)
 
     def _seed(self, x0, goal):
         """(S0, K0, in_goal0, goal_cost0) at x0, all on the device."""
@@ -442,6 +457,21 @@ class Planner:
             return flat[torch.clamp(pos, 0, D * H - 1)]
 
         return pool
+
+    def _straight_line(self, x0) -> torch.Tensor:
+        """(_FPR_PLAN_LEN, n) states evenly from x0 to the goal: the FPR
+        rows before a first plan and the informed pool before a goal."""
+        return self._tensor(np.linspace(x0.cpu().numpy(),
+                                        self.goal.cpu().numpy(),
+                                        _FPR_PLAN_LEN, dtype=np.float32))
+
+    def _informed_start(self, x0, xrand_gen=None):
+        """The host loop's first ``informed`` argument of its chunk: the
+        straight line at fraction 0 and noise 0.05 where the restart stash
+        can refresh it, else None."""
+        if xrand_gen is None and self.informed > 0.0 and self._stash_on():
+            return (self._straight_line(x0), 0.0, 0.05)
+        return None
 
     def _sampler(self, xrand_gen, n_fpr: int, informed_on: bool,
                  n_dev: int = 1):
@@ -769,11 +799,10 @@ class Planner:
             n_fpr = max(int(round(self.FPR * self.batch_size)), 1)
             if self.x_seq is not None and len(self.x_seq) > 1:
                 idx = np.linspace(0, len(self.x_seq) - 1, _FPR_PLAN_LEN)
-                plan = np.asarray(self.x_seq)[idx.astype(int)]
+                prev_plan = self._tensor(
+                    np.asarray(self.x_seq)[idx.astype(int)])
             else:
-                plan = np.linspace(x0.cpu().numpy(), self.goal.cpu().numpy(),
-                                   _FPR_PLAN_LEN, dtype=np.float32)
-            prev_plan = self._tensor(plan)
+                prev_plan = self._straight_line(x0)
         self._load_feasibility_data()
         loop = (self._run_restart_loop
                 if self._stash_on() and self.feasibility_grid is None
@@ -814,9 +843,7 @@ class Planner:
         n_cycles, F = self._restart_chunk_shape
         cur = self._replicated(self._seed_tree(x0, self.goal))
         best = self._replicated(self._seed_tree(x0, self.goal))
-        pool = self._tensor(np.linspace(x0.cpu().numpy(),
-                                        self.goal.cpu().numpy(),
-                                        _FPR_PLAN_LEN, dtype=np.float32))
+        pool = self._straight_line(x0)
         score = self._tensor(self._RSCORE0)
         bufs = self._stats_buffers()
         t0 = self.sys_time()
@@ -903,11 +930,7 @@ class Planner:
         tree = self._replicated(self._seed_tree(x0, self.goal))
         node_cap = min(self.max_nodes, self.capacity)
         refine_on = self.refine and node_cap >= self.capacity
-        informed = None
-        if xrand_gen is None and self.informed > 0.0 and self._stash_on():
-            informed = (self._tensor(np.linspace(
-                x0.cpu().numpy(), self.goal.cpu().numpy(), _FPR_PLAN_LEN,
-                dtype=np.float32)), 0.0, 0.05)
+        informed = self._informed_start(x0, xrand_gen)
         bufs = self._stats_buffers()
         t0 = self.sys_time()
         rounds = restarts = 0

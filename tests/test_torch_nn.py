@@ -28,7 +28,7 @@ N, n, B = 256, 6, 16
 EXCESS = 1e-4
 
 
-def _tree(seed, wrap_dim=None, const=False):
+def _tree(seed, wrap_dim=None, const=False, n=n):
     rng = np.random.default_rng(seed)
     states = rng.uniform(-5, 5, (N, n)).astype(np.float32)
     xrand = rng.uniform(-5, 5, (B, n)).astype(np.float32)
@@ -145,6 +145,21 @@ def test_nn_const_dead_rows_are_masked_by_index():
     assert int(ids.max()) < 100 and torch.isfinite(cost).all()
 
 
+@pytest.mark.parametrize("nn,wrap_dim", [(17, None), (17, 16), (20, None),
+                                         (20, 0)])
+def test_nn_const_plain_matches_pallas_past_16_states(nn, wrap_dim):
+    """n = 17-20: the kernel's instances past the package's models, up to
+    the JAX constant-metric kernel's own limit of 20 states."""
+    states, S, xrand = _tree(nn, wrap_dim, const=True, n=nn)
+    ids_ref, cost_ref = nearest_const_pallas(
+        jnp.asarray(states), jnp.asarray(S), jnp.asarray(N),
+        jnp.asarray(xrand), block=64, wrap_dim=wrap_dim, interpret=True)
+    ids, cost = nn_const(torch.from_numpy(states), torch.from_numpy(S),
+                         torch.tensor(N, dtype=torch.int32),
+                         torch.from_numpy(xrand), wrap_dim=wrap_dim)
+    _agree(states, S, xrand, wrap_dim, ids, cost, ids_ref, cost_ref)
+
+
 def test_nn_const_rejects_bad_inputs():
     states, S, xrand = _tree(1, None, const=True)
     with pytest.raises(TypeError):
@@ -191,7 +206,8 @@ def _general(states, S, size, xrand, wrap_dim, **kw):
 
 
 @pytest.mark.parametrize("nn,wrap_dim", [(4, None), (4, 2), (6, None),
-                                         (6, 2), (12, None), (12, 5)])
+                                         (6, 2), (12, None), (12, 5),
+                                         (20, 19), (24, None), (24, 3)])
 @pytest.mark.parametrize("size", [1, 7, N])
 def test_nn_general_plain_matches_pallas_and_scan(nn, wrap_dim, size):
     states, S, xrand = _general_tree(nn + size, nn, wrap_dim=wrap_dim)

@@ -321,6 +321,80 @@ def test_nn_selection_matches_jax(erf_kind, names):
                                  else "nn_const")
 
 
+def _linear_planner(n, lqr_kind, nn_impl):
+    """A planner on CPU tensors for an n-state single integrator (x' = u,
+    m = n) with S = I (constant) or S = (1 + x_0^2) I (per node)."""
+    eye = torch.eye(n)
+
+    def lqr(x, u):
+        scale = (1.0 + x[..., :1, None] ** 2 if lqr_kind == "per_node"
+                 else torch.ones(x.shape[:-1] + (1, 1)))
+        return eye * scale, eye.expand(x.shape[:-1] + (n, n))
+
+    cons = Constraints(nstates=n, ncontrols=n, goal_buffer=np.ones(n))
+    return lqrrt_tpu_torch.Planner(
+        lambda x, u, dt: x + dt * u, lqr, cons, horizon=1.0,
+        goal0=np.ones(n), printing=False, batch_size=512, capacity=4096,
+        device="cpu", nn_impl=nn_impl)
+
+
+@pytest.mark.parametrize("lqr_kind", ["constant", "per_node"])
+@pytest.mark.parametrize("n", [16, 17, 20, 21, 24])
+def test_nn_selection_past_the_kernels_state_limit(n, lqr_kind):
+    """Fault 22: nn_const takes at most ``_MAX_STATES`` (20) states, the
+    JAX constant-metric kernel's limit, and nn_general up to
+    ``_MAX_GENERAL_STATES`` (256).  On the card path (the device set after
+    the lqr probe, as in ``test_nn_selection_matches_jax``) "auto" takes
+    nn_const for a constant lqr up to 20 states and the plain scan above
+    (where the JAX planner raises on a TPU), and nn_general for a
+    per-node lqr at every n here; a forced kernel raises ValueError past
+    its limit when the chunk is built, not at its first launch."""
+    from lqrrt_tpu_torch.ops.kernels.nn_kernel import (_MAX_GENERAL_STATES,
+                                                       _MAX_STATES)
+
+    const = lqr_kind == "constant"
+    assert _MAX_STATES == 20 and _MAX_GENERAL_STATES >= 24
+    p = _linear_planner(n, lqr_kind, "auto")
+    assert p._lqr_is_constant() == const
+    p.device = torch.device("cuda")
+    fn = p._nearest_override()
+    if not const:
+        assert fn is not None and p.nn_selected == "nn_general"
+    elif n <= _MAX_STATES:
+        assert fn is not None and p.nn_selected == "nn_const"
+    else:
+        assert fn is None and p.nn_selected == "scan"
+    for impl in ("nn_const", "nn_general") if const else ("nn_general",):
+        p = _linear_planner(n, lqr_kind, impl)
+        assert p._lqr_is_constant() == const
+        p.device = torch.device("cuda")
+        if impl == "nn_general" or n <= _MAX_STATES:
+            assert p._nearest_override() is not None
+            assert p.nn_selected == impl
+        else:
+            with pytest.raises(ValueError, match="states"):
+                p._get_restart_chunk(None, 0)
+            assert p.nn_selected is None
+
+
+@pytest.mark.parametrize("nn_impl", ["auto", "nn_general"])
+def test_nn_general_past_its_state_limit(nn_impl, monkeypatch):
+    """nn_general's own limit (``_MAX_GENERAL_STATES``, lowered here to
+    20 so that a small model crosses it): "auto" then takes the scan for a
+    per-node lqr and a forced nn_general raises when the chunk is built."""
+    from lqrrt_tpu_torch.ops.kernels import nn_kernel
+
+    monkeypatch.setattr(nn_kernel, "_MAX_GENERAL_STATES", 20)
+    p = _linear_planner(21, "per_node", nn_impl)
+    assert not p._lqr_is_constant()
+    p.device = torch.device("cuda")
+    if nn_impl == "auto":
+        assert p._nearest_override() is None and p.nn_selected == "scan"
+    else:
+        with pytest.raises(ValueError, match="at most 20 states"):
+            p._get_restart_chunk(None, 0)
+
+
 def test_lqr_probe_treats_any_exception_as_not_constant():
     """Fault 18: an lqr that raises anything on the probe states is not
     constant, as in the JAX planner (which then takes the general
@@ -470,7 +544,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "new = ['core.rewire', 'tree', 'utils.checkpoint', 'utils.metrics',"
-        " 'utils.watchdog', 'utils.timing', 'runtime.trajectory_server']\n"
+        " 'utils.watchdog', 'utils.timing', 'runtime.trajectory_server',"
+        " 'oracle.numpy_planner', 'tools.profile_round',"
+        " 'tools.profile_chunk', 'tools.exp_quality']\n"
         "missing = [m for m in new if 'lqrrt_tpu_torch.' + m not in "
         "sys.modules]\n"
         "assert not missing, missing\n"
