@@ -8,6 +8,11 @@ the fleet's round, ``parallel/fleet.py``'s vmapped ``make_round``, as
 gather the parent's state and gain, then ``make_extend``: steer with the
 first-entry goal stop, the endpoint LQR, wrapping of the angle dims, and
 the goal cost-to-go.
+
+The factories take ``spans``, a ``utils.timing.PhaseTimer`` that times
+each phase of a round on the host (``round.sample``, ``round.nearest``,
+``round.steer``, ``round.endpoint``, ``round.finish``, ``round.commit``);
+the default, ``NO_SPANS``, times nothing.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from .nearest import make_nearest
 from .sampling import sample_batch
 from .steer import make_steer
 from .tree import TreeArrays
+from ..utils.timing import NO_SPANS
 
 
 class RoundSpec(NamedTuple):
@@ -100,7 +106,7 @@ def make_extend_stages(spec: RoundSpec, dynamics: Callable, lqr: Callable,
 def make_extend(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                 erf: Callable, is_feasible: Callable, error_tol,
                 goal_buffer, wrap_mask=None,
-                saturate: Callable | None = None) -> Callable:
+                saturate: Callable | None = None, spans=NO_SPANS) -> Callable:
     """Build extend(pids, x0, K0, xrand, goal) -> Candidates: the part of
     an expansion after the nearest pick, shared by ``make_expand`` and the
     fleet's round.  Steer with the first-entry goal stop, the endpoint LQR,
@@ -112,9 +118,12 @@ def make_extend(spec: RoundSpec, dynamics: Callable, lqr: Callable,
         wrap_mask=wrap_mask, saturate=saturate)
 
     def extend(pids, x0, K0, xrand, goal) -> Candidates:
-        res = steer(x0, K0, xrand, goal)
-        S_new, K_new = endpoint(res)
-        return finish(pids, res, S_new, K_new, goal)
+        with spans.span("round.steer"):
+            res = steer(x0, K0, xrand, goal)
+        with spans.span("round.endpoint"):
+            S_new, K_new = endpoint(res)
+        with spans.span("round.finish"):
+            return finish(pids, res, S_new, K_new, goal)
 
     return extend
 
@@ -123,18 +132,22 @@ def make_expand(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                 erf: Callable, is_feasible: Callable, error_tol,
                 goal_buffer, wrap_mask=None,
                 saturate: Callable | None = None,
-                nearest_fn: Callable | None = None) -> Callable:
+                nearest_fn: Callable | None = None,
+                spans=NO_SPANS) -> Callable:
     """Build expand(tree, xrand, goal) -> Candidates.  ``nearest_fn``
     replaces the plain blocked scan (e.g. with the nn_const kernel)."""
     nearest = nearest_fn if nearest_fn is not None else make_nearest(
         erf, block=min(spec.nn_block, spec.capacity))
     extend = make_extend(spec, dynamics, lqr, erf, is_feasible, error_tol,
-                         goal_buffer, wrap_mask=wrap_mask, saturate=saturate)
+                         goal_buffer, wrap_mask=wrap_mask, saturate=saturate,
+                         spans=spans)
 
     def expand(tree: TreeArrays, xrand, goal) -> Candidates:
-        pids, _ = nearest(tree.state, tree.S, tree.size, xrand)
-        pl = pids.long()
-        return extend(pids, tree.state[pl], tree.K[pl], xrand, goal)
+        with spans.span("round.nearest"):
+            pids, _ = nearest(tree.state, tree.S, tree.size, xrand)
+            pl = pids.long()
+            x0, K0 = tree.state[pl], tree.K[pl]
+        return extend(pids, x0, K0, xrand, goal)
 
     return expand
 
@@ -189,7 +202,8 @@ def make_refine_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                       goal_buffer, wrap_mask=None,
                       xrand_gen: Callable | None = None,
                       saturate: Callable | None = None,
-                      nearest_fn: Callable | None = None) -> Callable:
+                      nearest_fn: Callable | None = None,
+                      spans=NO_SPANS) -> Callable:
     """The round of a full tree: ``half = max(batch // 2, 1)`` candidates
     expand and replace leaves (``commit_batch_refine``), then ``batch -
     half`` targets are rewired (``core/rewire.py``).
@@ -205,20 +219,22 @@ def make_refine_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
     half = max(spec.batch // 2, 1)
     expand = make_expand(spec, dynamics, lqr, erf, is_feasible, error_tol,
                          goal_buffer, wrap_mask=wrap_mask, saturate=saturate,
-                         nearest_fn=nearest_fn)
+                         nearest_fn=nearest_fn, spans=spans)
     rewire = make_rewire(spec, dynamics, lqr, erf, is_feasible, error_tol,
                          batch=max(spec.batch - half, 1),
                          wrap_mask=wrap_mask, saturate=saturate)
 
     def round_fn(tree, gen, goal, sample_space, goal_bias, bias_target,
                  start=None):
-        if xrand_gen is not None:
-            xrand = xrand_gen(gen, half)
-        else:
-            xrand = sample_batch(gen, half, sample_space, goal_bias,
-                                 bias_target)
-        commit_candidates(spec, tree, expand(tree, xrand, goal),
-                          mode="refine")
+        with spans.span("round.sample"):
+            if xrand_gen is not None:
+                xrand = xrand_gen(gen, half)
+            else:
+                xrand = sample_batch(gen, half, sample_space, goal_bias,
+                                     bias_target)
+        cand = expand(tree, xrand, goal)
+        with spans.span("round.commit"):
+            commit_candidates(spec, tree, cand, mode="refine")
         return rewire(tree, gen, start)
 
     return round_fn
@@ -227,7 +243,8 @@ def make_refine_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
 def make_fleet_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                      erf: Callable, is_feasible: Callable, error_tol,
                      goal_buffer, wrap_mask=None,
-                     saturate: Callable | None = None) -> Callable:
+                     saturate: Callable | None = None,
+                     spans=NO_SPANS) -> Callable:
     """The fleet's grow round over S scenario trees (JAX's
     ``jax.vmap(make_round(...))`` of ``parallel/fleet.py``, whose slack
     takes ``commit_batch_dense``).
@@ -240,20 +257,23 @@ def make_fleet_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
     (S, B) for the commit.  ``is_feasible`` sees rows of that batch."""
     nearest = make_nearest(erf, block=min(spec.nn_block, spec.capacity))
     extend = make_extend(spec, dynamics, lqr, erf, is_feasible, error_tol,
-                         goal_buffer, wrap_mask=wrap_mask, saturate=saturate)
+                         goal_buffer, wrap_mask=wrap_mask, saturate=saturate,
+                         spans=spans)
 
     def round_fn(trees: TreeArrays, xrand, goal_rows) -> TreeArrays:
         n_sc, B, n = xrand.shape
         R = n_sc * B
-        pids, _ = nearest(trees.state, trees.S, trees.size, xrand)
-        sc = torch.arange(n_sc, device=xrand.device)[:, None]
-        pl = pids.long()
-        x0, K0 = trees.state[sc, pl], trees.K[sc, pl]
+        with spans.span("round.nearest"):
+            pids, _ = nearest(trees.state, trees.S, trees.size, xrand)
+            sc = torch.arange(n_sc, device=xrand.device)[:, None]
+            pl = pids.long()
+            x0, K0 = trees.state[sc, pl], trees.K[sc, pl]
         c = extend(pids.reshape(R), x0.reshape(R, n),
                    K0.reshape((R,) + K0.shape[2:]), xrand.reshape(R, n),
                    goal_rows)
-        return commit_batch_dense(trees, spec.dt, spec.capacity,
-                                  *scenario_leading(c, n_sc, B))
+        with spans.span("round.commit"):
+            return commit_batch_dense(trees, spec.dt, spec.capacity,
+                                      *scenario_leading(c, n_sc, B))
 
     return round_fn
 

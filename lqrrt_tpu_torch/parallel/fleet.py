@@ -30,6 +30,14 @@ each per-scenario array, JAX's multi-process ``_fetch``); the ranks agree
 on each chunk's length and on the budget's end over the host's gloo
 group; ``extract_plans`` serves the scenarios the rank owns.
 
+Each ``plan`` times itself in named spans on the host clock
+(``utils/timing.py`` ``PhaseTimer.span``; ranges on the profiler's
+timeline while ``torch.profiler`` runs): ``fleet.plan``, ``fleet.seed``,
+each chunk's dispatch (``fleet.chunk``) and the fetch that ends it
+(``fleet.chunk_sync``), and the phases of each round (``round.*``); the
+dict it returns holds them under ``"spans"``.  ``extract_plans`` times
+``fleet.extract`` and its parts, which ``last_extract_timings`` reports.
+
 Callbacks are batch-leading (see the package docstring).  The device is
 explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
 """
@@ -45,6 +53,7 @@ from ..constraints import host_leaf, tree_map
 from ..core.rounds import RoundSpec, make_fleet_round
 from ..core.sampling import sample_batch
 from ..core.tree import TreeArrays, best_node, init_tree
+from ..utils.timing import PhaseTimer
 from . import mesh as meshlib
 
 
@@ -122,6 +131,7 @@ class FleetPlanner:
         # collector
         self._data_box = [None]
         self.trees: Optional[TreeArrays] = None  # scenario-leading
+        self._spans = PhaseTimer()      # reset at each plan
         self.last_extract_timings = None
 
     def _tensor(self, a) -> torch.Tensor:
@@ -151,7 +161,8 @@ class FleetPlanner:
         self._round = make_fleet_round(
             self.spec, self._mk["dynamics"], self._mk["lqr"],
             self._mk["erf"], feas, self._mk["error_tol"], self.goal_buffer,
-            wrap_mask=wrap_mask, saturate=self._mk["saturate"])
+            wrap_mask=wrap_mask, saturate=self._mk["saturate"],
+            spans=self._spans)
 
     def _seed(self, x0s, goals) -> TreeArrays:
         """Every scenario's tree seeded at its x0: (S0, K0) = lqr(x0, 0),
@@ -186,8 +197,9 @@ class FleetPlanner:
                     goals, goal_rows):
         """Enqueue ``nrounds`` rounds on the device; nothing here syncs."""
         for _ in range(nrounds):
-            xrand = sample_batch(self._gen, self.spec.batch, sample_spaces,
-                                 goal_bias, goals)
+            with self._spans.span("round.sample"):
+                xrand = sample_batch(self._gen, self.spec.batch,
+                                     sample_spaces, goal_bias, goals)
             self._round(trees, xrand, goal_rows)
 
     def plan(self, x0s, goals, sample_spaces, goal_bias, rounds: int = 10,
@@ -210,8 +222,19 @@ class FleetPlanner:
         calls, so a warm-up call seeds the first chunk's clamp).  The one
         host fetch a chunk, of ``goal_found``, is also its sync;
         per-scenario time-to-first-goal is recorded at chunk granularity.
-        Seeding runs before the timed window.
+        Seeding runs before the timed window.  ``"spans"`` holds the call's
+        spans, {name: {count, total_s, self_s, parent}}.
         """
+        self._spans.reset()
+        with self._spans.span("fleet.plan"):
+            out = self._plan(x0s, goals, sample_spaces, goal_bias, rounds,
+                             max_time, rounds_per_chunk, feasibility_data)
+        out["spans"] = self._spans.span_summary()
+        return out
+
+    def _plan(self, x0s, goals, sample_spaces, goal_bias, rounds, max_time,
+              rounds_per_chunk, feasibility_data) -> dict:
+        sp = self._spans
         x0s = self._tensor(x0s)
         goals = self._tensor(goals)
         n_sc, n = x0s.shape
@@ -240,13 +263,15 @@ class FleetPlanner:
         if self.per_scenario_data:
             self._data_box[0] = tree_map(self._data_leaf, feasibility_data)
         self.trees = None            # the last call's trees go before the new
-        trees = self._seed(x0s, goals)
+        with sp.span("fleet.seed"):
+            trees = self._seed(x0s, goals)
         args = (sample_spaces, goal_bias, goals, goal_rows)
 
         t0 = self.sys_time()
         goal_time = np.full(self.n_scenarios, np.nan, np.float32)
         if max_time is None:
-            self._run_rounds(trees, rounds, *args)
+            with sp.span("fleet.chunk"):
+                self._run_rounds(trees, rounds, *args)
             done = rounds
         else:
             done = 0
@@ -265,8 +290,10 @@ class FleetPlanner:
                 if stop:
                     break
                 tc = self.sys_time()
-                self._run_rounds(trees, nr, *args)
-                found = self._fetch(trees.goal_found)  # also syncs the chunk
+                with sp.span("fleet.chunk"):
+                    self._run_rounds(trees, nr, *args)
+                with sp.span("fleet.chunk_sync"):
+                    found = self._fetch(trees.goal_found)  # syncs the chunk
                 dt_chunk = max(self.sys_time() - tc, 1e-6) / nr
                 per_round_s = (dt_chunk if per_round_s is None
                                else 0.5 * per_round_s + 0.5 * dt_chunk)
@@ -275,7 +302,8 @@ class FleetPlanner:
                 now = self.sys_time() - t0
                 goal_time = np.where(np.isnan(goal_time) & found,
                                      np.float32(now), goal_time)
-        sizes = self._fetch(trees.size)               # waits for the device
+        with sp.span("fleet.chunk_sync"):
+            sizes = self._fetch(trees.size)           # waits for the device
         elapsed = self.sys_time() - t0
         self.trees = trees
         found = self._fetch(trees.goal_found)
@@ -353,11 +381,27 @@ class FleetPlanner:
         index, and ONE device->host transfer for every requested scenario.
 
         Returns {scenario: (P_s, n) x_seq}; ``last_extract_timings`` says
-        where the time went.  With a mesh, a rank serves the scenarios it
-        owns (all of them by default) and raises for another's.
+        where the time went (the spans ``fleet.chain_walk``,
+        ``fleet.pair_build``, ``fleet.gather_transfer`` and
+        ``fleet.host_assembly`` of this call, inside ``fleet.extract``).
+        With a mesh, a rank serves the scenarios it owns (all of them by
+        default) and raises for another's.
         """
         if self.trees is None:
             raise RuntimeError("no trees; call plan() first")
+        sp = self._spans
+        with sp.span("fleet.extract"):
+            out, nbytes = self._extract(scenarios)
+        tm = {f"{k}_s": round(sp.last_s(f"fleet.{k}"), 4)
+              for k in ("chain_walk", "pair_build", "gather_transfer")}
+        tm["transfer_bytes"] = nbytes
+        tm["host_assembly_s"] = round(sp.last_s("fleet.host_assembly"), 4)
+        self.last_extract_timings = tm
+        return out
+
+    def _extract(self, scenarios):
+        """(plans, bytes transferred) of ``extract_plans``."""
+        sp = self._spans
         lo, n_loc = self._offset, self._n_local
         req = (list(range(lo, lo + n_loc)) if scenarios is None
                else [int(s) for s in scenarios])
@@ -369,60 +413,55 @@ class FleetPlanner:
                     f"{lo + n_loc})")
         t = self.trees
         H, n = t.edge_x.shape[1:3]
-        tm = {}
-        t0 = time.time()
-        chains = self._chains().cpu().numpy()               # (S, D)
-        tm["chain_walk_s"] = time.time() - t0
-        t0 = time.time()
-        # each requested row's chain, root first; one deeper than the
-        # device walk (its first id not the root) is finished on the host
-        ch = chains[np.asarray(req, np.int64) - lo]
-        D = ch.shape[1]
-        lens = (ch >= 0).sum(1)
-        first = ch[np.arange(len(req)), D - lens]
-        deep = np.flatnonzero(first != 0)
-        if deep.size:
-            ids = [ch[r, D - lens[r]:] for r in range(len(req))]
-            for r in deep:
-                ids[r] = np.concatenate(
-                    [self._host_prefix(req[r], int(first[r])), ids[r]])
-            lens = np.array([len(a) for a in ids])
-            node = np.concatenate(ids)
-        else:
-            node = ch[ch >= 0]                   # row-major: chain order
-        row0 = np.cumsum(lens) - lens            # each row's first pair
-        srow = np.repeat(np.asarray(req, np.int64) - lo, lens)
-        pos = np.arange(node.size) - np.repeat(row0, lens)
-        tm["pair_build_s"] = time.time() - t0
-        t0 = time.time()
-        # the chain nodes' states, incoming edges (P, H, n) and lengths by
-        # native indexing, packed into one buffer for one transfer
-        si = torch.as_tensor(srow, device=self.device)
-        ni = torch.as_tensor(node.astype(np.int64), device=self.device)
-        P = node.size
-        packed = torch.cat([
-            t.state[si, ni], t.edge_x[si, :, :, ni].reshape(P, H * n),
-            t.edge_len[si, ni].float()[:, None]], 1).cpu().numpy()
-        states = packed[:, :n]
-        edge_x = packed[:, n:n + H * n].reshape(P, H, n)
-        edge_len = packed[:, -1].astype(np.int64)
-        tm["gather_transfer_s"] = time.time() - t0
-        tm["transfer_bytes"] = int(packed.nbytes)
-        t0 = time.time()
-        # one boolean-mask flatten of every valid edge step (row order
-        # kept), then per-scenario slices
-        lens_eff = np.where(pos == 0, 0, edge_len)
-        step_mask = np.arange(H)[None, :] < lens_eff[:, None]
-        flat = edge_x[step_mask]                             # (steps, n)
-        csum = np.concatenate([[0], np.cumsum(lens_eff)])
-        out = {}
-        for r, s in enumerate(req):
-            k = row0[r]
-            a, b = csum[k], csum[k + lens[r]]
-            out[s] = np.concatenate([states[k][None], flat[a:b]], 0)
-        tm["host_assembly_s"] = time.time() - t0
-        self.last_extract_timings = {k_: round(v, 4) for k_, v in tm.items()}
-        return out
+        with sp.span("fleet.chain_walk"):
+            chains = self._chains().cpu().numpy()           # (S, D)
+        with sp.span("fleet.pair_build"):
+            # each requested row's chain, root first; one deeper than the
+            # device walk (its first id not the root) is finished on the
+            # host
+            ch = chains[np.asarray(req, np.int64) - lo]
+            D = ch.shape[1]
+            lens = (ch >= 0).sum(1)
+            first = ch[np.arange(len(req)), D - lens]
+            deep = np.flatnonzero(first != 0)
+            if deep.size:
+                ids = [ch[r, D - lens[r]:] for r in range(len(req))]
+                for r in deep:
+                    ids[r] = np.concatenate(
+                        [self._host_prefix(req[r], int(first[r])), ids[r]])
+                lens = np.array([len(a) for a in ids])
+                node = np.concatenate(ids)
+            else:
+                node = ch[ch >= 0]               # row-major: chain order
+            row0 = np.cumsum(lens) - lens        # each row's first pair
+            srow = np.repeat(np.asarray(req, np.int64) - lo, lens)
+            pos = np.arange(node.size) - np.repeat(row0, lens)
+        with sp.span("fleet.gather_transfer"):
+            # the chain nodes' states, incoming edges (P, H, n) and
+            # lengths by native indexing, packed into one buffer for one
+            # transfer
+            si = torch.as_tensor(srow, device=self.device)
+            ni = torch.as_tensor(node.astype(np.int64), device=self.device)
+            P = node.size
+            packed = torch.cat([
+                t.state[si, ni], t.edge_x[si, :, :, ni].reshape(P, H * n),
+                t.edge_len[si, ni].float()[:, None]], 1).cpu().numpy()
+            states = packed[:, :n]
+            edge_x = packed[:, n:n + H * n].reshape(P, H, n)
+            edge_len = packed[:, -1].astype(np.int64)
+        with sp.span("fleet.host_assembly"):
+            # one boolean-mask flatten of every valid edge step (row order
+            # kept), then per-scenario slices
+            lens_eff = np.where(pos == 0, 0, edge_len)
+            step_mask = np.arange(H)[None, :] < lens_eff[:, None]
+            flat = edge_x[step_mask]                         # (steps, n)
+            csum = np.concatenate([[0], np.cumsum(lens_eff)])
+            out = {}
+            for r, s in enumerate(req):
+                k = row0[r]
+                a, b = csum[k], csum[k + lens[r]]
+                out[s] = np.concatenate([states[k][None], flat[a:b]], 0)
+        return out, int(packed.nbytes)
 
     def extract_plan(self, scenario: int):
         """Plan extraction for one scenario (see extract_plans)."""

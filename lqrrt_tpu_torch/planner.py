@@ -43,6 +43,16 @@ after it, and the prune and finish shortcuts are checked against the full
 grid on the host.  The ranks agree on every host decision (the budget, a
 kill) over a gloo group once a chunk (``parallel/mesh.py``).
 
+Each replan times itself in named spans on the host clock
+(``utils/timing.py`` ``PhaseTimer.span``; ranges on the profiler's
+timeline while ``torch.profiler`` runs): ``planner.update_plan``, each
+chunk's dispatch (``planner.chunk``), each wait for a chunk's stats
+(``planner.stats_wait``), the phases of each round (``round.*``) and
+restart cycle (``cycle.restart``), and ``planner.post`` with its parts
+(``planner.extract``, ``planner.prune``, ``planner.finish``).
+``stats["spans"]`` holds the replan's {name: {count, total_s, self_s,
+parent}}.
+
 ``get_tree`` snapshots the last planning tree into the host ``Tree``
 (``lqrrt_tpu_torch/tree.py``); ``utils`` holds checkpoints, metrics sinks,
 the replan watchdog and the phase timer, and ``runtime`` the trajectory
@@ -77,6 +87,7 @@ from .core.tree import TreeArrays, best_node, init_tree
 from .ops.angles import wrap_angle
 from .parallel import mesh as meshlib
 from .tree import Tree
+from .utils.timing import PhaseTimer
 
 _FPR_PLAN_LEN = 256   # resampled previous-plan states kept for FPR biasing
 _PRUNE_MAX = 32       # chain nodes covered by the all-pairs shortcut batch
@@ -280,6 +291,7 @@ class Planner:
         self.plan_reached_goal = False
         self.goal = None
         self.stats = {}
+        self._spans = PhaseTimer()      # reset at each update_plan
         self.on_replan: Optional[Callable] = None
         if goal0 is not None:
             self.set_goal(goal0)
@@ -524,7 +536,8 @@ class Planner:
                            self.constraints.goal_buffer,
                            wrap_mask=self._wrap_mask(),
                            saturate=self.saturate,
-                           nearest_fn=self._nearest_override())
+                           nearest_fn=self._nearest_override(),
+                           spans=self._spans)
 
     def _spec(self) -> RoundSpec:
         return RoundSpec(
@@ -573,6 +586,7 @@ class Planner:
         draw = self._sampler(xrand_gen, n_fpr, informed_on, n_dev)
         n_inner = self.rounds_per_chunk
         held = {}    # this call's sampler arguments, read by the rounds
+        sp = self._spans
 
         def drawn(gen, nb):
             return draw(*held["args"], nb=nb, scale=held["scale"])
@@ -605,7 +619,7 @@ class Planner:
                      rewire_gen=self._gen)
         elif commit == "refine":
             refine_round = make_refine_round(spec, *args, xrand_gen=drawn,
-                                             **common)
+                                             spans=sp, **common)
 
             def one_round(tree, goal, ss, gb, bt):
                 refine_round(tree, self._gen, goal, ss, gb, bt)
@@ -613,8 +627,11 @@ class Planner:
             expand = self._expand(spec)
 
             def one_round(tree, goal, ss, gb, bt):
-                xrand = drawn(self._gen, self.batch_size)
-                commit_candidates(spec, tree, expand(tree, xrand, goal))
+                with sp.span("round.sample"):
+                    xrand = drawn(self._gen, self.batch_size)
+                cand = expand(tree, xrand, goal)
+                with sp.span("round.commit"):
+                    commit_candidates(spec, tree, cand)
 
         def chunk(tree, goal, ss, gb, bt, prev_plan=None, informed=None):
             pool, frac, scale = informed or (None, 0.0, 0.05)
@@ -677,6 +694,7 @@ class Planner:
         DP = 32                   # planted-prefix cap (static)
         seed_size = max(self.root_pad, 1)
         ar_dp = torch.arange(DP, device=self.device)
+        sp = self._spans
 
         def chunk(cur, best, pool, score, start, goal, ss, gb, bt,
                   prev_plan=None):
@@ -685,36 +703,39 @@ class Planner:
                 frac = (torch.where((score[0] > 0.5) & (score[1] < 0.5),
                                     inf_frac, 0.0) if informed_on else 0.0)
                 for _ in range(F):
-                    xrand = draw(pool, frac, ss, gb, bt, prev_plan)
+                    with sp.span("round.sample"):
+                        xrand = draw(pool, frac, ss, gb, bt, prev_plan)
                     cand = expand(cur, xrand, goal)
                     if mesh is not None:
                         cand = gather_candidates(cand, mesh, self.mesh_axis)
-                    commit_candidates(spec, cur, cand)
-                # ---- stash-compare (goal first, then time | cost) ----
-                b = best_node(cur)
-                gf = cur.goal_found
-                s1 = 1.0 - gf.float()
-                s2 = torch.where(gf, _at(cur.node_time, b),
-                                 _at(cur.goal_cost, b))
-                improved = ((score[0] < 0.5) | (s1 < score[1])
-                            | ((s1 == score[1]) & (s2 < score[2])))
-                live = (((cur.edge_len >= 1) & cur.valid_mask()).sum()
-                        + 1).float()
-                for cu, be in zip(cur, best):
-                    torch.where(improved, cu, be, out=be)
-                new_sc = torch.stack([
-                    torch.clamp(score[0], min=1.0),
-                    torch.where(improved, s1, score[1]),
-                    torch.where(improved, s2, score[2]),
-                    torch.where(improved, live, score[3]),
-                    torch.maximum(score[4], gf.float()),
-                    torch.where(improved, b.float(), score[5])])
-                if informed_on:
-                    torch.where(improved & gf, pool_fn(cur, b), pool,
-                                out=pool)
-                score.copy_(new_sc)
-                self._reseed(cur, best, score, start // F + c, DP, ar_dp,
-                             seed_size)
+                    with sp.span("round.commit"):
+                        commit_candidates(spec, cur, cand)
+                with sp.span("cycle.restart"):
+                    # ---- stash-compare (goal first, then time | cost) ----
+                    b = best_node(cur)
+                    gf = cur.goal_found
+                    s1 = 1.0 - gf.float()
+                    s2 = torch.where(gf, _at(cur.node_time, b),
+                                     _at(cur.goal_cost, b))
+                    improved = ((score[0] < 0.5) | (s1 < score[1])
+                                | ((s1 == score[1]) & (s2 < score[2])))
+                    live = (((cur.edge_len >= 1) & cur.valid_mask()).sum()
+                            + 1).float()
+                    for cu, be in zip(cur, best):
+                        torch.where(improved, cu, be, out=be)
+                    new_sc = torch.stack([
+                        torch.clamp(score[0], min=1.0),
+                        torch.where(improved, s1, score[1]),
+                        torch.where(improved, s2, score[2]),
+                        torch.where(improved, live, score[3]),
+                        torch.maximum(score[4], gf.float()),
+                        torch.where(improved, b.float(), score[5])])
+                    if informed_on:
+                        torch.where(improved & gf, pool_fn(cur, b), pool,
+                                    out=pool)
+                    score.copy_(new_sc)
+                    self._reseed(cur, best, score, start // F + c, DP,
+                                 ar_dp, seed_size)
 
         self._chunk_cache[key] = chunk
         return chunk
@@ -779,6 +800,18 @@ class Planner:
                     specific_time: Optional[float] = None) -> bool:
         """Grow trees from x0 until the time budget expires, then commit the
         best branch as the plan.  Returns True iff a goal was reached."""
+        self._spans.reset()
+        with self._spans.span("planner.update_plan"):
+            reached = self._update_plan(x0, sample_space, goal_bias, guide,
+                                        xrand_gen, pruning, finish_on_goal,
+                                        specific_time)
+        self.stats["spans"] = self._spans.span_summary()
+        if self.on_replan is not None:
+            self.on_replan(dict(self.stats))
+        return reached
+
+    def _update_plan(self, x0, sample_space, goal_bias, guide, xrand_gen,
+                     pruning, finish_on_goal, specific_time) -> bool:
         if self.goal is None:
             raise RuntimeError("goal not set; call set_goal or pass goal0")
         self.unkill()
@@ -821,13 +854,14 @@ class Planner:
         ev.record()
         return ev
 
-    @staticmethod
-    def _fetched(pending) -> np.ndarray:
-        """The host copy of a stats vector, once its copy has landed."""
+    def _fetched(self, pending) -> np.ndarray:
+        """The host copy of a stats vector, once its copy has landed (the
+        wait is the span ``planner.stats_wait``)."""
         buf, ev = pending
-        if ev is not None:
-            ev.synchronize()
-        return buf.numpy().copy()
+        with self._spans.span("planner.stats_wait"):
+            if ev is not None:
+                ev.synchronize()
+            return buf.numpy().copy()
 
     def _stats_buffers(self):
         pin = self.device.type == "cuda"
@@ -865,8 +899,9 @@ class Planner:
                 break
             if any_goal and past_min:
                 break
-            chunk_fn(cur, best, pool, score, rounds, self.goal,
-                     sample_space, goal_bias, bias_target, prev_plan)
+            with self._spans.span("planner.chunk"):
+                chunk_fn(cur, best, pool, score, rounds, self.goal,
+                         sample_space, goal_bias, bias_target, prev_plan)
             buf = bufs[(rounds // (n_cycles * F)) % 2]
             ev = self._fetch_async(score, buf)
             rounds += n_cycles * F
@@ -985,8 +1020,9 @@ class Planner:
                 break
             if (goal_found or overall_goal) and past_min:
                 break
-            stats = chunk_fn(tree, self.goal, sample_space, goal_bias,
-                             bias_target, prev_plan, informed)
+            with self._spans.span("planner.chunk"):
+                stats = chunk_fn(tree, self.goal, sample_space, goal_bias,
+                                 bias_target, prev_plan, informed)
             buf = bufs[(rounds // self.rounds_per_chunk) % 2]
             ev = self._fetch_async(stats, buf)
             rounds += self.rounds_per_chunk
@@ -1020,25 +1056,26 @@ class Planner:
                      n_live, tree_rows, rounds, restarts, elapsed, t0,
                      pruning, finish_on_goal) -> bool:
         """Extract the best branch of ``tree``, prune it, finish it on the
-        goal if asked, swap it in as the plan and fill ``stats``."""
+        goal if asked, swap it in as the plan and fill ``stats``; the
+        ``overhead_*_s`` stats are the spans ``planner.post`` and its
+        parts."""
         self._device_tree = tree
         self.tree = None                  # the host snapshot is stale
-        t_post = self.sys_time()
-        x_seq, u_seq = self._extract(tree, best_id)
-        t_extract = self.sys_time() - t_post
-        t_p = self.sys_time()
-        if pruning and len(x_seq) > 2:
-            x_seq, u_seq = self._prune(x_seq, u_seq)
-        t_prune = self.sys_time() - t_p
-        t_f = self.sys_time()
-        if finish_on_goal and goal_reached:
-            x_seq, u_seq = self._finish_on_goal(x_seq, u_seq)
-        t_finish = self.sys_time() - t_f
+        sp = self._spans
+        with sp.span("planner.post"):
+            with sp.span("planner.extract"):
+                x_seq, u_seq = self._extract(tree, best_id)
+            with sp.span("planner.prune"):
+                if pruning and len(x_seq) > 2:
+                    x_seq, u_seq = self._prune(x_seq, u_seq)
+            with sp.span("planner.finish"):
+                if finish_on_goal and goal_reached:
+                    x_seq, u_seq = self._finish_on_goal(x_seq, u_seq)
 
-        x_seq = np.asarray(x_seq, np.float32)
-        u_seq = np.asarray(u_seq, np.float32)
-        self._plan = (x_seq, u_seq, self.dt * (len(x_seq) - 1))  # atomic
-        self.plan_reached_goal = goal_reached
+            x_seq = np.asarray(x_seq, np.float32)
+            u_seq = np.asarray(u_seq, np.float32)
+            self._plan = (x_seq, u_seq, self.dt * (len(x_seq) - 1))  # atomic
+            self.plan_reached_goal = goal_reached
         self.stats = dict(
             nodes=n_live, tree_rows=tree_rows,
             rounds=rounds, restarts=restarts, elapsed_s=elapsed,
@@ -1046,17 +1083,16 @@ class Planner:
             expansions_per_s=rounds * self.batch_size / max(elapsed, 1e-9),
             goal_found=goal_reached, plan_steps=len(self.x_seq),
             plan_duration_s=self.T,
-            overhead_extract_s=t_extract, overhead_prune_s=t_prune,
-            overhead_finish_s=t_finish,
-            overhead_total_s=self.sys_time() - t_post,
+            overhead_extract_s=sp.last_s("planner.extract"),
+            overhead_prune_s=sp.last_s("planner.prune"),
+            overhead_finish_s=sp.last_s("planner.finish"),
+            overhead_total_s=sp.last_s("planner.post"),
             total_s=self.sys_time() - t0)
         if self.printing:
             print(f"[lqrrt] done: {n_live} nodes, "
                   f"{rounds} rounds in {elapsed:.3f}s "
                   f"({self.stats['expansions_per_s']:.0f} expansions/s), "
                   f"goal={'yes' if goal_reached else 'no'}")
-        if self.on_replan is not None:
-            self.on_replan(dict(self.stats))
         return goal_reached
 
     # ------------------------------------------------- extraction & smoothing

@@ -1,9 +1,11 @@
 """Tracing and profiling helpers (port of lqrrt_tpu/utils/timing.py).
 
 Per-phase wall timers with device fences (a timer around work queued on
-the card measures the enqueue unless the clock waits for the card) and a
-thin wrapper over ``torch.profiler`` traces for Perfetto or
-chrome://tracing.
+the card measures the enqueue unless the clock waits for the card), the
+span recorder the planner and the fleet time their loops, rounds and
+extraction with (host clock, no fence; a ``torch.profiler`` range while
+the profiler runs), and a thin wrapper over ``torch.profiler`` traces for
+Perfetto or chrome://tracing.
 """
 from __future__ import annotations
 
@@ -40,18 +42,45 @@ def wait_for(tree) -> None:
 
 
 class PhaseTimer:
-    """Accumulates fenced wall-time per named phase.
+    """Accumulates fenced wall-time per named phase, and host-time spans.
 
     >>> timer = PhaseTimer()
     >>> with timer.phase("steer", fence=result):
     ...     result = rollout(...)
     >>> timer.summary()   # {'steer': {'total_s': ..., 'count': ..., ...}}
+
+    ``span(name)`` times a block on ``time.perf_counter_ns`` and never
+    fences: it takes no sync, makes no tensor and launches nothing, so it
+    may sit inside work that must not sync (the planner's chunks).  Spans
+    nest: each name keeps the name of the span it first ran inside
+    (``parent``, None at the top), and its self time, the duration less
+    what its child spans cover.  While ``torch.profiler`` runs, a span is
+    also a host range of the same name on the profiler's timeline, beside
+    the device's kernels.  The range is a function-scope record
+    (``torch._C._profiler._RecordFunctionFast``), not ``record_function``:
+    a user-scope range makes the profiler add a device-side annotation
+    over every kernel it encloses, which a reader of the trace would take
+    for device time.
+
+    >>> with timer.span("planner.chunk"):
+    ...     with timer.span("round.steer"):
+    ...         ...
+    >>> timer.span_summary()  # {'round.steer': {'count': 1, 'total_s':
+    ...                       #   ..., 'self_s': ..., 'parent':
+    ...                       #   'planner.chunk'}, 'planner.chunk': ...}
+
+    ``record=False`` makes a recorder whose spans do nothing
+    (``NO_SPANS``, the default of the round factories).
     """
 
-    def __init__(self, clock=time.perf_counter):
+    def __init__(self, clock=time.perf_counter, record: bool = True):
         self.clock = clock
+        self.record = record
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        # name -> [count, total_ns, self_ns, parent, last_ns]
+        self._spans: Dict[str, list] = {}
+        self._open: list = []        # [name, child_ns] of each open span
 
     @contextlib.contextmanager
     def phase(self, name: str, fence=None):
@@ -78,9 +107,54 @@ class PhaseTimer:
             for name in self.totals
         }
 
+    def span(self, name: str):
+        """A context manager that times the block as span ``name``."""
+        return self._span(name) if self.record else _NO_SPAN
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        parent = self._open[-1] if self._open else None
+        frame = [name, 0]
+        label = (torch._C._profiler._RecordFunctionFast(name)
+                 if torch.autograd._profiler_enabled() else _NO_SPAN)
+        with label:
+            self._open.append(frame)
+            t0 = time.perf_counter_ns()
+            try:
+                yield
+            finally:
+                dur = time.perf_counter_ns() - t0
+                self._open.pop()
+                if parent is not None:
+                    parent[1] += dur
+                rec = self._spans.get(name)
+                if rec is None:
+                    rec = self._spans[name] = [
+                        0, 0, 0, None if parent is None else parent[0], 0]
+                rec[0] += 1
+                rec[1] += dur
+                rec[2] += dur - frame[1]
+                rec[4] = dur
+
+    def span_summary(self) -> Dict[str, dict]:
+        """{name: {count, total_s, self_s, parent}} of the spans since the
+        last ``reset``, a fresh dict."""
+        return {name: dict(count=c, total_s=tot / 1e9, self_s=own / 1e9,
+                           parent=parent)
+                for name, (c, tot, own, parent, _) in self._spans.items()}
+
+    def last_s(self, name: str) -> float:
+        """Seconds of the last span ``name`` that ended."""
+        return self._spans[name][4] / 1e9
+
     def reset(self):
         self.totals.clear()
         self.counts.clear()
+        self._spans.clear()
+
+
+_NO_SPAN = contextlib.nullcontext()
+NO_SPANS = PhaseTimer(record=False)
 
 
 @contextlib.contextmanager
