@@ -94,10 +94,20 @@ exits non-zero:
    car (nn_general, 2.0 s) and the quadrotor (nn_general, 3.0 s), each
    checked for goal, feasibility, goal box and dynamic consistency, with
    the kernels' launch counts set to 0 just before the replan and read just
-   after; then one restart chunk of each under
-   ``torch.cuda.set_sync_debug_mode("error")``;
+   after (A or C, B, and kernel D, the steer, which must launch); then one
+   restart chunk of each under ``torch.cuda.set_sync_debug_mode("error")``;
+8'. kernel D on the planner's path (``core.steer.make_routed_steer``):
+   ``steer_selected`` is "kernel" for the boat's circles and "scan" for
+   its raster; two boat planners at full width from one seed, one on D and
+   one on the plain steer: a restart chunk from one generator state gives
+   bit-identical trees, the pool and the score, ``_prune`` of its best
+   chain the same plan, the prune's and the finish's steers bit for bit
+   on 1024 and 8 rows, D's chunk sync-free under sync-debug mode 'error';
+   then a 1.0 s replan of each; D's launches set to 0 before the chunk,
+   the prune and each replan and read after;
 9. the new paths at full width: the grid boat
-   (``boat.default_problem(obstacle_model="grid")``, 2.0 s, as 8); the
+   (``boat.default_problem(obstacle_model="grid")``, 2.0 s, as 8, its
+   raster on the plain steer: no launch of D); the
    boat's host loop (``refine=False``, 1.0 s, which fills the tree and
    stops there; then ``max_nodes=16384`` with one round a chunk, held to
    ``nodes <= max_nodes + batch * rounds_per_chunk``); the double
@@ -983,7 +993,7 @@ def phase_demos(smi):
     from lqrrt_tpu_torch.ops.kernels.write_kernel import block_write
 
     counters = {"nn_const": nn_const, "nn_general": nn_general,
-                "block_write": block_write}
+                "block_write": block_write, "steer_rollout": SteerLaunches()}
     out = {}
     for label, module, argv, nn in DEMOS:
         demo = importlib.import_module(f"lqrrt_tpu_torch.demos.{module}")
@@ -1727,6 +1737,22 @@ def check_plan(prob, planner, feas=None, goal_box=True):
                              f"{np.median(err)}, max {np.max(err)}")
 
 
+class SteerLaunches:
+    """Kernel D's flat launches (``steer_kernel.LAUNCHES["flat"]``, counted
+    where D launches), read and set as ``.launches`` as the other kernels'
+    counters are."""
+
+    @property
+    def launches(self):
+        from lqrrt_tpu_torch.ops.kernels import steer_kernel
+        return steer_kernel.LAUNCHES["flat"]
+
+    @launches.setter
+    def launches(self, value):
+        from lqrrt_tpu_torch.ops.kernels import steer_kernel
+        steer_kernel.LAUNCHES["flat"] = value
+
+
 def replan(name, prob, planner, bias, budget, smi, counters):
     """One timed update_plan with the kernels' counts set to 0 just before
     and read just after; returns (goal reached, launches)."""
@@ -1750,30 +1776,36 @@ def replan(name, prob, planner, bias, budget, smi, counters):
     return reached, launches
 
 
-def phase_main_path(name, prob, smi, bias, budget, nn, extra_budgets=()):
+def phase_main_path(name, prob, smi, bias, budget, nn, extra_budgets=(),
+                    steer="kernel"):
     """The replan at full width through nn (the kernel the planner must
-    pick), then one chunk under sync-debug mode 'error'."""
+    pick) and the steer it must select ("kernel": kernel D launches; "scan":
+    D never launches), then one chunk under sync-debug mode 'error'."""
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const, nn_general
     from lqrrt_tpu_torch.ops.kernels.write_kernel import block_write
 
     counters = {nn: {"nn_const": nn_const, "nn_general": nn_general}[nn],
-                "block_write": block_write}
+                "block_write": block_write, "steer_rollout": SteerLaunches()}
     planner = full_width_planner(prob)
     t0 = time.perf_counter()
     planner.warmup(prob["x0"], prob["sample_space"], goal_bias=bias)
     torch.cuda.synchronize()
     log(f"{name} warmup: {time.perf_counter() - t0:.3f} s")
-    if planner.nn_selected != nn:
-        raise AssertionError(f"{name}: NN is {planner.nn_selected}, not {nn}")
+    if planner.nn_selected != nn or planner.steer_selected != steer:
+        raise AssertionError(f"{name}: NN is {planner.nn_selected}, not "
+                             f"{nn}, or the steer {planner.steer_selected},"
+                             f" not {steer}")
 
     reached, launches = replan(name, prob, planner, bias, budget, smi,
                                counters)
     if not reached:
         raise AssertionError(f"{name}: goal not reached: {planner.stats}")
     check_plan(prob, planner)
-    if min(launches.values()) < 1:
-        raise AssertionError(f"{name}: a kernel was not launched: "
-                             f"{launches}")
+    d_launches = launches["steer_rollout"]
+    if min(launches[nn], launches["block_write"]) < 1 or \
+            (d_launches < 1 if steer == "kernel" else d_launches != 0):
+        raise AssertionError(f"{name}: a kernel was not launched, or D "
+                             f"launched on the {steer} route: {launches}")
     log(f"{name} plan checks: starts at x0, feasible, ends in goal box, "
         "dynamically consistent")
     for b in extra_budgets:
@@ -1805,6 +1837,176 @@ def phase_main_path(name, prob, smi, bias, budget, nn, extra_budgets=()):
     return launches
 
 
+def same_bits(a, b):
+    """Two tensors of one shape hold the same values: float32 bit for bit
+    (NaN for NaN), any other dtype equal."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return bool(bits_equal(a, b).all())
+    return bool(torch.equal(a, b))
+
+
+def phase_steer_route(prob, smi, bias):
+    """Kernel D under the planner's steer (phase 8'): what each planner
+    selects, D against the plain steer inside the restart chunk (bit for
+    bit), in the prune and in the finish, the chunk sync-free, and a
+    replan of each.  The plain planner is built while D's factory refuses
+    every problem, so its router keeps the plain steer.  D's launches are
+    ``steer_kernel.LAUNCHES["flat"]``, set to 0 before each step and read
+    after it."""
+    from lqrrt_tpu_torch.core.tree import best_node
+    from lqrrt_tpu_torch.models import boat
+    from lqrrt_tpu_torch.ops.kernels import steer_kernel
+
+    launches = SteerLaunches()
+    grid = full_width_planner(boat.default_problem(obstacle_model="grid"))
+    kern = full_width_planner(prob)
+    kern_chunk = kern._get_restart_chunk(None, 0)
+    real = steer_kernel.make_steer_kernel
+
+    def refuse(*args, **kw):
+        raise NotImplementedError("the plain steer, for the comparison")
+
+    steer_kernel.make_steer_kernel = refuse
+    try:
+        plain = full_width_planner(prob)
+        plain_chunk = plain._get_restart_chunk(None, 0)
+        H = plain.horizon_steps
+        plain_steers = (plain._get_steer(), plain._get_steer(3 * H))
+        plain_selected = plain.steer_selected
+    finally:
+        steer_kernel.make_steer_kernel = real
+    selected = (kern.steer_selected, plain_selected, grid.steer_selected)
+    log(f"steer route: selected boat={selected[0]} (plain-built "
+        f"{selected[1]}), grid boat={selected[2]}")
+    if selected != ("kernel", "scan", "scan"):
+        raise AssertionError(f"steer route: selected {selected}, not "
+                             "('kernel', 'scan', 'scan')")
+
+    def inputs(p, seed):
+        p._gen.manual_seed(seed)
+        x0 = p._tensor(prob["x0"])
+        return (p._seed_tree(x0, p.goal), p._seed_tree(x0, p.goal),
+                p._tensor(np.linspace(prob["x0"], prob["goal"], 256)),
+                p._tensor(p._RSCORE0), 0, p.goal,
+                p._tensor(prob["sample_space"]), p._tensor(bias), p.goal)
+
+    def run(p, chunk, seed):
+        args = inputs(p, seed)
+        launches.launches = 0
+        t0 = time.perf_counter()
+        chunk(*args)
+        torch.cuda.synchronize()
+        return args, launches.launches, time.perf_counter() - t0
+
+    for p, chunk in ((kern, kern_chunk), (plain, plain_chunk)):
+        run(p, chunk, 1)                              # warm-up
+    (kc, kb, kpool, ksc, *_), k_launch, k_s = run(kern, kern_chunk, 2)
+    (pc, pb, ppool, psc, *_), p_launch, p_s = run(plain, plain_chunk, 2)
+    rounds = int(np.prod(kern._restart_chunk_shape))
+    fields = {f"{which}.{name}": (a, b)
+              for which, (ta, tb) in (("cur", (kc, pc)), ("best", (kb, pb)))
+              for name, a, b in zip(ta._fields, ta, tb)}
+    fields.update(pool=(kpool, ppool), score=(ksc, psc))
+    differ = [k for k, (a, b) in fields.items() if not same_bits(a, b)]
+    log(f"steer route chunk ({rounds} rounds, seed 2): D {k_s:.3f} s, "
+        f"{k_launch} launches; plain {p_s:.3f} s, {p_launch} launches; "
+        f"size {int(kb.size)}, goal_found {bool(kb.goal_found)}; "
+        f"{len(fields)} fields, differing: {differ}")
+    if differ or k_launch != rounds or p_launch != 0:
+        raise AssertionError(f"steer route chunk: fields {differ} differ, "
+                             f"or D launched {k_launch} times (want "
+                             f"{rounds}) and the plain chunk {p_launch}")
+
+    # the prune of the best chain, both ways
+    bid = int(best_node(kb))
+    xk, uk = kern._extract(kb, bid)
+    xp, up = plain._extract(pb, bid)
+    chain = len(kern._last_edges[0])
+    launches.launches = 0
+    pk = kern._prune(xk, uk)
+    torch.cuda.synchronize()
+    k_launch = launches.launches
+    launches.launches = 0
+    pp = plain._prune(xp, up)
+    torch.cuda.synchronize()
+    prune_launches = (k_launch, launches.launches)
+    same = all(np.array_equal(a, b) for a, b in
+               ((xk, xp), (uk, up), (pk[0], pp[0]), (pk[1], pp[1])))
+    log(f"steer route prune: chain {chain} nodes, plan {len(xk)} -> "
+        f"{len(pk[0])} states, same plan {same}, D launches (D, plain) "
+        f"{prune_launches}")
+    want = (int(chain > 3), 0)
+    if not same or prune_launches != want:
+        raise AssertionError(f"steer route prune: same plan {same}, "
+                             f"D launches {prune_launches} (want {want})")
+
+    # the prune's (1024 rows) and the finish's (3H steps, 8 rows) steers
+    live = int(kb.size)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, steer_k, steer_p, rows in (
+            ("prune", kern._get_steer(), plain_steers[0], 1024),
+            ("finish", kern._get_steer(3 * H), plain_steers[1], 8)):
+        src = torch.randint(0, live, (rows,), generator=gen, device="cuda")
+        dst = torch.randint(0, live, (rows,), generator=gen, device="cuda")
+        x0, K, xtar = kb.state[src], kb.K[src], kb.state[dst]
+        launches.launches = 0
+        rk = steer_k(x0, K, xtar)
+        k_launch = launches.launches
+        rp = steer_p(x0, K, xtar)
+        routes = (k_launch, launches.launches - k_launch)
+        differ = [name for name, a, b in zip(rk._fields, rk, rp)
+                  if not same_bits(a, b)]
+        log(f"steer route {label} steer: {rows} rows, D launches (D, "
+            f"plain) {routes}, mean length "
+            f"{float(rk.length.float().mean()):.2f}, differing: {differ}")
+        if differ or routes != (1, 0):
+            raise AssertionError(f"steer route {label}: {differ} differ, "
+                                 f"or D launches {routes} (want (1, 0))")
+
+    # D's chunk with every host sync an error
+    args = inputs(kern, 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kern_chunk(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"steer route sync-free D chunk under sync_debug_mode='error': ok, "
+        f"enqueue_s={enqueue:.4f} total_s={time.perf_counter() - t0:.4f}")
+
+    # a 1.0 s replan each way
+    replan_launches = {}
+    for label, p in (("D", kern), ("plain", plain)):
+        p.warmup(prob["x0"], prob["sample_space"], goal_bias=bias)
+        launches.launches = 0
+        p.update_plan(prob["x0"], prob["sample_space"], goal_bias=bias,
+                      specific_time=1.0, pruning=True)
+        torch.cuda.synchronize()
+        replan_launches[label] = launches.launches
+        st = p.stats
+        log(f"steer route replan 1.0 s, {label} [{smi}]: "
+            f"goal={st['goal_found']} rounds={st['rounds']} "
+            f"expansions_per_s={st['expansions_per_s']:.1f} "
+            f"elapsed_s={st['elapsed_s']:.4f} "
+            f"post_s={st['overhead_total_s']:.4f} "
+            f"total_s={st['total_s']:.4f} "
+            f"plan_duration_s={st['plan_duration_s']:.2f} "
+            f"D launches={replan_launches[label]} "
+            f"steer calls={st['steer_launches']}")
+        check_plan(prob, p)
+    if replan_launches["D"] < kern.stats["rounds"] or \
+            replan_launches["plain"] or kern.stats["steer_launches"]["scan"]:
+        raise AssertionError(f"steer route replans: D launches "
+                             f"{replan_launches}, fewer than the D "
+                             f"planner's {kern.stats['rounds']} rounds, or "
+                             "a steer call took the other route")
+
+
 def full_width_planner(prob, constraints=None, **kw):
     import lqrrt_tpu_torch
 
@@ -1821,7 +2023,8 @@ def planner_counters():
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const
     from lqrrt_tpu_torch.ops.kernels.write_kernel import block_write
 
-    return {"nn_const": nn_const, "block_write": block_write}
+    return {"nn_const": nn_const, "block_write": block_write,
+            "steer_rollout": SteerLaunches()}
 
 
 def phase_host_loop(prob, smi, bias):
@@ -1856,7 +2059,7 @@ def phase_host_loop(prob, smi, bias):
         if "max_nodes" in kw and not st["nodes"] <= bound:
             raise AssertionError(f"{name}: {st['nodes']} nodes > {bound}")
         check_plan(prob, planner, goal_box=reached)
-        if min(launches.values()) < 1:
+        if min(launches["nn_const"], launches["block_write"]) < 1:
             raise AssertionError(f"{name}: a kernel was not launched: "
                                  f"{launches}")
         log(f"{name} checks: host loop (grow chunk, no restart), "
@@ -1913,7 +2116,8 @@ def phase_dynamic_obstacles(smi):
                            - r).min())
         field = {k: torch.as_tensor(v) for k, v in data.items()}
         if not reached or clearance <= 0.0 or planner.nn_selected != \
-                "nn_const" or min(launches.values()) < 1:
+                "nn_const" or min(launches["nn_const"],
+                                  launches["block_write"]) < 1:
             raise AssertionError(f"{name}: goal={reached} clearance="
                                  f"{clearance} nn={planner.nn_selected} "
                                  f"launches={launches}")
@@ -2176,7 +2380,8 @@ def phase_leaf_rewire(smi):
         raise AssertionError(f"{name}: goal not reached: {st}")
     check_plan(prob, planner)
     a_refine = nn_const.launches - saved["a_launches"]
-    if min(launches.values()) < 1 or a_refine < 1:
+    if min(launches["nn_const"], launches["block_write"]) < 1 or \
+            a_refine < 1:
         raise AssertionError(f"{name}: a kernel was not launched: "
                              f"{launches}, A in the refine chunks "
                              f"{a_refine}")
@@ -2554,7 +2759,8 @@ def phase_fleet(smi):
     extend = make_extend(spec, prob["dynamics"], prob["lqr"], prob["erf"],
                          prob["constraints"].is_feasible, 0.05,
                          prob["constraints"].goal_buffer,
-                         wrap_mask=wrap_mask, saturate=prob["saturate"])
+                         wrap_mask=wrap_mask, saturate=prob["saturate"],
+                         goal_rows=True)
     trees = fleet.trees
 
     def parts():
@@ -3144,6 +3350,8 @@ def main() -> int:
     l_boat = timed("boat main path", phase_main_path, "boat", boat_p, smi,
                    [0.3, 0.3, 0, 0, 0, 0], 2.0, "nn_const",
                    extra_budgets=(1.0,))
+    timed("steer route", phase_steer_route, boat_p, smi,
+          [0.3, 0.3, 0, 0, 0, 0])
     l_car = timed("car main path", phase_main_path, "car", car_p, smi,
                   [0.3, 0.3, 0, 0], 2.0, "nn_general")
     l_quad = timed("quadrotor main path", phase_main_path, "quadrotor",
@@ -3151,7 +3359,7 @@ def main() -> int:
     boat_bias = [0.3, 0.3, 0, 0, 0, 0]
     l_grid = timed("grid boat main path", phase_main_path, "grid boat",
                    boat.default_problem(obstacle_model="grid"), smi,
-                   boat_bias, 2.0, "nn_const")
+                   boat_bias, 2.0, "nn_const", steer="scan")
     l_host = timed("boat host loop", phase_host_loop, boat_p, smi, boat_bias)
     l_dyn = timed("double integrator moving buoy", phase_dynamic_obstacles,
                   smi)
@@ -3183,6 +3391,8 @@ def main() -> int:
                **{f"demo {k}": v["nn_general"] for k, v in l_demos.items()
                   if v["nn_general"]}}
     b_paths = {k: v["block_write"] for k, v in paths.items()}
+    d_paths = {k: v["steer_rollout"] for k, v in paths.items()
+               if v.get("steer_rollout")}
     # bounds of the timed calls, from this run's shapes (size 32768 live
     # rows of N, B candidates): flops a live pair by type, and the inputs
     # read once plus the (ids, cost) written once
@@ -3269,11 +3479,17 @@ def main() -> int:
     d_replaces = {"flat": "tools/steer_kernel_experimental.py:72",
                   "tree": "tools/steer_kernel_experimental.py:340"}
     for variant, replaces in d_replaces.items():
+        # the flat variant is the planner's steer: its launches on the
+        # planner's paths; the tree variant is off the path
+        by_path = (dict(launches=sum(d_paths.values()),
+                        launches_by_path=d_paths,
+                        exp_tool_launches=d_launches[variant])
+                   if variant == "flat"
+                   else dict(launches=d_launches[variant]))
         kernels.append(dict(
             name="steer_rollout" + ("_tree" if variant == "tree" else ""),
             route="cuda", source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
-            replaces=replaces, launches=d_launches[variant],
-            **d[variant], library_ms=None))
+            replaces=replaces, **by_path, **d[variant], library_ms=None))
     for name in D_MODELS:
         for variant, replaces in d_replaces.items():
             kernels.append(dict(

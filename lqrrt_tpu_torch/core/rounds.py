@@ -11,8 +11,10 @@ the goal cost-to-go.
 
 The factories take ``spans``, a ``utils.timing.PhaseTimer`` that times
 each phase of a round on the host (``round.sample``, ``round.nearest``,
-``round.steer``, ``round.endpoint``, ``round.finish``, ``round.commit``);
-the default, ``NO_SPANS``, times nothing.
+``round.steer``, ``round.endpoint``, ``round.finish``, ``round.commit``)
+and tallies the steer's route; the default, ``NO_SPANS``, times nothing.
+The steer is ``core.steer.make_routed_steer``'s: kernel D on CUDA tensors
+wherever D's factory accepts the problem, else the plain loop.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from .commit import (commit_batch, commit_batch_dense,
                      commit_batch_dense_all, commit_batch_refine)
 from .nearest import make_nearest
 from .sampling import sample_batch
-from .steer import make_steer
+from .steer import make_routed_steer, make_steer
 from .tree import TreeArrays
 from ..utils.timing import NO_SPANS
 
@@ -63,16 +65,26 @@ class Candidates(NamedTuple):
 def make_extend_stages(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                        erf: Callable, is_feasible: Callable, error_tol,
                        goal_buffer, wrap_mask=None,
-                       saturate: Callable | None = None):
+                       saturate: Callable | None = None, goal_rows=False,
+                       spans=NO_SPANS):
     """The three stages of ``make_extend``, in its order, for R rows:
     steer(x0, K0, xrand, goal) -> ``SteerResult``, the rollout with the
     first-entry goal stop; endpoint(res) -> (S_new, K_new), the lqr at
     each endpoint with its last committed effort; finish(pids, res, S_new,
     K_new, goal) -> Candidates, the wrap of the angle dims and the goal
-    cost-to-go.  ``tools/profile_round.py`` times them apart."""
-    steer = make_steer(dynamics, erf, is_feasible, spec.horizon_steps,
-                       spec.dt, error_tol, saturate=saturate,
-                       goal_buffer=goal_buffer)
+    cost-to-go.  ``tools/profile_round.py`` times them apart.  The steer
+    is ``make_routed_steer``'s, its route tallied in ``spans``; with
+    ``goal_rows`` (one goal a row) it is ``make_steer``'s loop, as kernel
+    D's goal stop takes one goal."""
+    if goal_rows:
+        steer = make_steer(dynamics, erf, is_feasible, spec.horizon_steps,
+                           spec.dt, error_tol, saturate=saturate,
+                           goal_buffer=goal_buffer)
+    else:
+        steer = make_routed_steer(dynamics, erf, is_feasible,
+                                  spec.horizon_steps, spec.dt, error_tol,
+                                  saturate=saturate, goal_buffer=goal_buffer,
+                                  spans=spans)
     wrap_dims = ([] if wrap_mask is None
                  else [int(d) for d in np.flatnonzero(wrap_mask)])
 
@@ -106,16 +118,18 @@ def make_extend_stages(spec: RoundSpec, dynamics: Callable, lqr: Callable,
 def make_extend(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                 erf: Callable, is_feasible: Callable, error_tol,
                 goal_buffer, wrap_mask=None,
-                saturate: Callable | None = None, spans=NO_SPANS) -> Callable:
+                saturate: Callable | None = None, goal_rows=False,
+                spans=NO_SPANS) -> Callable:
     """Build extend(pids, x0, K0, xrand, goal) -> Candidates: the part of
     an expansion after the nearest pick, shared by ``make_expand`` and the
     fleet's round.  Steer with the first-entry goal stop, the endpoint LQR,
     wrapping of the angle dims, and the goal cost-to-go
     (``make_extend_stages``), for R rows: x0 and xrand (R, n), K0
-    (R, m, n), goal (n,) or one a row (R, n)."""
+    (R, m, n), goal (n,), or one a row (R, n) with ``goal_rows``."""
     steer, endpoint, finish = make_extend_stages(
         spec, dynamics, lqr, erf, is_feasible, error_tol, goal_buffer,
-        wrap_mask=wrap_mask, saturate=saturate)
+        wrap_mask=wrap_mask, saturate=saturate, goal_rows=goal_rows,
+        spans=spans)
 
     def extend(pids, x0, K0, xrand, goal) -> Candidates:
         with spans.span("round.steer"):
@@ -254,11 +268,12 @@ def make_fleet_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
     (``make_nearest`` over the scenario axis); then the S × B candidates are ONE batch of
     S·B rows for the steer, the endpoint lqr, the wrap and the goal cost,
     each row with its scenario's goal (``goal_rows``), and go back to
-    (S, B) for the commit.  ``is_feasible`` sees rows of that batch."""
+    (S, B) for the commit.  ``is_feasible`` sees rows of that batch.  The
+    steer is the plain loop (``goal_rows``)."""
     nearest = make_nearest(erf, block=min(spec.nn_block, spec.capacity))
     extend = make_extend(spec, dynamics, lqr, erf, is_feasible, error_tol,
                          goal_buffer, wrap_mask=wrap_mask, saturate=saturate,
-                         spans=spans)
+                         goal_rows=True, spans=spans)
 
     def round_fn(trees: TreeArrays, xrand, goal_rows) -> TreeArrays:
         n_sc, B, n = xrand.shape

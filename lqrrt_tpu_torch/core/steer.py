@@ -9,6 +9,11 @@ in-goal step.  The JAX ``lax.scan`` becomes a Python loop over H that writes
 into preallocated time-major outputs ``(H, n, B)`` / ``(H, m, B)`` /
 ``(H, B)``; per-candidate fields are batch-leading.  Callers that want a
 batch-leading rollout (prune, finish) transpose the output.
+
+``make_routed_steer`` is the steer the planner's rounds, prune and finish
+run: the same function through kernel D (``ops/kernels/steer_kernel.py``,
+one launch a call) on CUDA tensors wherever D's factory accepts the
+problem, and through ``make_steer`` everywhere else.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from .._const import Const
+from ..utils.timing import NO_SPANS
 
 
 class SteerResult(NamedTuple):
@@ -83,5 +89,62 @@ def make_steer(dynamics: Callable, erf: Callable, is_feasible: Callable,
             mask[h] = commit
         reached = converged(erf(xtar, x))
         return SteerResult(xs, us, mask, length, x, reached, hit_seen)
+
+    return steer
+
+
+def _kernel_steer(dynamics, erf, is_feasible, horizon_steps, dt, error_tol,
+                  saturate, goal_buffer):
+    """Kernel D's steer of the problem (``make_steer_kernel``, its flat
+    variant), or None where D's factory refuses it: a raster or a
+    data-bound predicate, a model without device functions, another erf or
+    saturation, or a shape its checks refuse."""
+    from ..ops.kernels.steer_kernel import make_steer_kernel
+    try:
+        return make_steer_kernel(dynamics, erf, is_feasible, horizon_steps,
+                                 dt, error_tol, saturate=saturate,
+                                 goal_buffer=goal_buffer)
+    except (NotImplementedError, ValueError):
+        return None
+
+
+def steer_route(dynamics: Callable, erf: Callable, is_feasible: Callable,
+                horizon_steps: int, dt: float, error_tol,
+                saturate: Callable | None = None, goal_buffer=None,
+                device="cpu") -> str:
+    """The route ``make_routed_steer``'s steer of this problem takes on
+    ``device``: "kernel" (kernel D) on CUDA where D's factory accepts the
+    problem, else "scan" (``make_steer``'s loop)."""
+    if torch.device(device).type != "cuda":
+        return "scan"
+    kernel = _kernel_steer(dynamics, erf, is_feasible, horizon_steps, dt,
+                           error_tol, saturate, goal_buffer)
+    return "scan" if kernel is None else "kernel"
+
+
+def make_routed_steer(dynamics: Callable, erf: Callable,
+                      is_feasible: Callable, horizon_steps: int, dt: float,
+                      error_tol, saturate: Callable | None = None,
+                      goal_buffer=None, spans=NO_SPANS) -> Callable:
+    """Build ``make_steer``'s steer(x0, K, xtar[, goal]) with kernel D under
+    it: a call on CUDA tensors launches D where D's factory accepts the
+    problem; a call on CPU tensors, or of a problem D refuses, runs
+    ``make_steer``'s loop (``steer_route`` says which).  D equals the loop
+    bit for bit (``chip_smoke.py``).  D's goal stop takes one (n,) goal: a
+    caller with one goal a row builds ``make_steer``.  Each call tallies
+    its route in ``spans``: "steer.kernel" or "steer.scan"."""
+    scan = make_steer(dynamics, erf, is_feasible, horizon_steps, dt,
+                      error_tol, saturate=saturate, goal_buffer=goal_buffer)
+    kernel = _kernel_steer(dynamics, erf, is_feasible, horizon_steps, dt,
+                           error_tol, saturate, goal_buffer)
+
+    def steer(x0, K, xtar, goal=None):
+        if kernel is not None and xtar.is_cuda:
+            spans.tally("steer.kernel")
+            # a caller's xrand_gen may hand over a strided view; D reads
+            # dense rows
+            return kernel(x0, K, xtar.contiguous(), goal)
+        spans.tally("steer.scan")
+        return scan(x0, K, xtar, goal)
 
     return steer

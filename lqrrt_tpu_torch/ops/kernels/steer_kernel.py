@@ -35,7 +35,9 @@ The factories check the erf (the model's wrapped dims, ``angle_dims``;
 predicate (its tags: ``collision.circles_free``'s ``circles``,
 ``control_limits``' box, ``all_of``'s parts made of those, or the all-true
 default) and raise ``NotImplementedError`` on anything else, whatever the
-device: nothing drops back to the Python loop on the card.
+device: nothing drops back to the Python loop on the card.  The planner's
+router (``core.steer.make_routed_steer``) catches that error, and a shape
+the checks refuse, and runs the plain steer instead.
 
 Each steer takes the plain version (``core.steer.make_steer``; for the tree
 variant after ``gather_rows``) for CPU tensors and launches the kernel for

@@ -66,6 +66,18 @@ the JAX planner, and so does a constant ``lqr`` past nn_const's 20 states
 (``ops/kernels/nn_kernel.py`` ``_MAX_STATES``, the JAX kernel's limit).
 ``nn_selected`` says which ran: "nn_const", "nn_general" or "scan".
 
+The steer on CUDA is kernel D (``ops/kernels/steer_kernel.py``, one launch
+a call, the plain loop's bits) wherever D's factory accepts the problem:
+the models' own dynamics, erf and saturation, and a predicate made of
+circles and control limits (``core.steer.make_routed_steer``); a raster,
+a 3-arg predicate or any other problem takes the plain loop, as does the
+CPU.  The chunks' rounds, the prune and the finish take it; the leaf
+rewire's own steer and the fleet's round stay plain.  ``steer_selected``
+says which the chunks' steer runs ("kernel" or "scan"), and
+``stats["steer_launches"]`` ({"kernel": k, "scan": s}) counts one replan's
+steer calls by route (the mesh's round bodies carry no spans and are not
+counted).
+
 Callbacks are batch-leading (see the package docstring).  The device is
 explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
 """
@@ -82,7 +94,7 @@ from .constraints import Constraints, host_leaf, tree_map
 from .core.rounds import (RoundSpec, commit_candidates, make_expand,
                           make_refine_round)
 from .core.sampling import normalize_goal_bias, sample_batch
-from .core.steer import make_steer
+from .core.steer import make_routed_steer, steer_route
 from .core.tree import TreeArrays, best_node, init_tree
 from .ops.angles import wrap_angle
 from .parallel import mesh as meshlib
@@ -169,8 +181,9 @@ class Planner:
         if steer_impl != "scan":
             raise ValueError(
                 f"steer_impl {steer_impl!r} is not available: the planner's "
-                "steer is the scan (core/steer.py); the fused rollout, "
-                "kernel D, is an experiment (tools/exp_steer_kernel.py)")
+                "steer is the scan (core/steer.py), which on CUDA runs as "
+                "kernel D wherever D takes the problem "
+                "(core.steer.make_routed_steer); 'auto' reads as 'scan'")
         if collective not in ("gather", "topk"):
             raise ValueError(f"unknown collective {collective!r}")
         if refine_mode not in ("restart", "leaf_rewire"):
@@ -229,7 +242,7 @@ class Planner:
         self.wrap_dims = tuple(wrap_dims)
         self.rounds_per_chunk = max(int(rounds_per_chunk), 1)
         self.nn_impl = nn_impl
-        self.steer_impl = self.steer_selected = "scan"
+        self.steer_impl = "scan"
         self.refine = bool(refine)
         self.refine_mode = refine_mode
         self.informed = float(informed)
@@ -438,13 +451,15 @@ class Planner:
 
     def _get_steer(self, steps: Optional[int] = None):
         """Steer without the goal stop (prune, finish), cached per
-        horizon."""
+        horizon: ``make_routed_steer``'s, kernel D on CUDA where D takes
+        the problem."""
         steps = self.horizon_steps if steps is None else steps
         key = (steps, self.constraints._feasibility_version, self._feas_sig)
         if key not in self._steer_cache:
-            self._steer_cache[key] = make_steer(
+            self._steer_cache[key] = make_routed_steer(
                 self.dynamics, self.erf, self._feasibility(), steps,
-                self.dt, self.error_tol, saturate=self.saturate)
+                self.dt, self.error_tol, saturate=self.saturate,
+                spans=self._spans)
         return self._steer_cache[key]
 
     def _pool_fn(self):
@@ -1087,6 +1102,8 @@ class Planner:
             overhead_prune_s=sp.last_s("planner.prune"),
             overhead_finish_s=sp.last_s("planner.finish"),
             overhead_total_s=sp.last_s("planner.post"),
+            steer_launches={route: sp.tallies().get(f"steer.{route}", 0)
+                            for route in ("kernel", "scan")},
             total_s=self.sys_time() - t0)
         if self.printing:
             print(f"[lqrrt] done: {n_live} nodes, "
@@ -1255,6 +1272,17 @@ class Planner:
             x_seq = np.concatenate([x_seq, fx], 0)
             u_seq = np.concatenate([u_seq, fu], 0) if len(u_seq) else fu
         return x_seq, u_seq
+
+    @property
+    def steer_selected(self) -> str:
+        """What the chunks' steer runs on this planner's device: "kernel"
+        (kernel D) or "scan" (the plain loop), ``core.steer.steer_route``
+        of the problem as it stands."""
+        return steer_route(self.dynamics, self.erf, self._feasibility(),
+                           self.horizon_steps, self.dt, self.error_tol,
+                           saturate=self.saturate,
+                           goal_buffer=self.constraints.goal_buffer,
+                           device=self.device)
 
     # --------------------------------------------------- controller-facing API
 

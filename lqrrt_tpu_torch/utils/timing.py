@@ -69,7 +69,11 @@ class PhaseTimer:
     ...                       #   ..., 'self_s': ..., 'parent':
     ...                       #   'planner.chunk'}, 'planner.chunk': ...}
 
-    ``record=False`` makes a recorder whose spans do nothing
+    ``tally(name)`` counts an event on the host beside the spans (the
+    planner's steer calls by route), read by ``tallies()`` and reset with
+    them.
+
+    ``record=False`` makes a recorder whose spans and tallies do nothing
     (``NO_SPANS``, the default of the round factories).
     """
 
@@ -81,6 +85,7 @@ class PhaseTimer:
         # name -> [count, total_ns, self_ns, parent, last_ns]
         self._spans: Dict[str, list] = {}
         self._open: list = []        # [name, child_ns] of each open span
+        self._tallies: Dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
     def phase(self, name: str, fence=None):
@@ -143,6 +148,16 @@ class PhaseTimer:
                            parent=parent)
                 for name, (c, tot, own, parent, _) in self._spans.items()}
 
+    def tally(self, name: str):
+        """Count one event ``name`` (a host integer: no sync, no tensor)."""
+        if self.record:
+            self._tallies[name] += 1
+
+    def tallies(self) -> Dict[str, int]:
+        """{name: count} of the tallies since the last ``reset``, a fresh
+        dict."""
+        return dict(self._tallies)
+
     def last_s(self, name: str) -> float:
         """Seconds of the last span ``name`` that ended."""
         return self._spans[name][4] / 1e9
@@ -151,6 +166,7 @@ class PhaseTimer:
         self.totals.clear()
         self.counts.clear()
         self._spans.clear()
+        self._tallies.clear()
 
 
 _NO_SPAN = contextlib.nullcontext()

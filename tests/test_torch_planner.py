@@ -55,9 +55,10 @@ def test_reaches_goal(planned):
 
 
 def test_stats_keys_match_jax(planned):
-    """The JAX planner's stats keys, and the port's own ``spans``."""
+    """The JAX planner's stats keys, and the port's own ``spans`` and
+    ``steer_launches``."""
     _, planner, _ = planned
-    assert set(planner.stats) - {"spans"} == {
+    assert set(planner.stats) - {"spans", "steer_launches"} == {
         "nodes", "tree_rows", "rounds", "restarts", "elapsed_s",
         "expansions", "expansions_per_s", "goal_found", "plan_steps",
         "plan_duration_s", "overhead_extract_s", "overhead_prune_s",
