@@ -64,10 +64,16 @@ def make_lqr(q=(1.0, 1.0, 0.5, 0.3), r=(0.5, 2.0)):
                                  x_map=x_map)
 
 
-def default_problem(obstacles: bool = True):
-    """Parking-lot style scenario with a slalom of obstacles."""
+def default_problem(obstacles: bool = True, obstacle_model: str = "circles"):
+    """Parking-lot style scenario with a slalom of obstacles.
+
+    obstacle_model: "circles", the boat's keyword; the car has no raster of
+    its slalom, so "grid" (or any other model) raises ValueError."""
     from ..constraints import Constraints
 
+    if obstacle_model != "circles":
+        raise ValueError(f"obstacle_model {obstacle_model!r}: the car's "
+                         "slalom is circles only (it has no raster)")
     centers = np.array([[8.0, 1.5], [14.0, -1.5], [20.0, 1.5]], np.float32)
     radii = np.array([2.0, 2.0, 2.0], np.float32)
     preds = [collision.control_limits(U_MIN, U_MAX_VEC)]

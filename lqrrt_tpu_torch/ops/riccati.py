@@ -20,12 +20,14 @@ its inverse and log|det| from one ``torch.linalg.lu_factor_ex``.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
 from .._const import Const
+from ..utils.timing import NO_SPANS
 
 # quadratic convergence reaches fp32 eps in ~8-12 iterations with
 # determinant scaling; 16 keeps margin (the JAX package's count)
@@ -216,19 +218,32 @@ def make_relinearized_lqr(f: Callable, Q, R, u_eq=None,
     ``u_eq`` fixes the control linearization point (e.g. hover thrust).
     ``x_map`` (batch-leading) maps the state to the linearization point and
     is applied outside the differentiation: the Jacobians are of f itself
-    at x_map(x), so no coupling is zeroed the way a clamp inside f would."""
+    at x_map(x), so no coupling is zeroed the way a clamp inside f would.
+
+    ``lqr.spanned(spans)`` (``utils.timing.spanned``) is the same lqr timing
+    itself in a ``PhaseTimer``: the span ``lqr.linearize`` (``x_map`` and
+    the Jacobians), the span ``lqr.care`` (``care_lqr``) and the tally
+    ``lqr.rows``, the states solved, read from the shapes on the host."""
     Qc = Const(np.asarray(Q, np.float32))
     Rc = Const(np.asarray(R, np.float32))
     ueq = None if u_eq is None else Const(np.asarray(u_eq, np.float32))
 
-    def lqr(x, u):
-        xlin = x if x_map is None else x_map(x)
-        if ueq is None:
-            ulin = u
-        else:
-            ulin = ueq.like(x)
-            ulin = ulin.expand(x.shape[:-1] + ulin.shape)
-        A, B = linearize(f, xlin, ulin)
-        return care_lqr(A, B, Qc.like(x), Rc.like(x))
+    def solve(x, u, spans):
+        with spans.span("lqr.linearize"):
+            xlin = x if x_map is None else x_map(x)
+            if ueq is None:
+                ulin = u
+            else:
+                ulin = ueq.like(x)
+                ulin = ulin.expand(x.shape[:-1] + ulin.shape)
+            A, B = linearize(f, xlin, ulin)
+        with spans.span("lqr.care"):
+            out = care_lqr(A, B, Qc.like(x), Rc.like(x))
+        spans.tally("lqr.rows", math.prod(A.shape[:-2]))
+        return out
 
+    def lqr(x, u):
+        return solve(x, u, NO_SPANS)
+
+    lqr.spanned = lambda spans: lambda x, u: solve(x, u, spans)
     return lqr

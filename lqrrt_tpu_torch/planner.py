@@ -49,9 +49,14 @@ timeline while ``torch.profiler`` runs): ``planner.update_plan``, each
 chunk's dispatch (``planner.chunk``), each wait for a chunk's stats
 (``planner.stats_wait``), the phases of each round (``round.*``) and
 restart cycle (``cycle.restart``), and ``planner.post`` with its parts
-(``planner.extract``, ``planner.prune``, ``planner.finish``).
-``stats["spans"]`` holds the replan's {name: {count, total_s, self_s,
-parent}}.
+(``planner.extract``, ``planner.prune``, ``planner.finish``).  A
+re-linearised ``lqr`` (``ops.riccati.make_relinearized_lqr``: the car, the
+quadrotor) times itself wherever the planner calls it (the seeds, every
+round's endpoint, the mesh bodies' too, the finish): ``lqr.linearize``,
+``lqr.care`` and the tally ``lqr.rows`` of the states it solved; a
+constant ``lqr`` records nothing.  ``stats["spans"]`` holds the replan's
+{name: {count, total_s, self_s, parent, parents}}, ``stats["tallies"]``
+its tallies.
 
 ``get_tree`` snapshots the last planning tree into the host ``Tree``
 (``lqrrt_tpu_torch/tree.py``); ``utils`` holds checkpoints, metrics sinks,
@@ -99,7 +104,7 @@ from .core.tree import TreeArrays, best_node, init_tree
 from .ops.angles import wrap_angle
 from .parallel import mesh as meshlib
 from .tree import Tree
-from .utils.timing import PhaseTimer
+from .utils.timing import PhaseTimer, spanned
 
 _FPR_PLAN_LEN = 256   # resampled previous-plan states kept for FPR biasing
 _PRUNE_MAX = 32       # chain nodes covered by the all-pairs shortcut batch
@@ -305,6 +310,9 @@ class Planner:
         self.goal = None
         self.stats = {}
         self._spans = PhaseTimer()      # reset at each update_plan
+        # the lqr the seeds, the rounds and the finish call: timing itself
+        # in the spans where it can (``self.lqr`` is the caller's, untimed)
+        self._lqr = spanned(lqr, self._spans)
         self.on_replan: Optional[Callable] = None
         if goal0 is not None:
             self.set_goal(goal0)
@@ -409,7 +417,8 @@ class Planner:
 
     def _seed(self, x0, goal):
         """(S0, K0, in_goal0, goal_cost0) at x0, all on the device."""
-        S0, K0 = self.lqr(x0, torch.zeros(self.ncontrols, device=self.device))
+        S0, K0 = self._lqr(x0, torch.zeros(self.ncontrols,
+                                           device=self.device))
         e0 = self.erf(goal, x0)
         gbuf = self._tensor(self.constraints.goal_buffer)
         in_goal0 = (e0.abs() <= gbuf).all()
@@ -546,7 +555,7 @@ class Planner:
         return draw
 
     def _expand(self, spec: RoundSpec):
-        return make_expand(spec, self.dynamics, self.lqr, self.erf,
+        return make_expand(spec, self.dynamics, self._lqr, self.erf,
                            self._feasibility(), self.error_tol,
                            self.constraints.goal_buffer,
                            wrap_mask=self._wrap_mask(),
@@ -608,7 +617,7 @@ class Planner:
 
         common = dict(wrap_mask=self._wrap_mask(), saturate=self.saturate,
                       nearest_fn=self._nearest_override())
-        args = (self.dynamics, self.lqr, self.erf, self._feasibility(),
+        args = (self.dynamics, self._lqr, self.erf, self._feasibility(),
                 self.error_tol, self.constraints.goal_buffer)
         if mesh is not None and self.feasibility_grid is not None:
             from .parallel.map_sharded import make_dp_map_round_body
@@ -1104,6 +1113,7 @@ class Planner:
             overhead_total_s=sp.last_s("planner.post"),
             steer_launches={route: sp.tallies().get(f"steer.{route}", 0)
                             for route in ("kernel", "scan")},
+            tallies=sp.tallies(),
             total_s=self.sys_time() - t0)
         if self.printing:
             print(f"[lqrrt] done: {n_live} nodes, "

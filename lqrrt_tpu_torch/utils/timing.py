@@ -52,9 +52,11 @@ class PhaseTimer:
     ``span(name)`` times a block on ``time.perf_counter_ns`` and never
     fences: it takes no sync, makes no tensor and launches nothing, so it
     may sit inside work that must not sync (the planner's chunks).  Spans
-    nest: each name keeps the name of the span it first ran inside
-    (``parent``, None at the top), and its self time, the duration less
-    what its child spans cover.  While ``torch.profiler`` runs, a span is
+    nest: each name keeps the names of the spans it ran inside with the
+    count of each (``parents``; the top is not counted), the one it ran
+    inside most often (``parent``, the first on a tie, None at the top),
+    and its self time, the duration less what its child spans cover.
+    While ``torch.profiler`` runs, a span is
     also a host range of the same name on the profiler's timeline, beside
     the device's kernels.  The range is a function-scope record
     (``torch._C._profiler._RecordFunctionFast``), not ``record_function``:
@@ -67,11 +69,12 @@ class PhaseTimer:
     ...         ...
     >>> timer.span_summary()  # {'round.steer': {'count': 1, 'total_s':
     ...                       #   ..., 'self_s': ..., 'parent':
-    ...                       #   'planner.chunk'}, 'planner.chunk': ...}
+    ...                       #   'planner.chunk', 'parents':
+    ...                       #   {'planner.chunk': 1}}, ...}
 
-    ``tally(name)`` counts an event on the host beside the spans (the
-    planner's steer calls by route), read by ``tallies()`` and reset with
-    them.
+    ``tally(name, n=1)`` counts events on the host beside the spans (the
+    planner's steer calls by route, the per-node LQR's rows), read by
+    ``tallies()`` and reset with them.
 
     ``record=False`` makes a recorder whose spans and tallies do nothing
     (``NO_SPANS``, the default of the round factories).
@@ -82,7 +85,7 @@ class PhaseTimer:
         self.record = record
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
-        # name -> [count, total_ns, self_ns, parent, last_ns]
+        # name -> [count, total_ns, self_ns, {parent: count}, last_ns]
         self._spans: Dict[str, list] = {}
         self._open: list = []        # [name, child_ns] of each open span
         self._tallies: Dict[str, int] = defaultdict(int)
@@ -134,24 +137,28 @@ class PhaseTimer:
                     parent[1] += dur
                 rec = self._spans.get(name)
                 if rec is None:
-                    rec = self._spans[name] = [
-                        0, 0, 0, None if parent is None else parent[0], 0]
+                    rec = self._spans[name] = [0, 0, 0, {}, 0]
                 rec[0] += 1
                 rec[1] += dur
                 rec[2] += dur - frame[1]
+                up = None if parent is None else parent[0]
+                rec[3][up] = rec[3].get(up, 0) + 1
                 rec[4] = dur
 
     def span_summary(self) -> Dict[str, dict]:
-        """{name: {count, total_s, self_s, parent}} of the spans since the
-        last ``reset``, a fresh dict."""
+        """{name: {count, total_s, self_s, parent, parents}} of the spans
+        since the last ``reset``, a fresh dict."""
         return {name: dict(count=c, total_s=tot / 1e9, self_s=own / 1e9,
-                           parent=parent)
-                for name, (c, tot, own, parent, _) in self._spans.items()}
+                           parent=max(ups, key=ups.get),
+                           parents={k: v for k, v in ups.items()
+                                    if k is not None})
+                for name, (c, tot, own, ups, _) in self._spans.items()}
 
-    def tally(self, name: str):
-        """Count one event ``name`` (a host integer: no sync, no tensor)."""
+    def tally(self, name: str, n: int = 1):
+        """Count ``n`` events ``name`` (a host integer: no sync, no
+        tensor)."""
         if self.record:
-            self._tallies[name] += 1
+            self._tallies[name] += n
 
     def tallies(self) -> Dict[str, int]:
         """{name: count} of the tallies since the last ``reset``, a fresh
@@ -171,6 +178,16 @@ class PhaseTimer:
 
 _NO_SPAN = contextlib.nullcontext()
 NO_SPANS = PhaseTimer(record=False)
+
+
+def spanned(fn, spans: PhaseTimer):
+    """``fn`` timing itself in ``spans`` where it offers to:
+    ``fn.spanned(spans)`` (the re-linearised lqr of
+    ``ops.riccati.make_relinearized_lqr``), else ``fn`` itself, unchanged
+    (a constant lqr, any other callback, or a recorder that records
+    nothing)."""
+    make = getattr(fn, "spanned", None)
+    return fn if make is None or not spans.record else make(spans)
 
 
 @contextlib.contextmanager

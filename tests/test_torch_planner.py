@@ -55,16 +55,18 @@ def test_reaches_goal(planned):
 
 
 def test_stats_keys_match_jax(planned):
-    """The JAX planner's stats keys, and the port's own ``spans`` and
-    ``steer_launches``."""
+    """The JAX planner's stats keys, and the port's own ``spans``,
+    ``steer_launches`` and ``tallies``."""
     _, planner, _ = planned
-    assert set(planner.stats) - {"spans", "steer_launches"} == {
+    assert set(planner.stats) - {"spans", "steer_launches", "tallies"} == {
         "nodes", "tree_rows", "rounds", "restarts", "elapsed_s",
         "expansions", "expansions_per_s", "goal_found", "plan_steps",
         "plan_duration_s", "overhead_extract_s", "overhead_prune_s",
         "overhead_finish_s", "overhead_total_s", "total_s"}
     st = planner.stats
     assert "planner.update_plan" in st["spans"]
+    assert st["tallies"] == {f"steer.{k}": v
+                             for k, v in st["steer_launches"].items() if v}
     assert st["rounds"] % 7 == 0 and st["expansions"] == st["rounds"] * 512
     assert st["plan_steps"] == len(planner.x_seq)
     assert st["plan_duration_s"] == pytest.approx(planner.T)
