@@ -9,8 +9,9 @@ exits non-zero:
 2. build: compile the CUDA kernels from ``lqrrt_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ``ptxas``'s resource lines; every
    instance of kernels A (n = 1-20), C (n = 1-20 and the one that takes n
-   at run time) and E, kernel D's four (one a model: the boat,
-   the car, the quadrotor, the double integrator) and all 15 of the stage
+   at run time) and E, kernel D's eight (the boat, the car, the
+   quadrotor and the double integrator, each with and without a raster in
+   its predicate) and all 15 of the stage
    scaffold's ``stage_kernel`` (F2, F3) without spills;
 3. kernel A (nn_const) vs its plain PyTorch version at N = 40960,
    B = 8192 with an fp64 brute-force anchor: the boat's n = 6 (wrap dim 2)
@@ -43,8 +44,9 @@ exits non-zero:
    launch counts set to 0 just before and read just after;
 5c. kernel D (steer_rollout), flat and tree-gather, vs its plain version
    (``core.steer.make_steer``, after the index gather for the tree) at
-   B = 8192, H = 100 on the boat, on a batch that reaches every branch of
-   the step (goal stop, infeasible stop, length 0, the psi wrap, saturated
+   B = 8192, H = 100 on the boat, with its circles and with its raster
+   (the grid boat's), on a batch that reaches every branch of the step
+   (goal stop, infeasible stop, length 0, the psi wrap, saturated
    efforts): every field of the result bit for bit, agreement of length,
    in_goal and reached, max |dx| and |du| where lengths agree, the branch
    counts, and both times; then kernel D's
@@ -96,9 +98,9 @@ exits non-zero:
    the kernels' launch counts set to 0 just before the replan and read just
    after (A or C, B, and kernel D, the steer, which must launch); then one
    restart chunk of each under ``torch.cuda.set_sync_debug_mode("error")``;
-8'. kernel D on the planner's path (``core.steer.make_routed_steer``):
-   ``steer_selected`` is "kernel" for the boat's circles and "scan" for
-   its raster; two boat planners at full width from one seed, one on D and
+8'. kernel D on the planner's path (``core.steer.make_routed_steer``),
+   for the boat's circles and then for its raster: ``steer_selected`` is
+   "kernel"; two boat planners at full width from one seed, one on D and
    one on the plain steer: a restart chunk from one generator state gives
    bit-identical trees, the pool and the score, ``_prune`` of its best
    chain the same plan, the prune's and the finish's steers bit for bit
@@ -107,7 +109,7 @@ exits non-zero:
    the prune and each replan and read after;
 9. the new paths at full width: the grid boat
    (``boat.default_problem(obstacle_model="grid")``, 2.0 s, as 8, its
-   raster on the plain steer: no launch of D); the
+   raster through D's raster instance, which must launch); the
    boat's host loop (``refine=False``, 1.0 s, which fills the tree and
    stops there; then ``max_nodes=16384`` with one round a chunk, held to
    ``nodes <= max_nodes + batch * rounds_per_chunk``); the double
@@ -699,11 +701,14 @@ def torch_sum_order(a):
 def phase_kernel_d():
     """Kernel D (steer_rollout), flat and tree-gather, against its plain
     version at B = 8192, H = 100 on the boat's operating point, on
-    ``branch_batch`` (every branch of the step reached).  The tree holds
-    N_BENCH rows, with the batch's x0 at distinct random rows and a gain of
-    its own in each row (the boat's K scaled by 0.5-1.5), so that the
-    in-kernel gather of K is checked too.  Returns per variant the numbers
-    of the kernels line."""
+    ``branch_batch`` (every branch of the step reached), with the boat's
+    circles and then with its raster (the grid boat's predicate: D's
+    ``Raster<Boat>`` instance).  The tree holds N_BENCH rows, with the
+    batch's x0 at distinct random rows and a gain of its own in each row
+    (the boat's K scaled by 0.5-1.5), so that the in-kernel gather of K is
+    checked too.  Returns per variant ("flat", "tree", "flat[grid]",
+    "tree[grid]") the numbers of the kernels line."""
+    from lqrrt_tpu_torch.models import boat
     from lqrrt_tpu_torch.tools.exp_steer_kernel import (agreement,
                                                         branch_counts,
                                                         device_ms)
@@ -711,11 +716,12 @@ def phase_kernel_d():
                                                     steer_calls, steer_inputs)
 
     dev = "cuda"
-    t = steer_inputs(dev, B_BENCH, 19, N_BENCH)
-    x0_np, xtar_np, pids, ncirc = (t["x0_np"], t["xtar_np"], t["pids"],
-                                   t["ncirc"])
-    calls = steer_calls(t)
-    cases = {v: calls[v] for v in ("flat", "tree")}
+    cases = {}
+    for tag, prob in (("", None),
+                      ("[grid]", boat.default_problem(obstacle_model="grid"))):
+        t = steer_inputs(dev, B_BENCH, 19, N_BENCH, prob=prob)
+        calls = steer_calls(t)
+        cases.update({v + tag: (*calls[v], t) for v in ("flat", "tree")})
     # the kernel sums n terms in the order of PyTorch's CUDA reduction
     # (torch_sum in csrc/boat_device.cuh): the share of rows where it is
     # torch.sum's order for each model's n, printed since bit-for-bit
@@ -727,7 +733,9 @@ def phase_kernel_d():
             f"{(torch_sum_order(a) == a.sum(-1)).double().mean().item():.6f}"
             " of rows")
     out = {}
-    for variant, (kernel, plain_fn) in cases.items():
+    for variant, (kernel, plain_fn, t) in cases.items():
+        x0_np, xtar_np, pids = t["x0_np"], t["xtar_np"], t["pids"]
+        tree = variant.startswith("tree")
         res, ref = kernel(), plain_fn()
         torch.cuda.synchronize()
         a = agreement(res, ref)
@@ -741,10 +749,9 @@ def phase_kernel_d():
         # the plain steer is a Python loop of ~100 small ops a step: few
         # repetitions (script time)
         plain_ms = cuda_ms(plain_fn, reps=3)
-        rows_read = (int(torch.unique(pids).numel()) if variant == "tree"
-                     else B_BENCH)
+        rows_read = int(torch.unique(pids).numel()) if tree else B_BENCH
         bound_ms, bound_by, flops, nbytes = steer_bound(
-            res, rows_read, ncirc, variant == "tree")
+            res, rows_read, t["ncirc"], tree, grid_words=t["grid_words"])
         log(f"kernel D steer_rollout[{variant}] B={B_BENCH} "
             f"H={res.x_seq.shape[0]}: bit_exact={same} "
             f"len_eq={a['len_eq']:.6f} in_goal_eq={a['in_goal_eq']:.6f} "
@@ -795,8 +802,8 @@ D_MODELS = ("car", "quadrotor", "double_integrator")
 # nn_const_kernel (n = 1-20, wrapped or not), nn_expand_kernel (6),
 # nn_general_kernel (n = 1-20, wrapped or not), nn_general_any_kernel (2)
 N_ACE_INSTANCES = 40 + 6 + 40 + 2
-N_D_INSTANCES = 4      # steer_rollout_kernel: boat, car, quadrotor, double
-                       # integrator
+N_D_INSTANCES = 8      # steer_rollout_kernel: boat, car, quadrotor, double
+                       # integrator, each with and without a raster
 
 
 def bits_equal(a, b):
@@ -1776,11 +1783,10 @@ def replan(name, prob, planner, bias, budget, smi, counters):
     return reached, launches
 
 
-def phase_main_path(name, prob, smi, bias, budget, nn, extra_budgets=(),
-                    steer="kernel"):
+def phase_main_path(name, prob, smi, bias, budget, nn, extra_budgets=()):
     """The replan at full width through nn (the kernel the planner must
-    pick) and the steer it must select ("kernel": kernel D launches; "scan":
-    D never launches), then one chunk under sync-debug mode 'error'."""
+    pick) and kernel D, the steer it must select and launch, then one chunk
+    under sync-debug mode 'error'."""
     from lqrrt_tpu_torch.ops.kernels.nn_kernel import nn_const, nn_general
     from lqrrt_tpu_torch.ops.kernels.write_kernel import block_write
 
@@ -1791,21 +1797,20 @@ def phase_main_path(name, prob, smi, bias, budget, nn, extra_budgets=(),
     planner.warmup(prob["x0"], prob["sample_space"], goal_bias=bias)
     torch.cuda.synchronize()
     log(f"{name} warmup: {time.perf_counter() - t0:.3f} s")
-    if planner.nn_selected != nn or planner.steer_selected != steer:
+    if planner.nn_selected != nn or planner.steer_selected != "kernel":
         raise AssertionError(f"{name}: NN is {planner.nn_selected}, not "
                              f"{nn}, or the steer {planner.steer_selected},"
-                             f" not {steer}")
+                             " not kernel")
 
     reached, launches = replan(name, prob, planner, bias, budget, smi,
                                counters)
     if not reached:
         raise AssertionError(f"{name}: goal not reached: {planner.stats}")
     check_plan(prob, planner)
-    d_launches = launches["steer_rollout"]
-    if min(launches[nn], launches["block_write"]) < 1 or \
-            (d_launches < 1 if steer == "kernel" else d_launches != 0):
-        raise AssertionError(f"{name}: a kernel was not launched, or D "
-                             f"launched on the {steer} route: {launches}")
+    if min(launches[nn], launches["block_write"],
+           launches["steer_rollout"]) < 1:
+        raise AssertionError(f"{name}: a kernel was not launched: "
+                             f"{launches}")
     log(f"{name} plan checks: starts at x0, feasible, ends in goal box, "
         "dynamically consistent")
     for b in extra_budgets:
@@ -1847,20 +1852,19 @@ def same_bits(a, b):
     return bool(torch.equal(a, b))
 
 
-def phase_steer_route(prob, smi, bias):
-    """Kernel D under the planner's steer (phase 8'): what each planner
-    selects, D against the plain steer inside the restart chunk (bit for
-    bit), in the prune and in the finish, the chunk sync-free, and a
-    replan of each.  The plain planner is built while D's factory refuses
-    every problem, so its router keeps the plain steer.  D's launches are
+def phase_steer_route(name, prob, smi, bias):
+    """Kernel D under the planner's steer (phase 8') on problem ``name``
+    (the boat's circles, then its raster): what each planner selects, D
+    against the plain steer inside the restart chunk (bit for bit), in the
+    prune and in the finish, the chunk sync-free, and a replan of each.
+    The plain planner is built while D's factory refuses every problem, so
+    its router keeps the plain steer.  D's launches are
     ``steer_kernel.LAUNCHES["flat"]``, set to 0 before each step and read
     after it."""
     from lqrrt_tpu_torch.core.tree import best_node
-    from lqrrt_tpu_torch.models import boat
     from lqrrt_tpu_torch.ops.kernels import steer_kernel
 
     launches = SteerLaunches()
-    grid = full_width_planner(boat.default_problem(obstacle_model="grid"))
     kern = full_width_planner(prob)
     kern_chunk = kern._get_restart_chunk(None, 0)
     real = steer_kernel.make_steer_kernel
@@ -1877,12 +1881,12 @@ def phase_steer_route(prob, smi, bias):
         plain_selected = plain.steer_selected
     finally:
         steer_kernel.make_steer_kernel = real
-    selected = (kern.steer_selected, plain_selected, grid.steer_selected)
-    log(f"steer route: selected boat={selected[0]} (plain-built "
-        f"{selected[1]}), grid boat={selected[2]}")
-    if selected != ("kernel", "scan", "scan"):
-        raise AssertionError(f"steer route: selected {selected}, not "
-                             "('kernel', 'scan', 'scan')")
+    selected = (kern.steer_selected, plain_selected)
+    log(f"steer route {name}: selected {selected[0]} (plain-built "
+        f"{selected[1]})")
+    if selected != ("kernel", "scan"):
+        raise AssertionError(f"steer route {name}: selected {selected}, "
+                             "not ('kernel', 'scan')")
 
     def inputs(p, seed):
         p._gen.manual_seed(seed)
@@ -1910,13 +1914,13 @@ def phase_steer_route(prob, smi, bias):
               for name, a, b in zip(ta._fields, ta, tb)}
     fields.update(pool=(kpool, ppool), score=(ksc, psc))
     differ = [k for k, (a, b) in fields.items() if not same_bits(a, b)]
-    log(f"steer route chunk ({rounds} rounds, seed 2): D {k_s:.3f} s, "
+    log(f"steer route {name} chunk ({rounds} rounds, seed 2): D {k_s:.3f} s, "
         f"{k_launch} launches; plain {p_s:.3f} s, {p_launch} launches; "
         f"size {int(kb.size)}, goal_found {bool(kb.goal_found)}; "
         f"{len(fields)} fields, differing: {differ}")
     if differ or k_launch != rounds or p_launch != 0:
-        raise AssertionError(f"steer route chunk: fields {differ} differ, "
-                             f"or D launched {k_launch} times (want "
+        raise AssertionError(f"steer route {name} chunk: fields {differ} "
+                             f"differ, or D launched {k_launch} times (want "
                              f"{rounds}) and the plain chunk {p_launch}")
 
     # the prune of the best chain, both ways
@@ -1934,12 +1938,12 @@ def phase_steer_route(prob, smi, bias):
     prune_launches = (k_launch, launches.launches)
     same = all(np.array_equal(a, b) for a, b in
                ((xk, xp), (uk, up), (pk[0], pp[0]), (pk[1], pp[1])))
-    log(f"steer route prune: chain {chain} nodes, plan {len(xk)} -> "
+    log(f"steer route {name} prune: chain {chain} nodes, plan {len(xk)} -> "
         f"{len(pk[0])} states, same plan {same}, D launches (D, plain) "
         f"{prune_launches}")
     want = (int(chain > 3), 0)
     if not same or prune_launches != want:
-        raise AssertionError(f"steer route prune: same plan {same}, "
+        raise AssertionError(f"steer route {name} prune: same plan {same}, "
                              f"D launches {prune_launches} (want {want})")
 
     # the prune's (1024 rows) and the finish's (3H steps, 8 rows) steers
@@ -1958,12 +1962,13 @@ def phase_steer_route(prob, smi, bias):
         routes = (k_launch, launches.launches - k_launch)
         differ = [name for name, a, b in zip(rk._fields, rk, rp)
                   if not same_bits(a, b)]
-        log(f"steer route {label} steer: {rows} rows, D launches (D, "
+        log(f"steer route {name} {label} steer: {rows} rows, D launches (D, "
             f"plain) {routes}, mean length "
             f"{float(rk.length.float().mean()):.2f}, differing: {differ}")
         if differ or routes != (1, 0):
-            raise AssertionError(f"steer route {label}: {differ} differ, "
-                                 f"or D launches {routes} (want (1, 0))")
+            raise AssertionError(f"steer route {name} {label}: {differ} "
+                                 f"differ, or D launches {routes} (want "
+                                 "(1, 0))")
 
     # D's chunk with every host sync an error
     args = inputs(kern, 4)
@@ -1976,8 +1981,9 @@ def phase_steer_route(prob, smi, bias):
         torch.cuda.set_sync_debug_mode("default")
     enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
-    log(f"steer route sync-free D chunk under sync_debug_mode='error': ok, "
-        f"enqueue_s={enqueue:.4f} total_s={time.perf_counter() - t0:.4f}")
+    log(f"steer route {name} sync-free D chunk under sync_debug_mode="
+        f"'error': ok, enqueue_s={enqueue:.4f} "
+        f"total_s={time.perf_counter() - t0:.4f}")
 
     # a 1.0 s replan each way
     replan_launches = {}
@@ -1989,7 +1995,7 @@ def phase_steer_route(prob, smi, bias):
         torch.cuda.synchronize()
         replan_launches[label] = launches.launches
         st = p.stats
-        log(f"steer route replan 1.0 s, {label} [{smi}]: "
+        log(f"steer route {name} replan 1.0 s, {label} [{smi}]: "
             f"goal={st['goal_found']} rounds={st['rounds']} "
             f"expansions_per_s={st['expansions_per_s']:.1f} "
             f"elapsed_s={st['elapsed_s']:.4f} "
@@ -2001,7 +2007,7 @@ def phase_steer_route(prob, smi, bias):
         check_plan(prob, p)
     if replan_launches["D"] < kern.stats["rounds"] or \
             replan_launches["plain"] or kern.stats["steer_launches"]["scan"]:
-        raise AssertionError(f"steer route replans: D launches "
+        raise AssertionError(f"steer route {name} replans: D launches "
                              f"{replan_launches}, fewer than the D "
                              f"planner's {kern.stats['rounds']} rounds, or "
                              "a steer call took the other route")
@@ -3308,7 +3314,8 @@ def main() -> int:
         raise AssertionError(f"ptxas: kernels A, C and E: {len(ace_ptxas)} "
                              f"instances ({N_ACE_INSTANCES} expected), D: "
                              f"{len(d_ptxas)} "
-                             f"({N_D_INSTANCES} expected, one a model), "
+                             f"({N_D_INSTANCES} expected, each model with "
+                             "and without a raster), "
                              f"stage_kernel: {len(f_ptxas)} "
                              f"({N_STAGE_KERNELS} expected), spilling "
                              f"{spilled}")
@@ -3350,16 +3357,17 @@ def main() -> int:
     l_boat = timed("boat main path", phase_main_path, "boat", boat_p, smi,
                    [0.3, 0.3, 0, 0, 0, 0], 2.0, "nn_const",
                    extra_budgets=(1.0,))
-    timed("steer route", phase_steer_route, boat_p, smi,
-          [0.3, 0.3, 0, 0, 0, 0])
+    boat_bias = [0.3, 0.3, 0, 0, 0, 0]
+    grid_p = boat.default_problem(obstacle_model="grid")
+    timed("steer route", phase_steer_route, "boat", boat_p, smi, boat_bias)
+    timed("steer route grid", phase_steer_route, "grid boat", grid_p, smi,
+          boat_bias)
     l_car = timed("car main path", phase_main_path, "car", car_p, smi,
                   [0.3, 0.3, 0, 0], 2.0, "nn_general")
     l_quad = timed("quadrotor main path", phase_main_path, "quadrotor",
                    quad_p, smi, [0.3] * 3 + [0.0] * 9, 3.0, "nn_general")
-    boat_bias = [0.3, 0.3, 0, 0, 0, 0]
     l_grid = timed("grid boat main path", phase_main_path, "grid boat",
-                   boat.default_problem(obstacle_model="grid"), smi,
-                   boat_bias, 2.0, "nn_const", steer="scan")
+                   grid_p, smi, boat_bias, 2.0, "nn_const")
     l_host = timed("boat host loop", phase_host_loop, boat_p, smi, boat_bias)
     l_dyn = timed("double integrator moving buoy", phase_dynamic_obstacles,
                   smi)
@@ -3490,6 +3498,13 @@ def main() -> int:
             name="steer_rollout" + ("_tree" if variant == "tree" else ""),
             route="cuda", source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
             replaces=replaces, **by_path, **d[variant], library_ms=None))
+    # D's raster instance (Raster<Boat>) on the grid boat's predicate: its
+    # launches are the grid boat's main path's
+    kernels.append(dict(
+        name="steer_rollout[grid]", route="cuda",
+        source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
+        replaces=d_replaces["flat"], launches=l_grid["steer_rollout"],
+        **d["flat[grid]"], library_ms=None))
     for name in D_MODELS:
         for variant, replaces in d_replaces.items():
             kernels.append(dict(

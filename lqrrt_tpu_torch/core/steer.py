@@ -96,9 +96,12 @@ def make_steer(dynamics: Callable, erf: Callable, is_feasible: Callable,
 def _kernel_steer(dynamics, erf, is_feasible, horizon_steps, dt, error_tol,
                   saturate, goal_buffer):
     """Kernel D's steer of the problem (``make_steer_kernel``, its flat
-    variant), or None where D's factory refuses it: a raster or a
-    data-bound predicate, a model without device functions, another erf or
-    saturation, or a shape its checks refuse."""
+    variant), or None where D's factory refuses it: a data-bound predicate,
+    a raster with a footprint, two rasters, or one past D's cap, a model
+    without device functions, another erf or saturation, or a shape its
+    checks refuse.  A raster D takes (``OccupancyGrid.feasibility()``) is
+    staged in each block's shared memory, one bit a cell (2,400 B for the
+    grid boat), and costs a step one shared-memory read."""
     from ..ops.kernels.steer_kernel import make_steer_kernel
     try:
         return make_steer_kernel(dynamics, erf, is_feasible, horizon_steps,

@@ -15,8 +15,15 @@
 // model's numbers arrive as a kernel argument, and the wrapper
 // (ops/kernels/steer_kernel.py) refuses a model that has none.  The
 // predicate is collision.circles_free's test on (x0, x1), control_limits'
-// box on u, or both (all_of): the circles as an argument (ncirc may be 0)
-// and the box as a pointer (null without one).
+// box on u, OccupancyGrid.feasibility()'s raster on (x0, x1), or an all_of
+// of those: the circles as an argument (ncirc may be 0), the box as a
+// pointer (null without one), and the raster as a pointer to its bits
+// (null without one) with its shape and cell transform.  The raster is a
+// compile-time flag of the model trait (Raster<M>: an instance with it and
+// one without for each model, chosen by the launch from the pointer), so
+// the instances without a raster run the code they ran before it was added
+// (the same registers; the module's dynamic shared memory rounds their
+// static arrays up to 16 B).
 //
 // For each candidate b, H steps of exactly core/steer.py's step, in its
 // order: e = erf(xtar, x) with the model's angle wrapped (none for the
@@ -57,6 +64,11 @@
 // - the scalar converged test compares the sum of squares with the largest
 //   float whose rounded sqrt is <= tol (the wrapper's sqrt_threshold: the
 //   same boolean as sqrt(sum) <= tol, without the sqrt);
+// - the raster (Raster<M> instances only): each block stages its bits, one
+//   a cell in row-major uint32 words (ops/kernels/steer_kernel.py
+//   pack_grid; 2,400 B for the grid boat's 96 x 200 cells, at most
+//   kMaxGridWords), in dynamic shared memory, and a step's test is the
+//   cell's arithmetic and one shared-memory read (grid_free);
 // - the first 8 circles sit in registers and are tested independently and
 //   ANDed (the same boolean as collision.circles_free; a slot past ncirc
 //   passes, as no circle does for a NaN xn); the rest are read from shared
@@ -97,13 +109,18 @@ using boat::sub;
 
 constexpr int kMaxCircles = 64;   // MAX_CIRCLES in ops/kernels/steer_kernel.py
 constexpr int kMaxThreads = 128;  // MAX_THREADS there
+// MAX_GRID_WORDS there: 46 KiB, which with the static arrays (under 1 KiB)
+// stays inside the 48 KiB a block takes without an opt-in
+constexpr int kMaxGridWords = 11776;
 
 // The model traits: sizes, the erf's wrapped dim (-1: none), the number of
-// model numbers, one RK4 step and the saturation.  The ids are the
-// wrapper's (_MODELS in ops/kernels/steer_kernel.py).
+// model numbers, whether the predicate holds a raster (Raster<M> below),
+// one RK4 step and the saturation.  The ids are the wrapper's (_MODELS in
+// ops/kernels/steer_kernel.py).
 struct Boat {
   static constexpr int kId = 0, kN = boat::kN, kM = boat::kM,
                        kWrap = boat::kPsi, kParams = boat::kParams;
+  static constexpr bool kGrid = false;
   static __device__ __forceinline__ void step(const float* p, const float* x,
                                               const float* u, float hh,
                                               float h, float h6, float* xn) {
@@ -118,6 +135,7 @@ struct Boat {
   struct Trait {                                                             \
     static constexpr int kId = id, kN = ns::kN, kM = ns::kM,                 \
                          kWrap = ns::kWrap, kParams = ns::kParams;           \
+    static constexpr bool kGrid = false;                                     \
     static __device__ __forceinline__ void step(                             \
         const float* p, const float* x, const float* u, float hh, float h,  \
         float h6, float* xn) {                                               \
@@ -134,6 +152,12 @@ LQRRT_RK4_MODEL(Car, car, 1)
 LQRRT_RK4_MODEL(Quadrotor, quadrotor, 2)
 LQRRT_RK4_MODEL(DoubleIntegrator, double_integrator, 3)
 #undef LQRRT_RK4_MODEL
+
+// model M with a raster in its predicate
+template <class M>
+struct Raster : M {
+  static constexpr bool kGrid = true;
+};
 
 // e = xgoal - x, the model's angle wrapped
 template <class M>
@@ -192,6 +216,23 @@ __device__ __forceinline__ bool in_limits(const float* lim, const float* u) {
   return ok;
 }
 
+// OccupancyGrid.feasibility()'s test on (px, py) as the plain predicate
+// computes it on the card (ops/collision.py _grid_cells): the cell
+// floor((p - origin) * inv), inv the float32 reciprocal of the resolution
+// (PyTorch's CUDA division by a Python float multiplies by it), in bounds
+// on the float cell (false for NaN) before the cast, flat index cy W + cx;
+// free iff in bounds and its bit in the words is clear
+__device__ __forceinline__ bool grid_free(const unsigned* words, int gw,
+                                          int gh, float gx0, float gy0,
+                                          float ginv, float px, float py) {
+  const float cx = floorf(mul(sub(px, gx0), ginv));
+  const float cy = floorf(mul(sub(py, gy0), ginv));
+  const bool inb = cx >= 0.f && cx < static_cast<float>(gw) && cy >= 0.f &&
+                   cy < static_cast<float>(gh);
+  const int i = inb ? static_cast<int>(cy) * gw + static_cast<int>(cx) : 0;
+  return inb && ((words[i >> 5] >> (i & 31)) & 1u) == 0u;
+}
+
 template <class M>
 __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
     const float* __restrict__ rows, const float* __restrict__ gains,
@@ -199,7 +240,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
     const float* __restrict__ goal, const float* __restrict__ params,
     const float* __restrict__ tol, const float* __restrict__ gbuf,
     const float* __restrict__ circles, int ncirc,
-    const float* __restrict__ ulim, float* __restrict__ xs,
+    const float* __restrict__ ulim, const unsigned* __restrict__ grid,
+    int gw, int gh, float gx0, float gy0, float ginv, float* __restrict__ xs,
     float* __restrict__ us, int* __restrict__ length,
     float* __restrict__ xnew, bool* __restrict__ reached,
     bool* __restrict__ in_goal, int B, int H, int per_dim, float hh, float h,
@@ -208,11 +250,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
   __shared__ float p[M::kParams];
   __shared__ float cs[3 * kMaxCircles];   // (cx, cy, (r + margin)^2) each
   __shared__ float lim[2 * kM];           // control_limits' (lo, hi)
+  extern __shared__ unsigned gbits[];     // the raster's words (Raster<M>)
   for (int i = threadIdx.x; i < M::kParams; i += blockDim.x) p[i] = params[i];
   for (int i = threadIdx.x; i < 3 * ncirc; i += blockDim.x) cs[i] = circles[i];
   const bool has_lim = ulim != nullptr;
   if (has_lim)
     for (int i = threadIdx.x; i < 2 * kM; i += blockDim.x) lim[i] = ulim[i];
+  if constexpr (M::kGrid)
+    for (int i = threadIdx.x; i < (gw * gh + 31) >> 5; i += blockDim.x)
+      gbits[i] = grid[i];
   __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -259,8 +305,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
         float xn[kN], un[kM];
         M::step(p, x, u, hh, h, h6, xn);
         const bool feas = boat::circles_ok(cr, cs, ncirc, xn[0], xn[1]);
-        // all_of(control_limits, circles_free): the box on the step's u
-        const bool ok = feas && (!has_lim || in_limits<kM>(lim, u));
+        // all_of(control_limits, circles_free, the raster): the box on the
+        // step's u, the raster's cell of xn
+        bool ok = feas && (!has_lim || in_limits<kM>(lim, u));
+        if constexpr (M::kGrid)
+          ok &= grid_free(gbits, gw, gh, gx0, gy0, ginv, xn[0], xn[1]);
         // the next step's control, taken if this step commits
         const bool arrived_n = control<M>(p, tar, xn, K, tl, per_dim, un);
         bool in = has_goal;
@@ -297,18 +346,30 @@ __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
   in_goal[b] = hit;
 }
 
+// the instance of model M without a raster, or Raster<M> with the raster's
+// words in dynamic shared memory
 template <class M>
 cudaError_t launch(const float* rows, const float* gains, const int* pids,
                    int R, const float* xtar, const float* goal,
                    const float* params, const float* tol, const float* gbuf,
                    const float* circles, int ncirc, const float* ulim,
-                   float* xs, float* us, int* length, float* xnew,
+                   const unsigned* grid, int gw, int gh, float gx0, float gy0,
+                   float ginv, float* xs, float* us, int* length, float* xnew,
                    bool* reached, bool* in_goal, int B, int H, int per_dim,
                    float hh, float h, float h6, int threads, int blocks,
                    cudaStream_t s) {
-  steer_rollout_kernel<M><<<blocks, threads, 0, s>>>(
-      rows, gains, pids, R, xtar, goal, params, tol, gbuf, circles, ncirc,
-      ulim, xs, us, length, xnew, reached, in_goal, B, H, per_dim, hh, h, h6);
+  if (grid == nullptr) {
+    steer_rollout_kernel<M><<<blocks, threads, 0, s>>>(
+        rows, gains, pids, R, xtar, goal, params, tol, gbuf, circles, ncirc,
+        ulim, nullptr, 0, 0, 0.f, 0.f, 0.f, xs, us, length, xnew, reached,
+        in_goal, B, H, per_dim, hh, h, h6);
+  } else {
+    const size_t smem = sizeof(unsigned) * ((gw * gh + 31) >> 5);
+    steer_rollout_kernel<Raster<M>><<<blocks, threads, smem, s>>>(
+        rows, gains, pids, R, xtar, goal, params, tol, gbuf, circles, ncirc,
+        ulim, grid, gw, gh, gx0, gy0, ginv, xs, us, length, xnew, reached,
+        in_goal, B, H, per_dim, hh, h, h6);
+  }
   return cudaGetLastError();
 }
 
@@ -328,7 +389,10 @@ __global__ void math_probe_kernel(int op, const float* __restrict__ a,
 // goal and gbuf are both null without a goal box.  tol is (n,) with
 // per_dim, else (1,): the largest sum of squares whose rounded sqrt is <=
 // error_tol.  circles (ncirc, 3); ulim (2, m), control_limits' lo and hi,
-// or null.  Outputs: xs (H, n, B), us (H, m, B), length, xnew (B, n),
+// or null; grid, the raster's (gh, gw) cells as bits in row-major words
+// (cell i in bit i & 31 of word i >> 5, set where occupied), or null, with
+// the world position (gx0, gy0) of cell (0, 0) and ginv cells a metre.
+// Outputs: xs (H, n, B), us (H, m, B), length, xnew (B, n),
 // reached and in_goal (B,) bool.  Geometry (rollout_geometry in
 // ops/kernels/steer_kernel.py): threads (a multiple of 32, at most 128) a
 // block, blocks covering B, one thread a candidate.  model (n states, m
@@ -337,18 +401,22 @@ extern "C" int lqrrt_steer_rollout(
     const float* rows, const float* gains, const int* pids, int R,
     const float* xtar, const float* goal, const float* params,
     const float* tol, const float* gbuf, const float* circles, int ncirc,
-    const float* ulim, float* xs, float* us, int* length, float* xnew,
+    const float* ulim, const unsigned* grid, int gw, int gh, float gx0,
+    float gy0, float ginv, float* xs, float* us, int* length, float* xnew,
     bool* reached, bool* in_goal, int B, int H, int per_dim, float hh,
     float h, float h6, int model, int threads, int blocks, void* stream) {
   if (ncirc < 0 || ncirc > kMaxCircles || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 ||
-      (long long)blocks * threads < B)
+      (long long)blocks * threads < B ||
+      (grid != nullptr &&
+       (gw < 1 || gh < 1 || (long long)gw * gh > 32LL * kMaxGridWords)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LQRRT_LAUNCH(Trait)                                                  \
   launch<Trait>(rows, gains, pids, R, xtar, goal, params, tol, gbuf,         \
-                circles, ncirc, ulim, xs, us, length, xnew, reached,         \
-                in_goal, B, H, per_dim, hh, h, h6, threads, blocks, s)
+                circles, ncirc, ulim, grid, gw, gh, gx0, gy0, ginv, xs, us,  \
+                length, xnew, reached, in_goal, B, H, per_dim, hh, h, h6,    \
+                threads, blocks, s)
   cudaError_t err;
   switch (model) {
     case Boat::kId: err = LQRRT_LAUNCH(Boat); break;

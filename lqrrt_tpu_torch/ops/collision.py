@@ -134,9 +134,19 @@ class OccupancyGrid:
     def feasibility(self, footprint_radius: float = 0.0,
                     n_ring: int = 8) -> Callable:
         """An is_feasible predicate, optionally inflated by a circular
-        footprint sampled at ``n_ring`` boundary points."""
+        footprint sampled at ``n_ring`` boundary points.  Without a
+        footprint it is ``is_feasible`` tagged with what it tests,
+        ``is_feasible.grid = (occ (H, W) bool, origin (2,) float32,
+        resolution)`` as numpy, and ``is_feasible.pos_dims``: the steer
+        kernel (``ops/kernels/steer_kernel.py``) reads the tags.  The
+        footprint's ring has no tag."""
         if footprint_radius <= 0.0:
-            return self.is_feasible
+            def is_feasible(x, u):
+                return self.is_feasible(x, u)
+
+            is_feasible.grid = (self.occ, self.origin, self.resolution)
+            is_feasible.pos_dims = self.pos_dims
+            return is_feasible
         ang = np.linspace(0.0, 2.0 * np.pi, n_ring, endpoint=False,
                           dtype=np.float32)
         ring = Const(footprint_radius

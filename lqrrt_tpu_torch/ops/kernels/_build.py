@@ -38,7 +38,8 @@ _SIGNATURES = {
     "lqrrt_nn_general": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lqrrt_block_write": [_P, _P, _P, _I, _I, _I, _P],
     "lqrrt_nn_expand": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
-    "lqrrt_steer_rollout": [_P, _P, _P, _I] + [_P] * 6 + [_I] + [_P] * 7
+    "lqrrt_steer_rollout": [_P, _P, _P, _I] + [_P] * 6 + [_I] + [_P] * 2
+                           + [_I, _I, _F, _F, _F] + [_P] * 6
                            + [_I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
     "lqrrt_math_probe": [_P, _P, _P, _I, _I, _P],
     "lqrrt_steer_stage": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 5

@@ -33,11 +33,17 @@ its numbers: the boat, the car, the quadrotor and the double integrator.
 The factories check the erf (the model's wrapped dims, ``angle_dims``;
 ``torch.subtract`` wraps none), the saturation (the model's own) and the
 predicate (its tags: ``collision.circles_free``'s ``circles``,
-``control_limits``' box, ``all_of``'s parts made of those, or the all-true
-default) and raise ``NotImplementedError`` on anything else, whatever the
-device: nothing drops back to the Python loop on the card.  The planner's
-router (``core.steer.make_routed_steer``) catches that error, and a shape
-the checks refuse, and runs the plain steer instead.
+``control_limits``' box, ``OccupancyGrid.feasibility``'s ``grid`` without a
+footprint, ``all_of``'s parts made of those, or the all-true default) and
+raise ``NotImplementedError`` on anything else, whatever the device:
+nothing drops back to the Python loop on the card.  The planner's router
+(``core.steer.make_routed_steer``) catches that error, and a shape the
+checks refuse, and runs the plain steer instead.
+
+A raster is packed once, when the steer is built (``pack_grid``: one bit a
+cell, 2,400 B for the grid boat's 96 x 200 cells), and the kernel's
+instance with a raster stages it in each block's shared memory: a step's
+test is then one shared-memory read.  At most ``MAX_GRID_WORDS`` words.
 
 Each steer takes the plain version (``core.steer.make_steer``; for the tree
 variant after ``gather_rows``) for CPU tensors and launches the kernel for
@@ -60,6 +66,8 @@ VARIANTS = ("flat", "tree", "dv")
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
 MAX_CIRCLES = 64          # kMaxCircles in csrc/steer_rollout.cu
 MAX_THREADS = 128         # kMaxThreads there
+MAX_GRID_WORDS = 11776    # kMaxGridWords there: 46 KiB of shared memory,
+                          # 376,832 cells
 
 
 def rollout_geometry(B: int, sms: int):
@@ -144,42 +152,64 @@ _MODELS = {
 
 def predicate_parts(is_feasible):
     """(circles (K, 3) float32: cx, cy, (r + margin)^2; control_limits'
-    (lo, hi) or None) of a predicate the kernel computes: a
+    (lo, hi) or None; the raster (occ (H, W) bool, origin (2,) float32,
+    resolution) or None) of a predicate the kernel computes: a
     ``circles_free`` on dims (0, 1) (``circles``, ``pos_dims`` tags), a
-    ``control_limits`` (its tag), the all-true default (no circles), or an
-    ``all_of`` (``parts``) of those, whose circles are concatenated and
-    whose boxes intersect.  Raises ``NotImplementedError`` otherwise."""
-    circles, limits = [], []
+    ``control_limits`` (its tag), an ``OccupancyGrid.feasibility()`` on
+    dims (0, 1) without a footprint (``grid``, ``pos_dims``), the all-true
+    default (none of them), or an ``all_of`` (``parts``) of those, whose
+    circles are concatenated, whose boxes intersect and which holds at
+    most one raster.  Raises ``NotImplementedError`` otherwise."""
+    circles, limits, grids = [], [], []
 
     def walk(pred):
         if hasattr(pred, "parts"):
             for q in pred.parts:
                 walk(q)
-        elif hasattr(pred, "circles"):
+        elif hasattr(pred, "circles") or hasattr(pred, "grid"):
             if tuple(getattr(pred, "pos_dims", (0, 1))) != (0, 1):
                 raise NotImplementedError(
-                    "steer kernel: the circles must test dims (0, 1)")
-            centers, r2 = pred.circles
-            circles.append(np.concatenate(
-                [np.asarray(centers, np.float32).reshape(-1, 2),
-                 np.asarray(r2, np.float32).reshape(-1, 1)], 1))
+                    "steer kernel: the circles and the raster must test "
+                    "dims (0, 1)")
+            if hasattr(pred, "grid"):
+                grids.append(pred.grid)
+            else:
+                centers, r2 = pred.circles
+                circles.append(np.concatenate(
+                    [np.asarray(centers, np.float32).reshape(-1, 2),
+                     np.asarray(r2, np.float32).reshape(-1, 1)], 1))
         elif hasattr(pred, "control_limits"):
             limits.append(pred.control_limits)
         else:
             raise NotImplementedError(
                 "steer kernel: the predicate has no circles tag, "
-                "control_limits tag or parts tag; only collision.circles_free,"
-                " collision.control_limits, collision.all_of of those and "
-                "the all-true default have a device form")
+                "control_limits tag, grid tag or parts tag; only "
+                "collision.circles_free, collision.control_limits, "
+                "OccupancyGrid.feasibility() without a footprint, "
+                "collision.all_of of those and the all-true default have a "
+                "device form")
 
     walk(is_feasible)
+    if len(grids) > 1:
+        raise NotImplementedError(
+            f"steer kernel: at most one raster, got {len(grids)}")
     circ = (np.concatenate(circles) if circles
             else np.zeros((0, 3), np.float32))
     box = None
     if limits:
         box = (np.max([np.asarray(lo, np.float32) for lo, _ in limits], 0),
                np.min([np.asarray(hi, np.float32) for _, hi in limits], 0))
-    return circ, box
+    return circ, box, (grids[0] if grids else None)
+
+
+def pack_grid(occ) -> np.ndarray:
+    """The raster occ (H, W) as the kernel reads it: row-major, one bit a
+    cell, cell i = y W + x in bit i & 31 of uint32 word i >> 5 (set where
+    occupied), the last word padded with free cells; returned as int32
+    words of the same bits."""
+    bits = np.asarray(occ, bool).reshape(-1)
+    bits = np.concatenate([bits, np.zeros(-len(bits) % 32, bool)])
+    return np.packbits(bits, bitorder="little").view("<i4").astype(np.int32)
 
 
 class _Spec:
@@ -206,11 +236,16 @@ class _Spec:
             raise NotImplementedError(
                 "steer kernel: saturate must be the model's own "
                 "(e.g. boat.saturate); other saturations have no device form")
-        circles, box = predicate_parts(is_feasible)
+        circles, box, grid = predicate_parts(is_feasible)
         if len(circles) > MAX_CIRCLES:
             raise NotImplementedError(
                 f"steer kernel: at most {MAX_CIRCLES} circles, got "
                 f"{len(circles)}")
+        words = None if grid is None else pack_grid(grid[0])
+        if words is not None and not 0 < len(words) <= MAX_GRID_WORDS:
+            raise NotImplementedError(
+                f"steer kernel: a raster of 1 to {32 * MAX_GRID_WORDS} "
+                f"cells, got {np.size(grid[0])}")
         self.model = model["id"]
         self.n, self.m = model["nm"]
         tol = np.asarray(error_tol, np.float32)
@@ -243,6 +278,17 @@ class _Spec:
                                      else np.zeros(self.n), np.float32))
         self.circles = Const(circles)
         self.limits = None if box is None else Const(np.stack(box))
+        # the raster: its words, (W, H) and the cell transform as PyTorch's
+        # CUDA division by a Python float computes it, (p - origin) times
+        # the float32 reciprocal of the resolution
+        self.grid = None if words is None else Const(words)
+        self.grid_args = (0, 0, 0.0, 0.0, 0.0)
+        if words is not None:
+            occ, origin, res = grid
+            origin = np.asarray(origin, np.float32)
+            self.grid_args = (occ.shape[1], occ.shape[0], float(origin[0]),
+                              float(origin[1]),
+                              float(np.float32(1.0) / np.float32(res)))
         self.plain = make_steer(dynamics, erf, is_feasible, horizon_steps,
                                 dt, error_tol, saturate, goal_buffer)
 
@@ -264,8 +310,9 @@ class _Spec:
                     self.gbuf.like(xtar) if self.has_goal else None,
                     self.circles.like(xtar), self.ncirc,
                     None if self.limits is None else self.limits.like(xtar),
-                    xs, us, length, xnew, reached, in_goal, B, H,
-                    int(self.per_dim), *self.steps, self.model,
+                    None if self.grid is None else self.grid.like(xtar),
+                    *self.grid_args, xs, us, length, xnew, reached, in_goal,
+                    B, H, int(self.per_dim), *self.steps, self.model,
                     *rollout_geometry(B, sm_count(dev)))
             LAUNCHES[variant] += 1
         mask = torch.arange(H, device=dev)[:, None] < length[None, :]

@@ -157,11 +157,14 @@ def ptxas_summary(bodies=()):
             args = re.findall(r"L[a-z](\d+)E", k.group(2) or "") if k else []
             if k is not None and k.group(1) == "stage_kernel" and bodies:
                 args = [bodies[int(args[0])], f"store={args[1]}"]
-            # a type argument (steer_rollout_kernel<Car>): its name
-            t = re.search(r"_kernelIN(?:S_|12_GLOBAL__N_1)\d+([A-Za-z]+?)EE",
+            # a type argument (steer_rollout_kernel<Car>) or one wrapped
+            # once (steer_rollout_kernel<Raster<Car>>): its name
+            t = re.search(r"_kernelIN(?:S_|12_GLOBAL__N_1)\d+([A-Za-z]+?)"
+                          r"(?:IN(?:S_|12_GLOBAL__N_1)\d+([A-Za-z]+?)E)?EE",
                           m.group(1))
             if t:
-                args = [t.group(1)]
+                args = [t.group(1) if t.group(2) is None
+                        else f"{t.group(1)}<{t.group(2)}>"]
             name = (m.group(1) if k is None else
                     k.group(1) + (f"<{','.join(args)}>" if args else ""))
             continue
@@ -415,8 +418,9 @@ def steer_inputs(dev, B: int = B, seed: int = 19, n_rows: int = N,
     tiled (KB), and a tree of ``n_rows`` rows holding the batch's x0 at
     distinct random rows (pids), each row with its own gain (the boat's K
     scaled by 0.5-1.5, KN).  A dict of device tensors, with the numpy x0
-    and xtar and the circles' count."""
+    and xtar, the circles' count and the raster's words (0 without one)."""
     from ..models import boat
+    from ..ops.kernels.steer_kernel import pack_grid, predicate_parts
     from .exp_steer_kernel import boat_K, branch_batch, steer_args
 
     prob = boat.default_problem() if prob is None else prob
@@ -433,8 +437,10 @@ def steer_inputs(dev, B: int = B, seed: int = 19, n_rows: int = N,
         goal=prob["goal"]).items()}
     t["KB"] = torch.as_tensor(boat_K(prob), device=dev).expand(
         B, 3, 6).contiguous()
+    circles, _, grid = predicate_parts(prob["constraints"].is_feasible)
     return dict(t, args=args, kw=kw, x0_np=x0, xtar_np=xtar,
-                ncirc=len(prob["constraints"].is_feasible.circles[1]))
+                ncirc=len(circles),
+                grid_words=0 if grid is None else len(pack_grid(grid[0])))
 
 
 # per model: the erf's wrapped dims, the flops of one f (a clamp bound, a
@@ -454,7 +460,8 @@ STEER_MODELS = {
 }
 
 
-def steer_bound(res, rows_read, ncirc, tree, model="boat", limits=False):
+def steer_bound(res, rows_read, ncirc, tree, model="boat", limits=False,
+                grid_words=0):
     """(ms, what bounds it, flops, bytes) of one steer_rollout call of
     ``model`` (a key of STEER_MODELS), from its inputs and its outputs (the
     work depends on the data: a rollout runs until it is done).  Flops:
@@ -462,19 +469,20 @@ def steer_bound(res, rows_read, ncirc, tree, model="boat", limits=False):
     erf (n sub, 3 a wrapped dim: add, fmod, sub), the converged test (n
     mul, n - 1 add, sqrt, compare) and u = K e saturated (m x (n mul,
     n - 1 add, 2 clamp)), 61 for the boat; each active step the RK4 (4 f,
-    3n for the stage states, 7n for the sum: 234 for the boat), 6 a circle
-    and, with ``limits`` (control_limits), 2m; each committed step the goal
-    test (n sub, the wraps, n abs, n compare: 21).  Bytes: xtar, the start
-    rows read (x0 and K, or the distinct parents' rows and pids) and the
-    small constants read once; xs, us, length, xnew, reached and in_goal
-    written once."""
+    3n for the stage states, 7n for the sum: 234 for the boat), 6 a circle,
+    with ``limits`` (control_limits) 2m and with a raster of ``grid_words``
+    words 10 (the cell: 2 sub, 2 mul, 2 floor; 4 bounds compares); each
+    committed step the goal test (n sub, the wraps, n abs, n compare: 21).
+    Bytes: xtar, the start rows read (x0 and K, or the distinct parents'
+    rows and pids) and the small constants and the raster's words read
+    once; xs, us, length, xnew, reached and in_goal written once."""
     H, n, nb = res.x_seq.shape
     m = res.u_seq.shape[1]
     spec = STEER_MODELS[model]
     w = spec["wrap"]
     control = 3 * n + 3 * w + 1 + m * (2 * n + 1)
     step = (4 * spec["f"] + 13 * n + 6 * ncirc
-            + (2 * m if limits else 0))
+            + (2 * m if limits else 0) + (10 if grid_words else 0))
     length = res.length.long()
     active = torch.where(res.in_goal, length, (length + 1).clamp(max=H))
     flops = (int((length + 1).sum()) * control + int(active.sum()) * step
@@ -482,7 +490,7 @@ def steer_bound(res, rows_read, ncirc, tree, model="boat", limits=False):
     nbytes = (4 * nb * n + 4 * rows_read * (n + m * n)
               + (4 * nb if tree else 0)
               + 4 * (3 * n + spec["params"] + 3 * ncirc
-                     + (2 * m if limits else 0))
+                     + (2 * m if limits else 0) + grid_words)
               + 4 * H * (n + m) * nb + nb * (4 + 4 * n + 2))
     return (*bound({"fp32": flops}, nbytes), flops, nbytes)
 
@@ -531,7 +539,7 @@ def model_steer_inputs(prob, dev, B: int = B, seed: int = 23,
             H, prob["dt"], 0.05)
     kw = dict(saturate=prob["saturate"],
               goal_buffer=prob["constraints"].goal_buffer)
-    circles, box = predicate_parts(prob["constraints"].is_feasible)
+    circles, box, _ = predicate_parts(prob["constraints"].is_feasible)
 
     def gains(x):
         return prob["lqr"](x, torch.zeros(m, device=dev))[1].expand(

@@ -87,6 +87,40 @@ def test_occupancy_grid_matches_on_seeded_points():
                                       _jax_batch(jf, x))
 
 
+def test_grid_feasibility_is_tagged():
+    """``feasibility()`` without a footprint is tagged with the raster it
+    tests (``grid``: occ, origin as float32, resolution; ``pos_dims``) for
+    the steer kernel, and returns ``is_feasible``'s booleans on CPU tensors:
+    seeded points over and around the grid, cell edges and one ulp either
+    side, out of bounds and NaN (occupied); the footprint ring has no tag."""
+    _, grid = _grids()
+    pred = grid.feasibility()
+    occ, origin, res = pred.grid
+    np.testing.assert_array_equal(occ, grid.occ)
+    assert occ.dtype == bool and origin.dtype == np.float32
+    np.testing.assert_array_equal(origin, grid.origin)
+    assert res == grid.resolution and pred.pos_dims == (0, 1)
+    assert not hasattr(grid.feasibility(0.7), "grid")
+    rng = np.random.default_rng(17)
+    p = rng.uniform(-3.0, 13.0, (4096, 2)).astype(np.float32)
+    p[:512] = np.floor(p[:512])                   # exact cell edges
+    p[512:1024] = np.nextafter(p[:512], np.float32(-np.inf))
+    p[1024:1536] = np.nextafter(p[:512], np.float32(np.inf))
+    p[1536:1544] = [[0, 0], [10, 0], [0, 10], [9.999, 9.999], [-1e-6, 5],
+                    [3e9, 5], [5, -3e9], [1e30, 1e30]]
+    p[1544:1560] = np.nan
+    p[1560:1570, 0] = np.nan
+    x = np.concatenate([p, rng.normal(size=(4096, 2))], 1).astype(np.float32)
+    got = pred(_t(x), None).numpy()
+    np.testing.assert_array_equal(got, grid.is_feasible(_t(x), None).numpy())
+    np.testing.assert_array_equal(got, ~grid.occupied(_t(p)).numpy())
+    assert not got[1544:1570].any() and got.sum() > 1000
+    # the grid boat's raster, tagged inside its all_of
+    tag = boat.default_problem(
+        obstacle_model="grid")["constraints"].is_feasible.parts[0].grid
+    assert tag[0].shape == (96, 200) and tag[2] == 0.25
+
+
 def test_grid_nan_is_occupied_where_jax_reads_free():
     """The port fixes a reference quirk: JAX casts floor(NaN) to cell 0
     before its bounds test, so a NaN position reads cell (0, 0), free here;

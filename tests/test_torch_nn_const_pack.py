@@ -206,11 +206,26 @@ def test_ptxas_summary_names_each_instance(tmp_path, monkeypatch):
         "nn_expand_kernelILi2ELb0EEEvPKf' for 'sm_90a'\n"
         "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
         "loads\n"
-        "ptxas info    : Used 80 registers, 31664 bytes smem\n")
+        "ptxas info    : Used 80 registers, 31664 bytes smem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120"
+        "steer_rollout_kernelINS_4BoatEEEvPKfS3_PKii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 96 registers, 852 bytes smem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120"
+        "steer_rollout_kernelINS_6RasterINS_4BoatEEEEEvPKfS5_PKii' for "
+        "'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 98 registers, 852 bytes smem\n")
     monkeypatch.setattr(_build, "ptxas_log_path", lambda: log)
     assert kt.ptxas_summary() == [
         "nn_const_kernel<6,1>: 106 registers, 128 B smem, spill 0/0 B",
-        "nn_expand_kernel<2,0>: 80 registers, 31664 B smem, spill 8/8 B"]
+        "nn_expand_kernel<2,0>: 80 registers, 31664 B smem, spill 8/8 B",
+        "steer_rollout_kernel<Boat>: 96 registers, 852 B smem, "
+        "spill 0/0 B",
+        "steer_rollout_kernel<Raster<Boat>>: 98 registers, 852 B smem, "
+        "spill 0/0 B"]
     monkeypatch.setattr(_build, "ptxas_log_path",
                         lambda: tmp_path / "absent.txt")
     assert kt.ptxas_summary() == []

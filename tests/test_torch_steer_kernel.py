@@ -702,8 +702,9 @@ def test_nested_control_limits_intersect():
     the same predicate."""
     a = collision.control_limits([-1.0, -2.0], [3.0, 1.0])
     b = collision.control_limits([-2.0, -1.0], [2.0, 2.0])
-    circles, box = steer_kernel.predicate_parts(collision.all_of(a, b))
-    assert circles.shape == (0, 3)
+    circles, box, grid = steer_kernel.predicate_parts(
+        collision.all_of(a, b))
+    assert circles.shape == (0, 3) and grid is None
     np.testing.assert_array_equal(box[0], [-1.0, -1.0])
     np.testing.assert_array_equal(box[1], [2.0, 1.0])
     u = torch.from_numpy(np.random.default_rng(0).uniform(
@@ -716,7 +717,8 @@ def test_nested_control_limits_intersect():
 
 @pytest.mark.parametrize("change", ["erf", "saturate-none",
                                     "saturate-other", "pos-dims",
-                                    "circles", "erf-untagged"])
+                                    "circles", "erf-untagged",
+                                    "grid-pos-dims"])
 def test_factory_refuses_what_the_kernel_does_not_compute(change):
     args, kw = steer_args(PROB)
     args, kw = list(args), dict(kw)
@@ -738,6 +740,9 @@ def test_factory_refuses_what_the_kernel_does_not_compute(change):
     elif change == "pos-dims":
         args[2] = collision.circles_free([[1.0, 2.0]], [0.5],
                                          pos_dims=(1, 0))
+    elif change == "grid-pos-dims":
+        args[2] = collision.OccupancyGrid(np.zeros((4, 4)), [0.0, 0.0], 1.0,
+                                          pos_dims=(1, 0)).feasibility()
     else:
         n = MAX_CIRCLES + 1
         args[2] = collision.circles_free(np.zeros((n, 2)), np.ones(n))
