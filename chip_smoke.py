@@ -123,10 +123,8 @@ exits non-zero:
 9'. past 16 states (fault 22): the double integrator stacked five times
    (n = 20, a constant lqr, ``nn_impl="auto"``) at full width, a 3.0 s
    replan through kernel A's n = 20 instance that reaches the goal; then
-   the measurement tools: ``tools.profile_round`` for the boat
-   at full width (every phase's ms, the knockout deltas, the busy share,
-   kernel A composed at three live sizes) and ``tools.exp_quality`` in
-   short form (``hard_problem``, batch 2048, 0.2 and 1.0 s, 3 seeds);
+   ``tools.exp_quality`` in short form (``hard_problem``, batch 2048, 0.2
+   and 1.0 s, 3 seeds);
 10. ``refine_mode="leaf_rewire"`` at full width on the double integrator's
    five circles (2.0 s): the grow chunk fills the tree, refine chunks
    (leaf replacement through kernel A at B = 4096, and the rewire) run on
@@ -144,8 +142,8 @@ exits non-zero:
    8192): each must exit 0 (goal, clearance, tracking error), with its NN
    kernel's launches counted (A or C) and its wall time;
 12. the scenario-parallel fleet at full width, plain PyTorch (no kernel
-   of A-F on its path): ``lqrrt_tpu_torch.tools.bench_fleet`` (1024 boat
-   scenarios, batch 64, capacity 1024, a 2.0 s budget) with its record,
+   of A-F on its path): ``portbench``'s ``fleet.plan`` configuration (1024
+   boat scenarios, batch 64, capacity 1024, a 2.0 s budget) with its stats,
    the peak memory, the budget, capacity and plan checks; 64 rounds with
    a goal rate > 0.5 and an fp64 audit of 16 trees; a round's parts, its
    busy share and a sync-free round; per-scenario worlds (a circle a
@@ -180,7 +178,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -188,6 +185,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from lqrrt_tpu_torch.utils.device import card_name, smi_line  # noqa: E402
 
 TOL_EXCESS = 1e-4      # fp64 relative cost excess allowed for NN picks
 TOL_CARE = 2e-3        # max |S - S_scipy| / max |S_scipy| (the CPU tests')
@@ -224,13 +223,6 @@ def cuda_ms(fn, reps: int = 20) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def wrapped_cost64(xr, st, S64, wrap=WRAP):
@@ -2003,10 +1995,12 @@ def phase_steer_route(name, prob, smi, bias):
             f"total_s={st['total_s']:.4f} "
             f"plan_duration_s={st['plan_duration_s']:.2f} "
             f"D launches={replan_launches[label]} "
-            f"steer calls={st['steer_launches']}")
+            f"steer calls kernel={st['tallies'].get('steer.kernel', 0)} "
+            f"scan={st['tallies'].get('steer.scan', 0)}")
         check_plan(prob, p)
     if replan_launches["D"] < kern.stats["rounds"] or \
-            replan_launches["plain"] or kern.stats["steer_launches"]["scan"]:
+            replan_launches["plain"] or \
+            kern.stats["tallies"].get("steer.scan", 0):
         raise AssertionError(f"steer route {name} replans: D launches "
                              f"{replan_launches}, fewer than the D "
                              f"planner's {kern.stats['rounds']} rounds, or "
@@ -2236,33 +2230,6 @@ def phase_stacked(smi):
         "launched, no C launch, goal, plan from x0, feasible, in the goal "
         "box, dynamically consistent")
     return launches
-
-
-def phase_profile_round(smi):
-    """``lqrrt_tpu_torch.tools.profile_round`` for the boat at full width
-    (batch 8192, capacity 32768; one timed chunk of 8 rounds a knockout
-    variant): every phase's ms, the knockout deltas, the busy share and
-    A composed at live sizes 8192, 16384 and 32768.  Gates: kernel A is
-    the NN, every time finite and positive."""
-    from lqrrt_tpu_torch.tools import profile_round
-
-    rec = profile_round.main(["--models", "boat", "--chunks", "1"])
-    r = rec["models"]["boat"]
-    times = [*r["phases_ms"].values(), *r["nn_composed_ms"].values(),
-             r["round_ms"], r["knockout_ms"]["round_ms"],
-             r["busy"]["device_ms"]]
-    log(f"profile_round boat [{smi}]: nn={r['nn']} round_ms="
-        f"{r['round_ms']:.3f} " + " ".join(
-            f"{k}={v:.3f}" for k, v in r["phases_ms"].items())
-        + " knockout " + " ".join(
-            f"{k}={v:.3f}" for k, v in r["knockout_ms"].items())
-        + f" device_ms={r['busy']['device_ms']:.3f} kernels="
-        f"{r['busy']['kernels']} busy_share={r['busy']['busy_share']:.3f} "
-        "A composed " + " ".join(
-            f"{k}={v:.4f}" for k, v in r["nn_composed_ms"].items()))
-    if (r["nn"] != "nn_const"
-            or not all(math.isfinite(t) and t > 0 for t in times)):
-        raise AssertionError(f"profile_round boat: {r}")
 
 
 def phase_exp_quality(smi):
@@ -2654,15 +2621,16 @@ def phase_fleet(smi):
     """The scenario-parallel fleet (``lqrrt_tpu_torch/parallel/fleet.py``,
     plain PyTorch: no kernel of A-F is on its path) at full width.
 
-    (a) ``tools/bench_fleet.py``'s configuration through the port's
-    ``bench_fleet.bench`` (what its ``main`` runs): 1024 boat scenarios,
-    batch 64, capacity 1024, ``nn_block=256``, H = 100, a 2.0 s budget in
-    chunks of 8 rounds after a 1-round warm-up, cold and warm extraction;
-    the record, the peak memory; gates: ``elapsed_s`` within the budget
-    plus one measured round, every size <= capacity, every plan from its
-    x0 and feasible under the boat's circles.  Then 64 rounds at
-    ``max_time=None`` (the bench's round cap): goal rate > 0.5 and the fp64
-    ``tree_audit`` of 16 scenarios; one round in its parts (NN scan,
+    (a) The configuration of ``portbench``'s cell ``fleet.plan``: 1024
+    boat scenarios (goals from ``fleet_demo.perturbed_goals``), batch 64,
+    capacity 1024, ``nn_block=256``, H = 100, goal bias 0.25, a 2.0 s
+    budget in chunks of 8 rounds after a 1-round warm-up, then every
+    scenario's plan extracted; the stats, the peak memory; gates:
+    ``elapsed_s`` within the budget plus one measured round, every size
+    <= capacity, every plan from its x0 and feasible under the boat's
+    circles.  Then 64 rounds at ``max_time=None`` (the budgeted run's
+    round cap): goal rate > 0.5 and the fp64 ``tree_audit`` of 16
+    scenarios; one round in its parts (NN scan,
     steer, the rest of the expand, commit), synchronised, median of 3, its
     busy share (``torch.profiler``), and one round under
     ``torch.cuda.set_sync_debug_mode("error")``.
@@ -2690,22 +2658,39 @@ def phase_fleet(smi):
     from lqrrt_tpu_torch.ops.collision import (circles_free_data,
                                                grid_free_data)
     from lqrrt_tpu_torch.parallel import FleetPlanner
-    from lqrrt_tpu_torch.tools import bench_fleet
     from lqrrt_tpu_torch.utils import timing
 
     # (a) the 1024-boat fleet
     dev = "cuda"
-    args = bench_fleet.parse_args([])
+    S, batch, cap, rounds, budget = 1024, 64, 1024, 64, 2.0
+    prob = boat.default_problem()
     torch.cuda.reset_peak_memory_stats()
-    rec, fleet, plans, prob, x0s, goals = bench_fleet.bench(args)
+    fleet = FleetPlanner(
+        prob["dynamics"], prob["lqr"], prob["erf"],
+        prob["constraints"].is_feasible, prob["constraints"].goal_buffer,
+        horizon=prob["horizon"], dt=prob["dt"], n_scenarios=S,
+        batch_size=batch, capacity=cap, nn_block=256,
+        saturate=prob["saturate"], wrap_dims=prob["wrap_dims"], device=dev)
+    x0s = np.tile(np.asarray(prob["x0"]), (S, 1))
+    goals = fleet_demo.perturbed_goals(prob, S)
+    # warm-up: one 1-round chunk (the callbacks' constants reach the
+    # device, and the per-round time seeds the budgeted run's first clamp)
+    fleet.plan(x0s, goals, prob["sample_space"], goal_bias=0.25, rounds=1,
+               max_time=1e9, rounds_per_chunk=1)
+    st = fleet.plan(x0s, goals, prob["sample_space"], goal_bias=0.25,
+                    rounds=rounds, max_time=budget, rounds_per_chunk=8)
+    plans = fleet.extract_plans()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"fleet bench_fleet [{smi}]: {json.dumps(rec)}")
-    log(f"fleet peak_mem_GiB={peak:.3f} (max_memory_allocated)")
-    S, cap = args.scenarios, args.capacity
     per_round = fleet._per_round_s
-    if rec["elapsed_s"] > args.max_time + per_round:
-        raise AssertionError(f"fleet: elapsed {rec['elapsed_s']} s past the "
-                             f"{args.max_time} s budget plus one round "
+    log(f"fleet {S} boats, {budget} s budget [{smi}]: rounds={st['rounds']} "
+        f"elapsed_s={st['elapsed_s']:.4f} per_round_s={per_round:.4f} "
+        f"expansions_per_s={st['expansions_per_s']:.1f} goal_rate="
+        f"{float(st['goal_found'].mean()):.4f} mean_nodes="
+        f"{st['sizes'].mean():.1f} extract={fleet.last_extract_timings}")
+    log(f"fleet peak_mem_GiB={peak:.3f} (max_memory_allocated)")
+    if st["elapsed_s"] > budget + per_round:
+        raise AssertionError(f"fleet: elapsed {st['elapsed_s']} s past the "
+                             f"{budget} s budget plus one round "
                              f"({per_round:.4f} s)")
     sizes = fleet.trees.size.cpu().numpy()
     starts = np.stack([plans[s][0] for s in range(S)])
@@ -2719,19 +2704,19 @@ def phase_fleet(smi):
         raise AssertionError(f"fleet: {int((~feas).sum())} plan states "
                              "inside the buoys")
     log(f"fleet plan checks: {S} plans ({len(states)} states) from their "
-        f"x0, feasible; sizes <= {cap}; elapsed_s {rec['elapsed_s']} <= "
-        f"{args.max_time} + one round ({per_round:.4f} s)")
+        f"x0, feasible; sizes <= {cap}; elapsed_s {st['elapsed_s']:.4f} "
+        f"<= {budget} + one round ({per_round:.4f} s)")
 
     t0 = time.perf_counter()
     st = fleet.plan(x0s, goals, prob["sample_space"], goal_bias=0.25,
-                    rounds=args.rounds)
+                    rounds=rounds)
     rate = float(st["goal_found"].mean())
-    log(f"fleet {args.rounds} rounds (max_time=None) [{smi}]: goal_rate="
+    log(f"fleet {rounds} rounds (max_time=None) [{smi}]: goal_rate="
         f"{rate:.4f} elapsed_s={st['elapsed_s']:.4f} expansions_per_s="
         f"{st['expansions_per_s']:.1f} mean_nodes={st['sizes'].mean():.1f} "
         f"wall_s={time.perf_counter() - t0:.3f}")
     if not rate > 0.5:
-        raise AssertionError(f"fleet: goal rate {rate} at {args.rounds} "
+        raise AssertionError(f"fleet: goal rate {rate} at {rounds} "
                              "rounds")
     bad = {}
     for s in range(0, S, S // FLEET_AUDIT):
@@ -2832,7 +2817,7 @@ def phase_fleet(smi):
     wf = FleetPlanner(
         prob["dynamics"], prob["lqr"], prob["erf"], pred,
         prob["constraints"].goal_buffer, horizon=prob["horizon"],
-        dt=prob["dt"], n_scenarios=S, batch_size=args.batch, capacity=cap,
+        dt=prob["dt"], n_scenarios=S, batch_size=batch, capacity=cap,
         nn_block=256, saturate=prob["saturate"], wrap_dims=prob["wrap_dims"],
         per_scenario_data=True, device=dev)
     st = wf.plan(x0s, goals, prob["sample_space"], goal_bias=0.25, rounds=16,
@@ -2879,7 +2864,7 @@ def phase_fleet(smi):
     gf = FleetPlanner(
         prob["dynamics"], prob["lqr"], prob["erf"], gpred,
         prob["constraints"].goal_buffer, horizon=prob["horizon"],
-        dt=prob["dt"], n_scenarios=S, batch_size=args.batch, capacity=cap,
+        dt=prob["dt"], n_scenarios=S, batch_size=batch, capacity=cap,
         nn_block=256, saturate=prob["saturate"], wrap_dims=prob["wrap_dims"],
         per_scenario_data=True, device=dev)
     st = gf.plan(x0s, goals, prob["sample_space"], goal_bias=0.25,
@@ -2902,7 +2887,7 @@ def phase_fleet(smi):
         f"against {peak_circles / 2**30:.3f} GiB with circles (difference "
         f"{(peak_grids - peak_circles) / 2**20:.1f} MiB, gate < 2 x the "
         f"grids' {grid_bytes / 2**20:.1f} MiB; one grid a steered row "
-        f"would be {S * args.batch * Hg * Wg / 2**30:.2f} GiB)")
+        f"would be {S * batch * Hg * Wg / 2**30:.2f} GiB)")
     if own or not other:
         raise AssertionError("fleet: per-scenario grids not kept apart")
     if peak_grids - peak_circles >= 2 * grid_bytes:
@@ -2920,17 +2905,17 @@ def phase_fleet(smi):
             prob["dynamics"], prob["lqr"], prob["erf"],
             prob["constraints"].is_feasible, prob["constraints"].goal_buffer,
             horizon=prob["horizon"], dt=prob["dt"], n_scenarios=Sc,
-            batch_size=args.batch, capacity=cap, nn_block=256,
+            batch_size=batch, capacity=cap, nn_block=256,
             saturate=prob["saturate"], wrap_dims=prob["wrap_dims"],
             device=d)
         f._build(n, m)
         small[d] = f
     rng = np.random.default_rng(31)
     lo, hi = prob["sample_space"][:, 0], prob["sample_space"][:, 1]
-    xrs = [rng.uniform(lo, hi, (Sc, args.batch, n)).astype(np.float32)
+    xrs = [rng.uniform(lo, hi, (Sc, batch, n)).astype(np.float32)
            for _ in range(4)]
     g8 = torch.as_tensor(goals[sub])
-    rows8 = g8.repeat_interleave(args.batch, 0)
+    rows8 = g8.repeat_interleave(batch, 0)
     cpu = small["cpu"]
     t_cpu = cpu._seed(torch.as_tensor(x0s[sub]), g8)
     for xr in xrs[:3]:
@@ -2949,7 +2934,7 @@ def phase_fleet(smi):
     de = (a["edge_x"] - b["edge_x"]).abs().amax((1, 2))[match]
     same = {k: bool(torch.equal(a[k], b[k]))
             for k in ("size", "goal_found", "in_goal", "n_children")}
-    log(f"fleet round card vs cpu (S={Sc}, B={args.batch}, capacity={cap}):"
+    log(f"fleet round card vs cpu (S={Sc}, B={batch}, capacity={cap}):"
         f" equal {same}, row_match={row_match:.4f} max_abs_state_err="
         f"{float(dx.max()):.3e} max_abs_edge_x_err={float(de.max()):.3e}")
     if not (same["size"] and same["goal_found"] and row_match >= 0.99
@@ -2964,7 +2949,6 @@ def phase_fleet(smi):
     log(f"fleet demo: exit {rc} in {time.perf_counter() - t0:.2f} s")
     if rc != 0:
         raise AssertionError(f"fleet demo exited {rc}")
-    return rec
 
 
 MESH_B, MESH_CAP, MESH_TOPK = 8192, 32768, 1024
@@ -3287,7 +3271,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
+    kind = card_name(torch.device("cuda", 0))
     smi = smi_line()
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -3374,7 +3358,6 @@ def main() -> int:
     a4 = timed("kernel A unwrapped", phase_kernel_a_unwrapped)
     timed("untagged erf", phase_untagged_erf, smi)
     l_stacked = timed("double integrator x5 (n = 20)", phase_stacked, smi)
-    timed("profile_round boat", phase_profile_round, smi)
     timed("exp_quality short", phase_exp_quality, smi)
     l_rewire, rewire_planner = timed("double integrator leaf_rewire",
                                      phase_leaf_rewire, smi)

@@ -23,7 +23,8 @@ Models: ``models.boat`` (a constant LQR), ``models.car`` and
 ``models.double_integrator``.
 
 Fleet: ``parallel.FleetPlanner`` grows many scenarios' trees at once (the
-boat fleet of ``demos/fleet_demo.py`` and ``tools/bench_fleet.py``).
+boat fleet of ``demos/fleet_demo.py``, measured by ``python3 -m
+portbench.run --workload fleet.plan``).
 
 Several devices: one process a device under ``torch.distributed``
 (``parallel.mesh``: ``init_distributed``, ``make_mesh`` and its 2-D
@@ -32,7 +33,8 @@ forms); ``Planner(mesh=...)`` shards each round's candidates over ranks,
 shards an occupancy grid, ``FleetPlanner(mesh=...)`` the scenarios.
 
 Host side: ``Tree`` (``Planner.get_tree``'s snapshot), ``utils``
-(checkpoints, metrics sinks, the replan watchdog, the phase timer) and
+(checkpoints, metrics sinks, the replan watchdog, the phase timer and
+span recorder, the card's identity) and
 ``runtime.TrajectoryServer`` (the plan in a C seqlock for controllers).
 """
 from .constraints import Constraints

@@ -62,20 +62,23 @@ class Candidates(NamedTuple):
     gcost: torch.Tensor     # (B,) f32
 
 
-def make_extend_stages(spec: RoundSpec, dynamics: Callable, lqr: Callable,
-                       erf: Callable, is_feasible: Callable, error_tol,
-                       goal_buffer, wrap_mask=None,
-                       saturate: Callable | None = None, goal_rows=False,
-                       spans=NO_SPANS):
-    """The three stages of ``make_extend``, in its order, for R rows:
-    steer(x0, K0, xrand, goal) -> ``SteerResult``, the rollout with the
-    first-entry goal stop; endpoint(res) -> (S_new, K_new), the lqr at
-    each endpoint with its last committed effort; finish(pids, res, S_new,
-    K_new, goal) -> Candidates, the wrap of the angle dims and the goal
-    cost-to-go.  ``tools/profile_round.py`` times them apart.  The steer
-    is ``make_routed_steer``'s, its route tallied in ``spans``; with
-    ``goal_rows`` (one goal a row) it is ``make_steer``'s loop, as kernel
-    D's goal stop takes one goal."""
+def make_extend(spec: RoundSpec, dynamics: Callable, lqr: Callable,
+                erf: Callable, is_feasible: Callable, error_tol,
+                goal_buffer, wrap_mask=None,
+                saturate: Callable | None = None, goal_rows=False,
+                spans=NO_SPANS) -> Callable:
+    """Build extend(pids, x0, K0, xrand, goal) -> Candidates: the part of
+    an expansion after the nearest pick, shared by ``make_expand`` and the
+    fleet's round, for R rows: x0 and xrand (R, n), K0 (R, m, n), goal
+    (n,), or one a row (R, n) with ``goal_rows``.  Steer with the
+    first-entry goal stop (``round.steer``), the lqr at each endpoint with
+    its last committed effort (``round.endpoint``), then the wrap of the
+    angle dims and the goal cost-to-go (``round.finish``).  The steer is
+    ``make_routed_steer``'s, its route tallied in ``spans``; with
+    ``goal_rows`` it is ``make_steer``'s loop, as kernel D's goal stop
+    takes one goal."""
+    from ..ops.angles import wrap_angle
+
     if goal_rows:
         steer = make_steer(dynamics, erf, is_feasible, spec.horizon_steps,
                            spec.dt, error_tol, saturate=saturate,
@@ -88,56 +91,32 @@ def make_extend_stages(spec: RoundSpec, dynamics: Callable, lqr: Callable,
     wrap_dims = ([] if wrap_mask is None
                  else [int(d) for d in np.flatnonzero(wrap_mask)])
 
-    def endpoint(res):
-        # effort of the last committed step (step 0 for an empty rollout)
-        last = torch.clamp(res.length - 1, min=0).long()
-        u_last = res.u_seq.gather(
-            0, last[None, None, :].expand(1, res.u_seq.shape[1], -1))[0].T
-        return lqr(res.xnew, u_last)
-
-    def finish(pids, res, S_new, K_new, goal) -> Candidates:
-        from ..ops.angles import wrap_angle
-
-        xnew, x_seq = res.xnew, res.x_seq
-        if wrap_dims:
-            # wrap both the endpoint and the stored edge states
-            xnew = xnew.clone()
-            for d in wrap_dims:
-                xnew[:, d] = wrap_angle(xnew[:, d])
-                x_seq[:, d, :] = wrap_angle(x_seq[:, d, :])
-        e_goal = erf(goal, xnew)
-        gcost = torch.einsum("bi,bij,bj->b", e_goal, S_new, e_goal)
-        return Candidates(pids=pids, length=res.length, x_seq=x_seq,
-                          u_seq=res.u_seq, xnew=xnew,
-                          S_new=S_new.contiguous(), K_new=K_new.contiguous(),
-                          in_goal=res.in_goal, gcost=gcost)
-
-    return steer, endpoint, finish
-
-
-def make_extend(spec: RoundSpec, dynamics: Callable, lqr: Callable,
-                erf: Callable, is_feasible: Callable, error_tol,
-                goal_buffer, wrap_mask=None,
-                saturate: Callable | None = None, goal_rows=False,
-                spans=NO_SPANS) -> Callable:
-    """Build extend(pids, x0, K0, xrand, goal) -> Candidates: the part of
-    an expansion after the nearest pick, shared by ``make_expand`` and the
-    fleet's round.  Steer with the first-entry goal stop, the endpoint LQR,
-    wrapping of the angle dims, and the goal cost-to-go
-    (``make_extend_stages``), for R rows: x0 and xrand (R, n), K0
-    (R, m, n), goal (n,), or one a row (R, n) with ``goal_rows``."""
-    steer, endpoint, finish = make_extend_stages(
-        spec, dynamics, lqr, erf, is_feasible, error_tol, goal_buffer,
-        wrap_mask=wrap_mask, saturate=saturate, goal_rows=goal_rows,
-        spans=spans)
-
     def extend(pids, x0, K0, xrand, goal) -> Candidates:
         with spans.span("round.steer"):
             res = steer(x0, K0, xrand, goal)
         with spans.span("round.endpoint"):
-            S_new, K_new = endpoint(res)
+            # effort of the last committed step (step 0 for an empty
+            # rollout)
+            last = torch.clamp(res.length - 1, min=0).long()
+            u_last = res.u_seq.gather(
+                0, last[None, None, :].expand(1, res.u_seq.shape[1], -1)
+            )[0].T
+            S_new, K_new = lqr(res.xnew, u_last)
         with spans.span("round.finish"):
-            return finish(pids, res, S_new, K_new, goal)
+            xnew, x_seq = res.xnew, res.x_seq
+            if wrap_dims:
+                # wrap both the endpoint and the stored edge states
+                xnew = xnew.clone()
+                for d in wrap_dims:
+                    xnew[:, d] = wrap_angle(xnew[:, d])
+                    x_seq[:, d, :] = wrap_angle(x_seq[:, d, :])
+            e_goal = erf(goal, xnew)
+            gcost = torch.einsum("bi,bij,bj->b", e_goal, S_new, e_goal)
+            return Candidates(pids=pids, length=res.length, x_seq=x_seq,
+                              u_seq=res.u_seq, xnew=xnew,
+                              S_new=S_new.contiguous(),
+                              K_new=K_new.contiguous(),
+                              in_goal=res.in_goal, gcost=gcost)
 
     return extend
 

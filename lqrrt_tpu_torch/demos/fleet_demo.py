@@ -21,6 +21,7 @@ import torch
 
 from ..models import boat
 from ..parallel import FleetPlanner
+from ..utils.device import card_name
 
 
 def perturbed_goals(prob, n_scenarios: int, seed: int = 0) -> np.ndarray:
@@ -43,9 +44,7 @@ def main(argv=None):
 
     S = args.scenarios
     dev = torch.device(args.device)
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
-    print(f"device: {name}, scenarios: {S}")
+    print(f"device: {card_name(dev)}, scenarios: {S}")
     prob = boat.default_problem()
     fleet = FleetPlanner(
         prob["dynamics"], prob["lqr"], prob["erf"],

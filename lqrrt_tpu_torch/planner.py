@@ -78,10 +78,10 @@ circles and control limits (``core.steer.make_routed_steer``); a raster,
 a 3-arg predicate or any other problem takes the plain loop, as does the
 CPU.  The chunks' rounds, the prune and the finish take it; the leaf
 rewire's own steer and the fleet's round stay plain.  ``steer_selected``
-says which the chunks' steer runs ("kernel" or "scan"), and
-``stats["steer_launches"]`` ({"kernel": k, "scan": s}) counts one replan's
-steer calls by route (the mesh's round bodies carry no spans and are not
-counted).
+says which the chunks' steer runs ("kernel" or "scan"), and the tallies
+``steer.kernel`` and ``steer.scan`` in ``stats["tallies"]`` count one
+replan's steer calls by route (the mesh's round bodies carry no spans and
+are not counted).
 
 Callbacks are batch-leading (see the package docstring).  The device is
 explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
@@ -1111,8 +1111,6 @@ class Planner:
             overhead_prune_s=sp.last_s("planner.prune"),
             overhead_finish_s=sp.last_s("planner.finish"),
             overhead_total_s=sp.last_s("planner.post"),
-            steer_launches={route: sp.tallies().get(f"steer.{route}", 0)
-                            for route in ("kernel", "scan")},
             tallies=sp.tallies(),
             total_s=self.sys_time() - t0)
         if self.printing:

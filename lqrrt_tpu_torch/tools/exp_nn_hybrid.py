@@ -31,6 +31,7 @@ from ..models import boat
 from ..ops.kernels.nn_hybrid import (ERROR, error_scale, expand_prep,
                                      nn_exp, nn_hybrid, nn_split3)
 from ..ops.kernels.nn_kernel import nn_const
+from ..utils.device import card_name
 
 WRAP = 2                               # psi
 REPS, OUTER = 16, 12                   # the tool's chain: calls, chains
@@ -101,7 +102,7 @@ def main(device: str = "cuda", N: int = 40960, B: int = 8192,
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("exp_nn_hybrid: device='cuda' needs a CUDA card")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    name = card_name(dev)
     states, S, sz, xrand = problem(dev, N, B, size, seed)
     print(f"exp_nn_hybrid on {name}: N={N} B={B} size={size} seed={seed}",
           flush=True)

@@ -31,7 +31,7 @@ import torch
 
 from ..models import boat
 from ..planner import Planner
-from .bench_fleet import device_name
+from ..utils.device import device_name
 
 BUDGETS = (0.2, 0.5, 1.0, 2.0, 4.0)
 SEEDS = (777, 101, 202, 303, 404, 505)

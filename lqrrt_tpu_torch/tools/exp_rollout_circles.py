@@ -26,9 +26,10 @@ import torch
 from ..ops.kernels import _build
 from ..ops.kernels.steer_kernel import make_steer_kernel
 from ..core.steer import make_steer
+from ..utils.device import smi_line
 from .exp_steer_kernel import device_ms
 from .kernel_times import (B, N, circle_problems, ptxas_summary,
-                           same_result, smi_line, steer_inputs)
+                           same_result, steer_inputs)
 
 # (text of csrc/steer_rollout.cu, its replacement): the other form
 OTHER = [

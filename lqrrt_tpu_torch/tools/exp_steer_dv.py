@@ -28,6 +28,7 @@ import torch
 from ..core.steer import make_steer
 from ..models import boat
 from ..ops.kernels.steer_kernel import make_steer_kernel_dv
+from ..utils.device import card_name
 from .exp_steer_kernel import (H, agreement, boat_K, device_ms,
                                steer_args)
 
@@ -65,7 +66,7 @@ def main(device: str = "cuda", B: int = 8192, seed: int = 0) -> dict:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("exp_steer_dv: device='cuda' needs a CUDA card")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    name = card_name(dev)
     prob = boat.default_problem()
     args, kw = steer_args(prob)
     rng = np.random.default_rng(seed)

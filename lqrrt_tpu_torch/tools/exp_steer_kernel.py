@@ -45,6 +45,7 @@ from ..core.steer import make_steer
 from ..models import boat
 from ..ops.kernels.steer_kernel import (make_steer_kernel,
                                         make_steer_kernel_tree)
+from ..utils.device import card_name
 
 H, DT, TOL = 100, 0.05, 0.05
 MODELS = ("boat", "car", "quadrotor", "double_integrator")
@@ -261,7 +262,7 @@ def main(device: str = "cuda", B: int = 8192, N: int = 40960,
         raise RuntimeError("exp_steer_kernel: device='cuda' needs a CUDA card")
     if model not in MODELS:
         raise ValueError(f"exp_steer_kernel: unknown model {model!r}")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    name = card_name(dev)
     if model == "boat":
         c = _boat_inputs(dev, B, N, seed)
     else:

@@ -34,6 +34,7 @@ from ..models import boat
 from ..ops.kernels.nn_kernel import sm_count
 from ..ops.kernels.steer_kernel import make_steer_kernel, rollout_geometry
 from ..ops.kernels.steer_stages import F2, H, build
+from ..utils.device import card_name
 from .exp_steer_kernel import device_ms, steer_args, timed_ms
 
 REPS = 20
@@ -56,7 +57,7 @@ def main(device: str = "cuda", B: int = 8192, seed: int = 0) -> dict:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("exp_steer_stages: device='cuda' needs a CUDA "
                            "card")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    name = card_name(dev)
     x0T, KT, tarT = stage_inputs(B, seed, dev)
     clock = "CUDA events" if dev.type == "cuda" else "host clock"
     geometry = (rollout_geometry(B, sm_count(dev)) if dev.type == "cuda"

@@ -35,9 +35,10 @@ import torch
 
 from ..ops.kernels import _build
 from ..ops.kernels import steer_stages as S
+from ..utils.device import smi_line
 from .exp_rollout_circles import source_copy
 from .exp_steer_kernel import device_ms
-from .kernel_times import (ptxas_summary, same_result, smi_line, stage_calls,
+from .kernel_times import (ptxas_summary, same_result, stage_calls,
                            stage_exact, steer_calls, steer_inputs)
 
 # the body of wrap_angle_fast that picks r, as it stands, and in the others

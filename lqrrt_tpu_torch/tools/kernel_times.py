@@ -71,7 +71,6 @@ import copy
 import json
 import math
 import re
-import subprocess
 
 import torch
 
@@ -80,6 +79,7 @@ import numpy as np
 from ..ops.kernels import nn_hybrid
 from ..ops.kernels.nn_kernel import nn_const, nn_general
 from ..ops.kernels.write_kernel import block_write
+from ..utils.device import smi_line
 from .exp_nn_hybrid import problem
 from .exp_steer_kernel import device_ms, timed_ms
 
@@ -179,13 +179,6 @@ def ptxas_summary(bodies=()):
                        f"{m.group(2) or 0} B smem, {spill}")
             name = None
     return out
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def l2_flush(dev, clean: bool = False):

@@ -215,38 +215,6 @@ def timed_call(fn, *args, **kwargs):
     return out, time.perf_counter() - t0
 
 
-class StreamMarks:
-    """Marks between pieces of work enqueued on one stream, read once at
-    the end: CUDA events on the card (the work runs chained, nothing
-    waits between marks), the host clock on the CPU, where an op has run
-    when it returns.
-
-    >>> marks = StreamMarks(device)
-    >>> marks.mark(); sample(); marks.mark(); steer(); marks.mark()
-    >>> marks.intervals_ms()   # [sample ms, steer ms]
-    """
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-        self.marks = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def intervals_ms(self):
-        """ms between consecutive marks (one synchronize on the card)."""
-        if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b)
-                    for a, b in zip(self.marks, self.marks[1:])]
-        return [1e3 * (b - a) for a, b in zip(self.marks, self.marks[1:])]
-
-
 def device_busy(fn):
     """(device kernel ms, kernel count) of one synchronised call of fn on
     the card, from ``torch.profiler`` (``device_trace``)."""
