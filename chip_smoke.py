@@ -11,8 +11,8 @@ exits non-zero:
    instance of kernels A (n = 1-20), C (n = 1-20 and the one that takes n
    at run time) and E, kernel D's eight (the boat, the car, the
    quadrotor and the double integrator, each with and without a raster in
-   its predicate) and all 15 of the stage
-   scaffold's ``stage_kernel`` (F2, F3) without spills;
+   its predicate, the five of ``D_REGISTERS`` at their registers) and all
+   15 of the stage scaffold's ``stage_kernel`` (F2, F3) without spills;
 3. kernel A (nn_const) vs its plain PyTorch version at N = 40960,
    B = 8192 with an fp64 brute-force anchor: the boat's n = 6 (wrap dim 2)
    at sizes 0 to 32768, the root-pad tie at sizes 1024 and 32768, NaN
@@ -141,10 +141,13 @@ exits non-zero:
    the card with no figure, at the demos' own width (batch 256, capacity
    8192): each must exit 0 (goal, clearance, tracking error), with its NN
    kernel's launches counted (A or C) and its wall time;
-12. the scenario-parallel fleet at full width, plain PyTorch (no kernel
-   of A-F on its path): ``portbench``'s ``fleet.plan`` configuration (1024
+12. the scenario-parallel fleet at full width, its steer kernel D (one
+   goal a row): ``portbench``'s ``fleet.plan`` configuration (1024
    boat scenarios, batch 64, capacity 1024, a 2.0 s budget) with its stats,
-   the peak memory, the budget, capacity and plan checks; 64 rounds with
+   the peak memory, the budget, capacity and plan checks, one launch of D
+   a round; the fleet's trees after 8 rounds and one steer call on its
+   65,536 rows through D bit for bit against the plain loop, and D alone
+   there beside its bound; 64 rounds with
    a goal rate > 0.5 and an fp64 audit of 16 trees; a round's parts, its
    busy share and a sync-free round; per-scenario worlds (a circle a
    scenario) and per-scenario grids (the buoy raster moved a scenario,
@@ -796,6 +799,10 @@ D_MODELS = ("car", "quadrotor", "double_integrator")
 N_ACE_INSTANCES = 40 + 6 + 40 + 2
 N_D_INSTANCES = 8      # steer_rollout_kernel: boat, car, quadrotor, double
                        # integrator, each with and without a raster
+# D's registers by instance (ptxas): the goal's load, one for every row or
+# one a row, sits before the step loop and must cost it none
+D_REGISTERS = {"Boat": 147, "Car": 100, "Quadrotor": 230,
+               "DoubleIntegrator": 96, "Raster<Boat>": 148}
 
 
 def bits_equal(a, b):
@@ -2615,11 +2622,131 @@ def phase_host_surface(planner, smi):
 
 
 FLEET_AUDIT = 16       # scenarios of the 1024-boat fleet audited in fp64
+FLEET_ROUTE_ROUNDS = 8  # rounds of the fleet's D-against-plain tree gate
+
+
+def fleet_steer_route(prob, make_fleet, fleet, x0s, goals, smi):
+    """Kernel D under the fleet's steer at full width (phase 12 (a')):
+    ``fleet``'s 1024 x 64 rows (the boat's circles, one goal a row)
+    through D against a fleet built while D's factory refuses every
+    problem, so that its router keeps the plain loop: every field of the
+    trees after FLEET_ROUTE_ROUNDS rounds from one generator state, bit for
+    bit, with one launch of D and one ``steer.kernel`` tally a round (none
+    through the plain fleet); then one steer call on the grown trees' rows
+    toward each row's goal, every field of its ``SteerResult`` bit for bit;
+    then D alone at those 65,536 rows and with its dispatch, beside its
+    bound (``kernel_times.steer_bound`` with the goals' rows added to its
+    bytes)."""
+    from lqrrt_tpu_torch.core.sampling import sample_batch
+    from lqrrt_tpu_torch.core.steer import make_routed_steer, make_steer
+    from lqrrt_tpu_torch.core.tree import TreeArrays
+    from lqrrt_tpu_torch.ops.kernels import steer_kernel
+    from lqrrt_tpu_torch.tools.exp_steer_kernel import device_ms
+    from lqrrt_tpu_torch.tools.kernel_times import bound, steer_bound
+    from lqrrt_tpu_torch.utils.timing import PhaseTimer
+
+    real = steer_kernel.make_steer_kernel
+
+    def refuse(*args, **kw):
+        raise NotImplementedError("the plain steer, for the comparison")
+
+    steer_kernel.make_steer_kernel = refuse
+    try:
+        plain = make_fleet()
+        plain._build(*fleet.spec[:2])
+    finally:
+        steer_kernel.make_steer_kernel = real
+    launches = SteerLaunches()
+    S, n = x0s.shape
+    batch, m = fleet.spec.batch, fleet.spec.ncontrols
+    ss = fleet._tensor(prob["sample_space"]).expand(S, n, 2)
+    gb = fleet._tensor(0.25).expand(n)
+    g = fleet._tensor(goals)
+    goal_rows = g[:, None, :].expand(S, batch, n).reshape(-1, n)
+    grown, counts, secs = {}, {}, {}
+    for label, f in (("D", fleet), ("plain", plain)):
+        trees = f._seed(fleet._tensor(x0s), g)
+        f._gen.manual_seed(5)
+        f._spans.reset()
+        launches.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f._run_rounds(trees, FLEET_ROUTE_ROUNDS, ss, gb, g, goal_rows)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        counts[label] = (launches.launches, f._spans.tallies())
+        grown[label] = trees
+    differ = [name for name, a, b in zip(TreeArrays._fields, grown["D"],
+                                         grown["plain"])
+              if not same_bits(a, b)]
+    want = {"D": (FLEET_ROUTE_ROUNDS, {"steer.kernel": FLEET_ROUTE_ROUNDS}),
+            "plain": (0, {"steer.scan": FLEET_ROUTE_ROUNDS})}
+    log(f"fleet steer route [{smi}]: {FLEET_ROUTE_ROUNDS} rounds of {S} x "
+        f"{batch} rows from one generator state: D {secs['D']:.3f} s, "
+        f"plain {secs['plain']:.3f} s; (D launches, tallies) {counts}; "
+        f"mean nodes {float(grown['D'].size.float().mean()):.1f}, goals "
+        f"found {int(grown['D'].goal_found.sum())}; "
+        f"{len(TreeArrays._fields)} tree fields, differing: {differ}")
+    if differ or counts != want:
+        raise AssertionError(f"fleet steer route: tree fields {differ} "
+                             f"differ, or (D launches, tallies) {counts} "
+                             f"are not {want}")
+    del plain, grown["plain"]
+
+    # one steer call on the grown trees' rows, each toward its goal
+    trees, dev = grown.pop("D"), fleet.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pl = (torch.rand((S, batch), generator=gen, device=dev)
+          * trees.size[:, None]).long()
+    sc = torch.arange(S, device=dev)[:, None]
+    x0 = trees.state[sc, pl].reshape(-1, n)
+    K0 = trees.K[sc, pl].reshape(-1, m, n)
+    xtar = sample_batch(fleet._gen, batch, ss, gb, g).reshape(-1, n)
+    args = (prob["dynamics"], prob["erf"], prob["constraints"].is_feasible,
+            fleet.horizon_steps, fleet.dt, 0.05)
+    kw = dict(saturate=prob["saturate"],
+              goal_buffer=prob["constraints"].goal_buffer)
+    timer = PhaseTimer()
+    routed = make_routed_steer(*args, spans=timer, **kw)
+    launches.launches = 0
+    rk = routed(x0, K0, xtar, goal_rows)
+    torch.cuda.synchronize()
+    k_launch = launches.launches
+    rp = make_steer(*args, **kw)(x0, K0, xtar, goal_rows)
+    differ = [name for name, a, b in zip(rk._fields, rk, rp)
+              if not same_bits(a, b)]
+    log(f"fleet steer call, {len(xtar)} rows: D launches {k_launch}, "
+        f"tallies {timer.tallies()}, mean length "
+        f"{float(rk.length.float().mean()):.2f}, in goal "
+        f"{int(rk.in_goal.sum())}, differing: {differ}")
+    if differ or k_launch != 1 or timer.tallies() != {"steer.kernel": 1}:
+        raise AssertionError(f"fleet steer call: {differ} differ, or D "
+                             f"launched {k_launch} times")
+
+    # D alone on those rows and with its dispatch, beside its bound
+    kern = real(*args, **kw)
+
+    def call():
+        return kern(x0, K0, xtar, goal_rows)
+
+    res = call()
+    ms = cuda_ms(call)
+    alone_ms = device_ms(call, 20)
+    _, _, flops, nbytes = steer_bound(res, len(xtar), 7, False)
+    nbytes += 4 * len(xtar) * n          # the goals' rows, one a candidate
+    bound_ms, bound_by = bound({"fp32": flops}, nbytes)
+    log(f"kernel D steer_rollout[fleet] B={len(xtar)} H={fleet.horizon_steps}"
+        f" [{smi}]: device_ms={alone_ms:.4f} (alone) kernel_ms={ms:.4f} "
+        f"(with dispatch) bound_ms={bound_ms:.4f} ({bound_by}; {flops:.4g} "
+        f"fp32 flops, {nbytes:.4g} bytes), {100 * bound_ms / alone_ms:.1f}%"
+        " of the bound reached alone")
+    return dict(device_ms=alone_ms, ms=ms, bound_ms=bound_ms)
 
 
 def phase_fleet(smi):
-    """The scenario-parallel fleet (``lqrrt_tpu_torch/parallel/fleet.py``,
-    plain PyTorch: no kernel of A-F is on its path) at full width.
+    """The scenario-parallel fleet (``lqrrt_tpu_torch/parallel/fleet.py``;
+    its steer kernel D, its NN scan and commit plain PyTorch) at full
+    width.
 
     (a) The configuration of ``portbench``'s cell ``fleet.plan``: 1024
     boat scenarios (goals from ``fleet_demo.perturbed_goals``), batch 64,
@@ -2628,11 +2755,13 @@ def phase_fleet(smi):
     scenario's plan extracted; the stats, the peak memory; gates:
     ``elapsed_s`` within the budget plus one measured round, every size
     <= capacity, every plan from its x0 and feasible under the boat's
-    circles.  Then 64 rounds at ``max_time=None`` (the budgeted run's
-    round cap): goal rate > 0.5 and the fp64 ``tree_audit`` of 16
-    scenarios; one round in its parts (NN scan,
-    steer, the rest of the expand, commit), synchronised, median of 3, its
-    busy share (``torch.profiler``), and one round under
+    circles, one launch of D and one ``steer.kernel`` tally a round.
+    (a') ``fleet_steer_route``: D against the plain loop, bit for bit.
+    Then 64 rounds at ``max_time=None`` (the budgeted run's round cap):
+    goal rate > 0.5, every steer call on D's route, and the fp64
+    ``tree_audit`` of 16 scenarios; one round in its parts (NN scan,
+    steer through D, the rest of the expand, commit), synchronised,
+    median of 3, its busy share (``torch.profiler``), and one round under
     ``torch.cuda.set_sync_debug_mode("error")``.
     (b) Per-scenario worlds: a circle of its own for each of the 1024
     scenarios (``circles_free_data``, ``per_scenario_data=True``), 16
@@ -2642,16 +2771,20 @@ def phase_fleet(smi):
     at 0.25 m, moved by U(-3, 3) m a scenario), 16 rounds: no node in its
     own scenario's occupied cells, some in the next scenario's, and the
     peak memory less the circles run's below twice the grids' bytes (a
-    grid copied to each steered row would be 1.26 GB).
+    grid copied to each steered row would be 1.26 GB).  Both keep the
+    plain loop (their predicate is the fleet's 3-arg closure, which D's
+    factory refuses): every steer call tallied ``steer.scan``.
     (c) One round at S = 8, batch 64, capacity 1024 on the card and on the
     CPU from the same trees and (S, B, n) candidates: the trees equal
     within the round-parity phase's tolerances.
-    (d) ``lqrrt_tpu_torch.demos.fleet_demo`` with its defaults exits 0."""
+    (d) ``lqrrt_tpu_torch.demos.fleet_demo`` with its defaults exits 0.
+    Returns D's launches in the 2.0 s plan and ``fleet_steer_route``'s
+    times."""
     from lqrrt_tpu_torch.core.commit import commit_batch_dense
     from lqrrt_tpu_torch.core.nearest import make_nearest
     from lqrrt_tpu_torch.core.rounds import make_extend, scenario_leading
     from lqrrt_tpu_torch.core.sampling import sample_batch
-    from lqrrt_tpu_torch.core.steer import make_steer
+    from lqrrt_tpu_torch.core.steer import make_routed_steer
     from lqrrt_tpu_torch.core.tree import TreeArrays
     from lqrrt_tpu_torch.demos import fleet_demo
     from lqrrt_tpu_torch.models import boat
@@ -2665,20 +2798,28 @@ def phase_fleet(smi):
     S, batch, cap, rounds, budget = 1024, 64, 1024, 64, 2.0
     prob = boat.default_problem()
     torch.cuda.reset_peak_memory_stats()
-    fleet = FleetPlanner(
-        prob["dynamics"], prob["lqr"], prob["erf"],
-        prob["constraints"].is_feasible, prob["constraints"].goal_buffer,
-        horizon=prob["horizon"], dt=prob["dt"], n_scenarios=S,
-        batch_size=batch, capacity=cap, nn_block=256,
-        saturate=prob["saturate"], wrap_dims=prob["wrap_dims"], device=dev)
+
+    def make_fleet():
+        return FleetPlanner(
+            prob["dynamics"], prob["lqr"], prob["erf"],
+            prob["constraints"].is_feasible, prob["constraints"].goal_buffer,
+            horizon=prob["horizon"], dt=prob["dt"], n_scenarios=S,
+            batch_size=batch, capacity=cap, nn_block=256,
+            saturate=prob["saturate"], wrap_dims=prob["wrap_dims"],
+            device=dev)
+
+    fleet = make_fleet()
+    launches = SteerLaunches()
     x0s = np.tile(np.asarray(prob["x0"]), (S, 1))
     goals = fleet_demo.perturbed_goals(prob, S)
     # warm-up: one 1-round chunk (the callbacks' constants reach the
     # device, and the per-round time seeds the budgeted run's first clamp)
     fleet.plan(x0s, goals, prob["sample_space"], goal_bias=0.25, rounds=1,
                max_time=1e9, rounds_per_chunk=1)
+    launches.launches = 0
     st = fleet.plan(x0s, goals, prob["sample_space"], goal_bias=0.25,
                     rounds=rounds, max_time=budget, rounds_per_chunk=8)
+    d_launches = launches.launches
     plans = fleet.extract_plans()
     peak = torch.cuda.max_memory_allocated() / 2**30
     per_round = fleet._per_round_s
@@ -2686,12 +2827,18 @@ def phase_fleet(smi):
         f"elapsed_s={st['elapsed_s']:.4f} per_round_s={per_round:.4f} "
         f"expansions_per_s={st['expansions_per_s']:.1f} goal_rate="
         f"{float(st['goal_found'].mean()):.4f} mean_nodes="
-        f"{st['sizes'].mean():.1f} extract={fleet.last_extract_timings}")
+        f"{st['sizes'].mean():.1f} D launches={d_launches} "
+        f"tallies={st['tallies']} extract={fleet.last_extract_timings}")
     log(f"fleet peak_mem_GiB={peak:.3f} (max_memory_allocated)")
     if st["elapsed_s"] > budget + per_round:
         raise AssertionError(f"fleet: elapsed {st['elapsed_s']} s past the "
                              f"{budget} s budget plus one round "
                              f"({per_round:.4f} s)")
+    if d_launches != st["rounds"] or \
+            st["tallies"] != {"steer.kernel": st["rounds"]}:
+        raise AssertionError(f"fleet: D launched {d_launches} times and "
+                             f"the tallies read {st['tallies']} in "
+                             f"{st['rounds']} rounds: a steer call off D")
     sizes = fleet.trees.size.cpu().numpy()
     starts = np.stack([plans[s][0] for s in range(S)])
     states = torch.as_tensor(np.concatenate([plans[s] for s in range(S)]))
@@ -2707,6 +2854,8 @@ def phase_fleet(smi):
         f"x0, feasible; sizes <= {cap}; elapsed_s {st['elapsed_s']:.4f} "
         f"<= {budget} + one round ({per_round:.4f} s)")
 
+    d_fleet = fleet_steer_route(prob, make_fleet, fleet, x0s, goals, smi)
+
     t0 = time.perf_counter()
     st = fleet.plan(x0s, goals, prob["sample_space"], goal_bias=0.25,
                     rounds=rounds)
@@ -2714,10 +2863,11 @@ def phase_fleet(smi):
     log(f"fleet {rounds} rounds (max_time=None) [{smi}]: goal_rate="
         f"{rate:.4f} elapsed_s={st['elapsed_s']:.4f} expansions_per_s="
         f"{st['expansions_per_s']:.1f} mean_nodes={st['sizes'].mean():.1f} "
-        f"wall_s={time.perf_counter() - t0:.3f}")
-    if not rate > 0.5:
+        f"tallies={st['tallies']} wall_s={time.perf_counter() - t0:.3f}")
+    if not rate > 0.5 or st["tallies"] != {"steer.kernel": rounds}:
         raise AssertionError(f"fleet: goal rate {rate} at {rounds} "
-                             "rounds")
+                             f"rounds, or a steer call off D: "
+                             f"{st['tallies']}")
     bad = {}
     for s in range(0, S, S // FLEET_AUDIT):
         t = TreeArrays(*[f[s] for f in fleet.trees])
@@ -2742,16 +2892,15 @@ def phase_fleet(smi):
     common = (prob["dynamics"], prob["erf"],
               prob["constraints"].is_feasible)
     nearest = make_nearest(prob["erf"], min(spec.nn_block, cap))
-    steer = make_steer(*common, spec.horizon_steps, spec.dt, 0.05,
-                       saturate=prob["saturate"],
-                       goal_buffer=prob["constraints"].goal_buffer)
+    steer = make_routed_steer(*common, spec.horizon_steps, spec.dt, 0.05,
+                              saturate=prob["saturate"],
+                              goal_buffer=prob["constraints"].goal_buffer)
     wrap_mask = np.zeros(n, bool)
     wrap_mask[list(prob["wrap_dims"])] = True
     extend = make_extend(spec, prob["dynamics"], prob["lqr"], prob["erf"],
                          prob["constraints"].is_feasible, 0.05,
                          prob["constraints"].goal_buffer,
-                         wrap_mask=wrap_mask, saturate=prob["saturate"],
-                         goal_rows=True)
+                         wrap_mask=wrap_mask, saturate=prob["saturate"])
     trees = fleet.trees
 
     def parts():
@@ -2786,8 +2935,9 @@ def phase_fleet(smi):
     busy_ms, kernels = timing.device_busy(
         lambda: fleet._run_rounds(trees, 1, ss, gb, g, goal_rows))
     log(f"fleet round parts on the card [{smi}] (ms, synchronised, median "
-        f"of 3; 'steer' alone, 'expand_after_nn' is steer + lqr + wrap + "
-        f"goal cost): " + " ".join(f"{k}={v:.3f}" for k, v in med.items())
+        f"of 3; 'steer' alone through D, 'expand_after_nn' is steer + lqr "
+        f"+ wrap + goal cost): "
+        + " ".join(f"{k}={v:.3f}" for k, v in med.items())
         + f"; device kernel time in one round {busy_ms:.3f} ms in {kernels} "
         f"kernels (torch.profiler), busy share "
         f"{busy_ms / med['whole_round']:.3f} of the unprofiled round")
@@ -2836,9 +2986,12 @@ def phase_fleet(smi):
         f"elapsed_s={st['elapsed_s']:.4f} goal_rate="
         f"{st['goal_found'].mean():.4f} mean_nodes={st['sizes'].mean():.1f};"
         f" nodes inside their own circle + {margin} m: {own}, inside the "
-        f"next scenario's: {other}")
+        f"next scenario's: {other}; tallies {st['tallies']}")
     if own or not other:
         raise AssertionError("fleet: per-scenario worlds not kept apart")
+    if st["tallies"] != {"steer.scan": 16}:
+        raise AssertionError(f"fleet: per-scenario worlds' steer calls "
+                             f"{st['tallies']}, not the plain loop's")
     torch.cuda.synchronize()
     peak_circles = torch.cuda.max_memory_allocated()
     del wf
@@ -2887,9 +3040,13 @@ def phase_fleet(smi):
         f"against {peak_circles / 2**30:.3f} GiB with circles (difference "
         f"{(peak_grids - peak_circles) / 2**20:.1f} MiB, gate < 2 x the "
         f"grids' {grid_bytes / 2**20:.1f} MiB; one grid a steered row "
-        f"would be {S * batch * Hg * Wg / 2**30:.2f} GiB)")
+        f"would be {S * batch * Hg * Wg / 2**30:.2f} GiB); tallies "
+        f"{st['tallies']}")
     if own or not other:
         raise AssertionError("fleet: per-scenario grids not kept apart")
+    if st["tallies"] != {"steer.scan": 16}:
+        raise AssertionError(f"fleet: per-scenario grids' steer calls "
+                             f"{st['tallies']}, not the plain loop's")
     if peak_grids - peak_circles >= 2 * grid_bytes:
         raise AssertionError("fleet: per-scenario grids took "
                              f"{peak_grids - peak_circles} B past the "
@@ -2949,6 +3106,7 @@ def phase_fleet(smi):
     log(f"fleet demo: exit {rc} in {time.perf_counter() - t0:.2f} s")
     if rc != 0:
         raise AssertionError(f"fleet demo exited {rc}")
+    return dict(launches=d_launches, **d_fleet)
 
 
 MESH_B, MESH_CAP, MESH_TOPK = 8192, 32768, 1024
@@ -3293,8 +3451,13 @@ def main() -> int:
     f_ptxas = [line for line in ptxas if line.startswith("stage_kernel")]
     spilled = [line for line in ace_ptxas + d_ptxas + f_ptxas
                if "spill 0/0 B" not in line]
+    d_regs = {line.split("<", 1)[1].rsplit(">", 1)[0]:
+              int(line.split(": ")[1].split()[0]) for line in d_ptxas}
+    moved = {k: (d_regs.get(k), v) for k, v in D_REGISTERS.items()
+             if d_regs.get(k) != v}
+    log(f"ptxas: D's registers {d_regs}; moved from {D_REGISTERS}: {moved}")
     if (len(ace_ptxas) != N_ACE_INSTANCES or len(d_ptxas) != N_D_INSTANCES
-            or len(f_ptxas) != N_STAGE_KERNELS or spilled):
+            or len(f_ptxas) != N_STAGE_KERNELS or spilled or moved):
         raise AssertionError(f"ptxas: kernels A, C and E: {len(ace_ptxas)} "
                              f"instances ({N_ACE_INSTANCES} expected), D: "
                              f"{len(d_ptxas)} "
@@ -3302,7 +3465,7 @@ def main() -> int:
                              "and without a raster), "
                              f"stage_kernel: {len(f_ptxas)} "
                              f"({N_STAGE_KERNELS} expected), spilling "
-                             f"{spilled}")
+                             f"{spilled}, D's registers moved {moved}")
 
     def timed(label, fn, *args, **kw):
         t = time.perf_counter()
@@ -3365,7 +3528,7 @@ def main() -> int:
           smi)
     timed("host surface", phase_host_surface, rewire_planner, smi)
     l_demos = timed("demos", phase_demos, smi)
-    timed("fleet", phase_fleet, smi)
+    d_fleet = timed("fleet", phase_fleet, smi)
     l_mesh = timed("mesh", phase_mesh, smi)
     # every planner path's launches of A and B, the paths of 8, 9 and 10
     paths = {"boat": l_boat, "car": l_car, "quadrotor": l_quad,
@@ -3488,6 +3651,11 @@ def main() -> int:
         source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
         replaces=d_replaces["flat"], launches=l_grid["steer_rollout"],
         **d["flat[grid]"], library_ms=None))
+    # the fleet's round (phase 12): 65,536 rows, one goal a row
+    kernels.append(dict(
+        name="steer_rollout[fleet]", route="cuda",
+        source="lqrrt_tpu_torch/csrc/steer_rollout.cu",
+        replaces=d_replaces["flat"], **d_fleet, library_ms=None))
     for name in D_MODELS:
         for variant, replaces in d_replaces.items():
             kernels.append(dict(

@@ -27,7 +27,7 @@ from .commit import (commit_batch, commit_batch_dense,
                      commit_batch_dense_all, commit_batch_refine)
 from .nearest import make_nearest
 from .sampling import sample_batch
-from .steer import make_routed_steer, make_steer
+from .steer import make_routed_steer
 from .tree import TreeArrays
 from ..utils.timing import NO_SPANS
 
@@ -65,29 +65,21 @@ class Candidates(NamedTuple):
 def make_extend(spec: RoundSpec, dynamics: Callable, lqr: Callable,
                 erf: Callable, is_feasible: Callable, error_tol,
                 goal_buffer, wrap_mask=None,
-                saturate: Callable | None = None, goal_rows=False,
+                saturate: Callable | None = None,
                 spans=NO_SPANS) -> Callable:
     """Build extend(pids, x0, K0, xrand, goal) -> Candidates: the part of
     an expansion after the nearest pick, shared by ``make_expand`` and the
     fleet's round, for R rows: x0 and xrand (R, n), K0 (R, m, n), goal
-    (n,), or one a row (R, n) with ``goal_rows``.  Steer with the
-    first-entry goal stop (``round.steer``), the lqr at each endpoint with
-    its last committed effort (``round.endpoint``), then the wrap of the
-    angle dims and the goal cost-to-go (``round.finish``).  The steer is
-    ``make_routed_steer``'s, its route tallied in ``spans``; with
-    ``goal_rows`` it is ``make_steer``'s loop, as kernel D's goal stop
-    takes one goal."""
+    (n,) or one a row (R, n).  Steer with the first-entry goal stop
+    (``round.steer``), the lqr at each endpoint with its last committed
+    effort (``round.endpoint``), then the wrap of the angle dims and the
+    goal cost-to-go (``round.finish``).  The steer is
+    ``make_routed_steer``'s, its route tallied in ``spans``."""
     from ..ops.angles import wrap_angle
 
-    if goal_rows:
-        steer = make_steer(dynamics, erf, is_feasible, spec.horizon_steps,
-                           spec.dt, error_tol, saturate=saturate,
-                           goal_buffer=goal_buffer)
-    else:
-        steer = make_routed_steer(dynamics, erf, is_feasible,
-                                  spec.horizon_steps, spec.dt, error_tol,
-                                  saturate=saturate, goal_buffer=goal_buffer,
-                                  spans=spans)
+    steer = make_routed_steer(dynamics, erf, is_feasible, spec.horizon_steps,
+                              spec.dt, error_tol, saturate=saturate,
+                              goal_buffer=goal_buffer, spans=spans)
     wrap_dims = ([] if wrap_mask is None
                  else [int(d) for d in np.flatnonzero(wrap_mask)])
 
@@ -248,11 +240,13 @@ def make_fleet_round(spec: RoundSpec, dynamics: Callable, lqr: Callable,
     S·B rows for the steer, the endpoint lqr, the wrap and the goal cost,
     each row with its scenario's goal (``goal_rows``), and go back to
     (S, B) for the commit.  ``is_feasible`` sees rows of that batch.  The
-    steer is the plain loop (``goal_rows``)."""
+    steer is ``make_extend``'s: kernel D, one launch for the S·B rows, on
+    CUDA where D's factory takes the problem (the boat's circles), else
+    the plain loop (a per-scenario-data predicate, CPU tensors)."""
     nearest = make_nearest(erf, block=min(spec.nn_block, spec.capacity))
     extend = make_extend(spec, dynamics, lqr, erf, is_feasible, error_tol,
                          goal_buffer, wrap_mask=wrap_mask, saturate=saturate,
-                         goal_rows=True, spans=spans)
+                         spans=spans)
 
     def round_fn(trees: TreeArrays, xrand, goal_rows) -> TreeArrays:
         n_sc, B, n = xrand.shape

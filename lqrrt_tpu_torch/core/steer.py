@@ -11,7 +11,7 @@ into preallocated time-major outputs ``(H, n, B)`` / ``(H, m, B)`` /
 batch-leading rollout (prune, finish) transpose the output.
 
 ``make_routed_steer`` is the steer the planner's rounds, prune and finish
-run: the same function through kernel D (``ops/kernels/steer_kernel.py``,
+and the fleet's round run: the same function through kernel D (``ops/kernels/steer_kernel.py``,
 one launch a call) on CUDA tensors wherever D's factory accepts the
 problem, and through ``make_steer`` everywhere else.
 """
@@ -133,9 +133,9 @@ def make_routed_steer(dynamics: Callable, erf: Callable,
     it: a call on CUDA tensors launches D where D's factory accepts the
     problem; a call on CPU tensors, or of a problem D refuses, runs
     ``make_steer``'s loop (``steer_route`` says which).  D equals the loop
-    bit for bit (``chip_smoke.py``).  D's goal stop takes one (n,) goal: a
-    caller with one goal a row builds ``make_steer``.  Each call tallies
-    its route in ``spans``: "steer.kernel" or "steer.scan"."""
+    bit for bit (``chip_smoke.py``).  The goal, D's as the loop's, is one
+    (n,) for every row or one a row, (B, n) (the fleet's round).  Each
+    call tallies its route in ``spans``: "steer.kernel" or "steer.scan"."""
     scan = make_steer(dynamics, erf, is_feasible, horizon_steps, dt,
                       error_tol, saturate=saturate, goal_buffer=goal_buffer)
     kernel = _kernel_steer(dynamics, erf, is_feasible, horizon_steps, dt,

@@ -31,7 +31,9 @@
 // u = K e saturated by the model's saturate; RK4 of the model's f on u;
 // the predicate on (xn, u); commit (x = xn, length += 1) unless done,
 // arrived or infeasible; with a goal box, stop after the first committed
-// in-goal step.  x and u are stored at every step, done or not: a finished
+// in-goal step (one goal for every candidate, or one a candidate: the
+// fleet's rows, each toward its scenario's goal; either is read once into
+// registers).  x and u are stored at every step, done or not: a finished
 // rollout holds its state, and its u is that of the held state, as in the
 // scan.  After the loop: length, xnew, reached (the converged test on the
 // final x) and in_goal.  Commits are a prefix, so the wrapper derives the
@@ -237,8 +239,9 @@ template <class M>
 __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
     const float* __restrict__ rows, const float* __restrict__ gains,
     const int* __restrict__ pids, int R, const float* __restrict__ xtar,
-    const float* __restrict__ goal, const float* __restrict__ params,
-    const float* __restrict__ tol, const float* __restrict__ gbuf,
+    const float* __restrict__ goal, int goal_stride,
+    const float* __restrict__ params, const float* __restrict__ tol,
+    const float* __restrict__ gbuf,
     const float* __restrict__ circles, int ncirc,
     const float* __restrict__ ulim, const unsigned* __restrict__ grid,
     int gw, int gh, float gx0, float gy0, float ginv, float* __restrict__ xs,
@@ -275,7 +278,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
   for (int i = 0; i < kN; ++i) {
     x[i] = valid ? rows[(size_t)r * kN + i] : CUDART_NAN_F;
     tar[i] = xtar[(size_t)b * kN + i];
-    g[i] = has_goal ? goal[i] : 0.f;
+    g[i] = has_goal ? goal[(size_t)b * goal_stride + i] : 0.f;
     gb[i] = has_goal ? gbuf[i] : 0.f;
     tl[i] = tol[per_dim ? i : 0];
   }
@@ -351,8 +354,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) steer_rollout_kernel(
 template <class M>
 cudaError_t launch(const float* rows, const float* gains, const int* pids,
                    int R, const float* xtar, const float* goal,
-                   const float* params, const float* tol, const float* gbuf,
-                   const float* circles, int ncirc, const float* ulim,
+                   int goal_stride, const float* params, const float* tol,
+                   const float* gbuf, const float* circles, int ncirc,
+                   const float* ulim,
                    const unsigned* grid, int gw, int gh, float gx0, float gy0,
                    float ginv, float* xs, float* us, int* length, float* xnew,
                    bool* reached, bool* in_goal, int B, int H, int per_dim,
@@ -360,15 +364,15 @@ cudaError_t launch(const float* rows, const float* gains, const int* pids,
                    cudaStream_t s) {
   if (grid == nullptr) {
     steer_rollout_kernel<M><<<blocks, threads, 0, s>>>(
-        rows, gains, pids, R, xtar, goal, params, tol, gbuf, circles, ncirc,
-        ulim, nullptr, 0, 0, 0.f, 0.f, 0.f, xs, us, length, xnew, reached,
-        in_goal, B, H, per_dim, hh, h, h6);
+        rows, gains, pids, R, xtar, goal, goal_stride, params, tol, gbuf,
+        circles, ncirc, ulim, nullptr, 0, 0, 0.f, 0.f, 0.f, xs, us, length,
+        xnew, reached, in_goal, B, H, per_dim, hh, h, h6);
   } else {
     const size_t smem = sizeof(unsigned) * ((gw * gh + 31) >> 5);
     steer_rollout_kernel<Raster<M>><<<blocks, threads, smem, s>>>(
-        rows, gains, pids, R, xtar, goal, params, tol, gbuf, circles, ncirc,
-        ulim, grid, gw, gh, gx0, gy0, ginv, xs, us, length, xnew, reached,
-        in_goal, B, H, per_dim, hh, h, h6);
+        rows, gains, pids, R, xtar, goal, goal_stride, params, tol, gbuf,
+        circles, ncirc, ulim, grid, gw, gh, gx0, gy0, ginv, xs, us, length,
+        xnew, reached, in_goal, B, H, per_dim, hh, h, h6);
   }
   return cudaGetLastError();
 }
@@ -386,7 +390,9 @@ __global__ void math_probe_kernel(int op, const float* __restrict__ a,
 
 // rows (R, n) and gains (R, m, n): the candidates' own x0 and
 // K (pids null, R = B) or the tree's states and K (pids (B,) parent rows).
-// goal and gbuf are both null without a goal box.  tol is (n,) with
+// goal and gbuf are both null without a goal box; goal is one (n,) goal
+// for every candidate (goal_stride 0) or one a candidate, (B, n)
+// (goal_stride n: candidate b's goal at goal + b n).  tol is (n,) with
 // per_dim, else (1,): the largest sum of squares whose rounded sqrt is <=
 // error_tol.  circles (ncirc, 3); ulim (2, m), control_limits' lo and hi,
 // or null; grid, the raster's (gh, gw) cells as bits in row-major words
@@ -399,24 +405,25 @@ __global__ void math_probe_kernel(int op, const float* __restrict__ a,
 // controls): 0 boat, 1 car, 2 quadrotor, 3 double integrator.
 extern "C" int lqrrt_steer_rollout(
     const float* rows, const float* gains, const int* pids, int R,
-    const float* xtar, const float* goal, const float* params,
-    const float* tol, const float* gbuf, const float* circles, int ncirc,
+    const float* xtar, const float* goal, int goal_stride,
+    const float* params, const float* tol, const float* gbuf,
+    const float* circles, int ncirc,
     const float* ulim, const unsigned* grid, int gw, int gh, float gx0,
     float gy0, float ginv, float* xs, float* us, int* length, float* xnew,
     bool* reached, bool* in_goal, int B, int H, int per_dim, float hh,
     float h, float h6, int model, int threads, int blocks, void* stream) {
-  if (ncirc < 0 || ncirc > kMaxCircles || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 ||
+  if (ncirc < 0 || ncirc > kMaxCircles || goal_stride < 0 ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       (long long)blocks * threads < B ||
       (grid != nullptr &&
        (gw < 1 || gh < 1 || (long long)gw * gh > 32LL * kMaxGridWords)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LQRRT_LAUNCH(Trait)                                                  \
-  launch<Trait>(rows, gains, pids, R, xtar, goal, params, tol, gbuf,         \
-                circles, ncirc, ulim, grid, gw, gh, gx0, gy0, ginv, xs, us,  \
-                length, xnew, reached, in_goal, B, H, per_dim, hh, h, h6,    \
-                threads, blocks, s)
+  launch<Trait>(rows, gains, pids, R, xtar, goal, goal_stride, params, tol,  \
+                gbuf, circles, ncirc, ulim, grid, gw, gh, gx0, gy0, ginv,    \
+                xs, us, length, xnew, reached, in_goal, B, H, per_dim, hh,   \
+                h, h6, threads, blocks, s)
   cudaError_t err;
   switch (model) {
     case Boat::kId: err = LQRRT_LAUNCH(Boat); break;

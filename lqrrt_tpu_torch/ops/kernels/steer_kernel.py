@@ -10,7 +10,9 @@ in_goal.  Commits are a prefix, so mask is ``arange(H)[:, None] <
 length``.
 
 - ``make_steer_kernel(...)`` -> ``steer(x0 (B, n), K (B, m, n), xtar (B, n)
-  [, goal (n,)])``;
+  [, goal])``, the goal one (n,) for every candidate or one a candidate,
+  (B, n) (the fleet's rows, each toward its scenario's goal): the kernel
+  reads it with a stride of 0 or n, chosen from its shape;
 - ``make_steer_kernel_tree(...)`` -> ``steer(states (N, n), K (N, m, n),
   pids (B,) int32, xtar (B, n)[, goal])``, which starts candidate b from
   tree row pids[b]: x0 = states[pids], K0 = K[pids]
@@ -297,6 +299,8 @@ class _Spec:
         ``rollout_geometry``; returns the SteerResult."""
         B, (n, m), H = xtar.shape[0], (self.n, self.m), self.H
         dev = xtar.device
+        # one goal for every candidate, or one a candidate (check's shapes)
+        goal_stride = 0 if goal is None or goal.dim() == 1 else n
         xs = torch.empty((H, n, B), dtype=torch.float32, device=dev)
         us = torch.empty((H, m, B), dtype=torch.float32, device=dev)
         length = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -305,7 +309,7 @@ class _Spec:
         in_goal = torch.empty((B,), dtype=torch.bool, device=dev)
         if B:
             _launch("lqrrt_steer_rollout", rows, gains, pids, rows.shape[0],
-                    xtar, goal if self.has_goal else None,
+                    xtar, goal if self.has_goal else None, goal_stride,
                     self.params.like(xtar), self.tol.like(xtar),
                     self.gbuf.like(xtar) if self.has_goal else None,
                     self.circles.like(xtar), self.ncirc,
@@ -346,10 +350,10 @@ class _Spec:
         if (rows.shape != (R, n) or gains.shape != (R, m, n)
                 or xtar.shape != (B, n)
                 or (goal is not None and self.has_goal
-                    and goal.shape != (n,))):
+                    and goal.shape not in ((n,), (B, n)))):
             raise ValueError(
                 f"{name}: x0/states (R, {n}), K (R, {m}, {n}), xtar (B, {n})"
-                f" and goal ({n},), got {tuple(rows.shape)}, "
+                f" and goal ({n},) or (B, {n}), got {tuple(rows.shape)}, "
                 f"{tuple(gains.shape)}, {tuple(xtar.shape)} and "
                 f"{None if goal is None else tuple(goal.shape)}")
         if pids is None and R != B:
@@ -370,7 +374,8 @@ def _flat_steer(spec, variant, name):
 def make_steer_kernel(dynamics, erf, is_feasible, horizon_steps: int,
                       dt: float, error_tol, saturate=None, goal_buffer=None,
                       block: int = 64):
-    """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal (n,)]).
+    """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal (n,) or
+    (B, n)]).
 
     ``block``: the Pallas kernel's ``batch_tile``, a multiple of 32 in
     [32, 1024]; checked, and not the card's geometry
@@ -399,11 +404,12 @@ def make_steer_kernel_tree(dynamics, erf, is_feasible, horizon_steps: int,
                            dt: float, error_tol, saturate=None,
                            goal_buffer=None, block: int = 64):
     """Build steer(states (N, n), K (N, m, n), pids (B,) int32, xtar (B, n)
-    [, goal (n,)]): the rollout of ``make_steer_kernel`` from the parents'
-    rows, gathered inside the kernel.  A pid outside [0, N) gives a NaN
-    start row and gain on the card and on the CPU alike: with circles, an
-    empty, unreached rollout of NaN x and u (length 0, not in the goal).
-    The JAX tree kernel's one-hot gather gives a zero start there."""
+    [, goal (n,) or (B, n)]): the rollout of ``make_steer_kernel`` from the
+    parents' rows, gathered inside the kernel (a (B, n) goal is one a
+    candidate, as xtar).  A pid outside [0, N) gives a NaN start row and
+    gain on the card and on the CPU alike: with circles, an empty,
+    unreached rollout of NaN x and u (length 0, not in the goal).  The JAX
+    tree kernel's one-hot gather gives a zero start there."""
     spec = _Spec(dynamics, erf, is_feasible, horizon_steps, dt, error_tol,
                  saturate, goal_buffer, block)
 
@@ -420,7 +426,7 @@ def make_steer_kernel_tree(dynamics, erf, is_feasible, horizon_steps: int,
 def make_steer_kernel_dv(dynamics, erf, is_feasible, horizon_steps: int,
                          dt: float, error_tol, saturate=None,
                          goal_buffer=None, batch_tile: int = 512):
-    """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal (n,)]), the
+    """Build steer(x0 (B, n), K (B, m, n), xtar (B, n)[, goal]), the
     counterpart of ``make_steer_pallas_dv``: kernel D, counted as "dv";
     ``batch_tile``, a multiple of 32 up to 1024, is checked as ``block``
     is.  The Pallas kernel tests sum(e * e) <= tol^2; this one keeps the

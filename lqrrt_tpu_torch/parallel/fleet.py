@@ -35,8 +35,11 @@ Each ``plan`` times itself in named spans on the host clock
 timeline while ``torch.profiler`` runs): ``fleet.plan``, ``fleet.seed``,
 each chunk's dispatch (``fleet.chunk``) and the fetch that ends it
 (``fleet.chunk_sync``), and the phases of each round (``round.*``); the
-dict it returns holds them under ``"spans"``.  ``extract_plans`` times
-``fleet.extract`` and its parts, which ``last_extract_timings`` reports.
+dict it returns holds them under ``"spans"``, and the steer's calls by
+route (``core.steer.make_routed_steer``: ``steer.kernel``, kernel D on the
+card where D's factory takes the problem, else ``steer.scan``) under
+``"tallies"``.  ``extract_plans`` times ``fleet.extract`` and its parts,
+which ``last_extract_timings`` reports.
 
 Callbacks are batch-leading (see the package docstring).  The device is
 explicit: ``device="cuda"`` (the default) raises when CUDA is absent.
@@ -223,13 +226,16 @@ class FleetPlanner:
         host fetch a chunk, of ``goal_found``, is also its sync;
         per-scenario time-to-first-goal is recorded at chunk granularity.
         Seeding runs before the timed window.  ``"spans"`` holds the call's
-        spans, {name: {count, total_s, self_s, parent}}.
+        spans, {name: {count, total_s, self_s, parent}}, and ``"tallies"``
+        its steer calls by route, {"steer.kernel" | "steer.scan": count},
+        one a round.
         """
         self._spans.reset()
         with self._spans.span("fleet.plan"):
             out = self._plan(x0s, goals, sample_spaces, goal_bias, rounds,
                              max_time, rounds_per_chunk, feasibility_data)
         out["spans"] = self._spans.span_summary()
+        out["tallies"] = self._spans.tallies()
         return out
 
     def _plan(self, x0s, goals, sample_spaces, goal_bias, rounds, max_time,

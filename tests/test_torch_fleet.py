@@ -622,6 +622,28 @@ def test_fleet_budget_on_a_fake_clock():
                                   np.float32(5 * 0.375))
 
 
+def test_fleet_plan_tallies_the_steer_route():
+    """``plan`` returns the steer's calls by route under ``"tallies"``, one
+    a round and reset at each call: on CPU tensors every call takes the
+    plain loop (``steer.scan``), whatever the budget; kernel D's route
+    (``steer.kernel``) needs the card."""
+    prob = di.default_problem()
+    fleet = FleetPlanner(
+        prob["dynamics"], prob["lqr"], prob["erf"],
+        prob["constraints"].is_feasible, prob["constraints"].goal_buffer,
+        horizon=1.0, dt=DT, n_scenarios=4, batch_size=16, capacity=256,
+        nn_block=128, saturate=prob["saturate"], ncontrols=2, seed=5,
+        device="cpu")
+    x0s = np.zeros((4, 4), np.float32)
+    goals = np.tile(np.asarray(prob["goal"]), (4, 1))
+    for rounds, kw in ((3, {}), (5, dict(max_time=1e9, rounds_per_chunk=2))):
+        st = fleet.plan(x0s, goals, prob["sample_space"], goal_bias=0.3,
+                        rounds=rounds, **kw)
+        assert st["rounds"] == rounds
+        assert st["tallies"] == {"steer.scan": rounds}
+        assert st["spans"]["round.steer"]["count"] == rounds
+
+
 # ---- the constructor and its errors ---------------------------------------
 
 def test_constructor_keywords_match_jax():

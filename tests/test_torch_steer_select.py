@@ -1,8 +1,9 @@
-"""Which steer the planner runs (``core/steer.py`` ``steer_route``,
-``make_routed_steer``), on the CPU: kernel D on a CUDA device wherever D's
-factory takes the problem (the grid boat's raster among them), the plain
-loop for every other problem, for the fleet's round (one goal a row) and
-on the CPU.  Nothing is launched: D's device constants are copied at its
+"""Which steer the planner and the fleet run (``core/steer.py``
+``steer_route``, ``make_routed_steer``), on the CPU: kernel D on a CUDA
+device wherever D's factory takes the problem (the grid boat's raster and
+the fleet's round, one goal a row, among them), the plain loop for every
+other problem (the fleet's per-scenario data among them) and on the CPU.
+Nothing is launched: D's device constants are copied at its
 first CUDA call, and every call here is on CPU tensors, which run the
 loop.  Then ``Planner.steer_selected`` and the steer's route tallies, and
 the raster as D reads it: its packed bits, its cell arithmetic emulated in
@@ -19,6 +20,8 @@ from lqrrt_tpu_torch.core.steer import (make_routed_steer, make_steer,
 from lqrrt_tpu_torch.models import boat, double_integrator
 from lqrrt_tpu_torch.ops import collision
 from lqrrt_tpu_torch.ops.kernels import _build, steer_kernel
+from lqrrt_tpu_torch.parallel import FleetPlanner
+from lqrrt_tpu_torch.parallel import fleet as fleet_mod
 from lqrrt_tpu_torch.utils.timing import PhaseTimer
 
 torch.set_num_threads(2)
@@ -51,12 +54,44 @@ def _data_bound_predicate():
     return p._feasibility()
 
 
+def _fleet_predicate(prob, per_scenario_data, monkeypatch, n_sc=4):
+    """The predicate ``FleetPlanner._build`` hands ``make_fleet_round``:
+    the boat's circles as given, or with ``per_scenario_data`` its 3-arg
+    closure over the fleet's data box (untagged), its data the buoys
+    moved by 0.5 m a scenario."""
+    seen = []
+    real = fleet_mod.make_fleet_round
+
+    def spy(spec, dynamics, lqr, erf, is_feasible, *a, **kw):
+        seen.append(is_feasible)
+        return real(spec, dynamics, lqr, erf, is_feasible, *a, **kw)
+
+    monkeypatch.setattr(fleet_mod, "make_fleet_round", spy)
+    feas = (collision.circles_free_data(margin=1.0) if per_scenario_data
+            else prob["constraints"].is_feasible)
+    f = FleetPlanner(prob["dynamics"], prob["lqr"], prob["erf"], feas,
+                     prob["constraints"].goal_buffer,
+                     horizon=prob["horizon"], dt=prob["dt"],
+                     n_scenarios=n_sc, batch_size=B // n_sc, capacity=64,
+                     saturate=prob["saturate"], wrap_dims=prob["wrap_dims"],
+                     per_scenario_data=per_scenario_data, device="cpu")
+    f._build(6, 3)
+    if per_scenario_data:
+        centers, radii = prob["obstacles"]
+        shift = 0.5 * torch.arange(n_sc, dtype=torch.float32)
+        f._data_box[0] = {
+            "centers": torch.as_tensor(centers)[None] + shift[:, None, None],
+            "radii": torch.as_tensor(radii)[None].expand(n_sc, -1)}
+    (pred,) = seen
+    return pred
+
+
 def _buoy_grid(resolution=0.25):
     centers, radii = boat.default_problem()["obstacles"]
     return boat.buoy_grid(centers, radii, resolution)
 
 
-def _problem(case):
+def _problem(case, monkeypatch):
     """(dynamics, lqr, erf, is_feasible, saturate, goal_buffer) of a
     case."""
     prob = boat.default_problem()
@@ -75,6 +110,9 @@ def _problem(case):
     if case == "grid_over_cap":
         # the buoys at 0.05 m: 480 x 1000 cells, past D's shared memory
         feas = collision.all_of(_buoy_grid(0.05).feasibility())
+    if case in ("per_row_goal", "fleet_per_scenario_data"):
+        feas = _fleet_predicate(prob, case == "fleet_per_scenario_data",
+                                monkeypatch)
     return (prob["dynamics"], prob["lqr"], prob["erf"], feas,
             prob["saturate"], prob["constraints"].goal_buffer)
 
@@ -86,7 +124,8 @@ CASES = {"boat_circles": ("cuda", True, "kernel"),
          "two_grids": ("cuda", False, "scan"),
          "grid_over_cap": ("cuda", False, "scan"),
          "data_bound_predicate": ("cuda", False, "scan"),
-         "per_row_goal": ("cuda", False, "scan"),
+         "per_row_goal": ("cuda", True, "kernel"),
+         "fleet_per_scenario_data": ("cuda", False, "scan"),
          "no_device_functions": ("cuda", False, "scan"),
          "cpu": ("cpu", True, "scan")}
 
@@ -96,11 +135,14 @@ def test_routed_steer_selection(case, monkeypatch):
     """The route on the case's device (``steer_route``), whether D's
     factory was built, and a call on CPU tensors: the loop's route in the
     tally and its result, bit for bit.  ``per_row_goal`` is the fleet's
-    round: one goal a row builds the loop alone (``make_extend`` with
-    ``goal_rows``, whose candidates carry the loop's rollout), and D's own
-    steer rejects such a goal."""
+    round (``FleetPlanner``'s circles through ``make_extend``, one goal a
+    row): the route of a card is D's, D's steers take a goal (B, n) or
+    (n,) and refuse (B + 1, n) and (1, n), and the candidates carry the
+    loop's rollout toward each row's own goal.
+    ``fleet_per_scenario_data`` is the fleet's 3-arg closure, which D's
+    factory refuses."""
     device, takes, route = CASES[case]
-    dynamics, lqr, erf, feas, sat, gbuf = _problem(case)
+    dynamics, lqr, erf, feas, sat, gbuf = _problem(case, monkeypatch)
     made = []
 
     def factory(*a, **kw):
@@ -113,18 +155,18 @@ def test_routed_steer_selection(case, monkeypatch):
     n = len(gbuf)
     m = {6: 3, 20: 10}[n]
     timer = PhaseTimer()
+    assert steer_route(dynamics, erf, feas, H, DT, TOL, saturate=sat,
+                       goal_buffer=gbuf, device=device) == route
+    made.clear()
     if case == "per_row_goal":
         spec = RoundSpec(nstates=n, ncontrols=m, batch=B, horizon_steps=H,
                          capacity=64, dt=DT)
         extend = make_extend(spec, dynamics, lqr, erf, feas, TOL, gbuf,
-                             saturate=sat, goal_rows=True, spans=timer)
+                             saturate=sat, spans=timer)
 
         def steer(x0, K, xtar, goal):
             return extend(None, x0, K, xtar, goal)   # Candidates
     else:
-        assert steer_route(dynamics, erf, feas, H, DT, TOL, saturate=sat,
-                           goal_buffer=gbuf, device=device) == route
-        made.clear()
         steer = make_routed_steer(dynamics, erf, feas, H, DT, TOL,
                                   saturate=sat, goal_buffer=gbuf, spans=timer)
     assert len(made) == takes
@@ -135,18 +177,36 @@ def test_routed_steer_selection(case, monkeypatch):
     xtar = x0 + torch.rand((B, n), generator=gen)
     goal = torch.full((n,), 1.0)
     if case == "per_row_goal":
-        goal = goal.expand(B, n).contiguous()
-        with pytest.raises(ValueError, match="goal"):
-            make_steer_kernel(dynamics, erf, feas, H, DT, TOL, saturate=sat,
-                              goal_buffer=gbuf)(x0, K, xtar, goal)
+        # every other row's goal its own start: its first step stops in it
+        goal = torch.where(torch.arange(B)[:, None] % 2 == 0, x0, goal)
+        kern = make_steer_kernel(dynamics, erf, feas, H, DT, TOL,
+                                 saturate=sat, goal_buffer=gbuf)
+        tree = steer_kernel.make_steer_kernel_tree(
+            dynamics, erf, feas, H, DT, TOL, saturate=sat, goal_buffer=gbuf)
+        pids = torch.arange(B, dtype=torch.int32)
+        for g in (goal, goal[0]):                     # (B, n), (n,)
+            want = make_steer(dynamics, erf, feas, H, DT, TOL, saturate=sat,
+                              goal_buffer=gbuf)(x0, K, xtar, g)
+            for got in (kern(x0, K, xtar, g), tree(x0, K, pids, xtar, g)):
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+        for g in (torch.cat([goal, goal[:1]]), goal[:1]):  # (B+1, n), (1, n)
+            with pytest.raises(ValueError, match="goal"):
+                kern(x0, K, xtar, g)
+            with pytest.raises(ValueError, match="goal"):
+                tree(x0, K, pids, xtar, g)
     res = steer(x0, K, xtar, goal)
-    assert timer.tallies() == ({} if case == "per_row_goal"
-                               else {"steer.scan": 1})
+    assert timer.tallies() == {"steer.scan": 1}
     ref = make_steer(dynamics, erf, feas, H, DT, TOL, saturate=sat,
                      goal_buffer=gbuf)(x0, K, xtar, goal)
     for name in ref._fields:
         if case != "per_row_goal" or hasattr(res, name):
             assert torch.equal(getattr(res, name), getattr(ref, name)), name
+    if case == "per_row_goal":
+        # each row toward its own goal: not the rollout toward one goal
+        assert res.in_goal.any() and not res.in_goal.all()
+        one = make_steer(dynamics, erf, feas, H, DT, TOL, saturate=sat,
+                         goal_buffer=gbuf)(x0, K, xtar, goal[1])
+        assert not torch.equal(res.in_goal, one.in_goal)
 
 
 @pytest.mark.parametrize("obstacle_model,selected",
@@ -268,7 +328,8 @@ def test_kernel_cell_arithmetic_matches_the_predicate():
 @pytest.mark.parametrize("obstacle_model", ["circles", "grid"])
 def test_launch_passes_the_raster(obstacle_model, monkeypatch):
     """The arguments ``_Spec.launch`` hands ``lqrrt_steer_rollout``: as many
-    as its C signature takes (the stream added by ``_launch``), the
+    as its C signature takes (the stream added by ``_launch``), the goal's
+    stride after the goal (0 for one (n,) goal, n for one a row), the
     raster's words, W, H, origin and reciprocal after the box, or a null
     raster and zeros for the circles."""
     seen = []
@@ -283,19 +344,22 @@ def test_launch_passes_the_raster(obstacle_model, monkeypatch):
                               prob["saturate"],
                               prob["constraints"].goal_buffer, 64)
     x0 = torch.zeros((B, 6))
-    spec.launch(x0, torch.zeros((B, 3, 6)), None, x0.clone(),
-                torch.zeros(6), "flat")
-    (name, args), = seen
+    for goal in (torch.zeros(6), torch.zeros((B, 6))):
+        spec.launch(x0, torch.zeros((B, 3, 6)), None, x0.clone(), goal,
+                    "flat")
+    (name, args), (_, row_args) = seen
     assert name == "lqrrt_steer_rollout"
     assert len(args) + 1 == len(_build._SIGNATURES[name])
-    grid, rest = args[12], args[13:18]
+    assert args[5].shape == (6,) and args[6] == 0      # goal, stride
+    assert row_args[5].shape == (B, 6) and row_args[6] == 6
+    grid, rest = args[13], args[14:19]
     if obstacle_model == "grid":
         occ = prob["constraints"].is_feasible.parts[0].grid[0]
         np.testing.assert_array_equal(grid.numpy(),
                                       steer_kernel.pack_grid(occ))
         assert grid.dtype == torch.int32
         assert rest == (200, 96, -4.0, -12.0, 4.0)
-        assert args[10] == 0                       # no circles
+        assert args[11] == 0                       # no circles
     else:
         assert grid is None and rest == (0, 0, 0.0, 0.0, 0.0)
-        assert args[10] == 7
+        assert args[11] == 7
