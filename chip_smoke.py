@@ -1584,7 +1584,8 @@ def f_kernels(f1, f1_launches, f2, f2_res, f2_launches, f3, f3_launches,
 
 def phase_care(models):
     """Batched care_lqr on the card for 8192 linearizations drawn from each
-    model's sample space, against scipy's float64 CARE on a subsample."""
+    model's sample space, in fp64 as the per-node lqr solves it, against
+    scipy's float64 CARE on a subsample."""
     import scipy.linalg
 
     from lqrrt_tpu_torch.ops import riccati
@@ -1602,7 +1603,10 @@ def phase_care(models):
         q, r = lqr_weights(model)
         Q = torch.diag(torch.tensor(q, device=dev))
         R = torch.diag(torch.tensor(r, device=dev))
+        # the per-node lqr solves the CARE in fp64 (ops/riccati.py)
+        A, B, Q, R = (t.double() for t in (A, B, Q, R))
         S, K = riccati.care_lqr(A, B, Q, R)
+        S, K = S.float(), K.float()
         lqr = model.make_lqr()
         S_cb, _ = lqr(x, u)              # the planner's callback: same math
         torch.cuda.synchronize()

@@ -97,10 +97,18 @@ def make_lqr(q=(1.0, 1.0, 1.0, 2.0, 2.0, 1.0, 0.3, 0.3, 0.3, 0.1, 0.1, 0.1),
                                  u_eq=np.zeros(NCONTROLS, np.float32))
 
 
-def default_problem(obstacles: bool = True):
-    """Fly 8 m through a column field at constant-ish altitude."""
+def default_problem(obstacles: bool = True, obstacle_model: str = "circles"):
+    """Fly 8 m through a column field at constant-ish altitude.
+
+    obstacle_model: "circles", the boat's keyword; the quadrotor has no
+    raster of its columns, so "grid" (or any other model) raises
+    ValueError."""
     from ..constraints import Constraints
 
+    if obstacle_model != "circles":
+        raise ValueError(f"obstacle_model {obstacle_model!r}: the "
+                         "quadrotor's columns are circles only (it has no "
+                         "raster)")
     centers = np.array([[3.0, 1.0], [5.0, -1.0], [6.5, 1.5]], np.float32)
     radii = np.array([0.8, 0.9, 0.7], np.float32)
     preds = [collision.control_limits(U_MIN, U_MAX_VEC)]

@@ -4,9 +4,9 @@
 Two CARE solvers and a DARE solver:
 
 * ``solve_care`` / ``care_lqr``: the JAX package's matrix-sign iteration,
-  batched over leading axes, fp32, on the tensor's device, with no host
-  sync.  ``make_relinearized_lqr`` re-solves it at every committed node
-  (car, quadrotor).
+  batched over leading axes, in the tensors' dtype, on their device, with
+  no host sync.  ``make_relinearized_lqr`` re-solves it at every committed
+  node (car, quadrotor), in fp64 where the JAX package solves in fp32.
 * ``care_lqr_host``: scipy's float64 CARE on the host, for setup-time
   constant policies (``lqr_setup``, ``make_constant_lqr``; the boat).
 * ``solve_dare`` / ``dare_lqr``: the discrete-time Riccati equation by the
@@ -220,6 +220,13 @@ def make_relinearized_lqr(f: Callable, Q, R, u_eq=None,
     is applied outside the differentiation: the Jacobians are of f itself
     at x_map(x), so no coupling is zeroed the way a clamp inside f would.
 
+    The CARE is solved in fp64 and (S, K) returned in x's dtype.  At a node
+    far from hover (a tumbling quadrotor, rates of tens of rad/s) the fp32
+    sign iteration loses every digit of S, its definiteness too, and a node
+    whose S is indefinite is every candidate's nearest under the e'Se
+    metric: a tree then grows from it alone.  fp64 holds S there to 1e-6
+    (the fp32 Jacobians' rounding).
+
     ``lqr.spanned(spans)`` (``utils.timing.spanned``) is the same lqr timing
     itself in a ``PhaseTimer``: the span ``lqr.linearize`` (``x_map`` and
     the Jacobians), the span ``lqr.care`` (``care_lqr``) and the tally
@@ -238,7 +245,10 @@ def make_relinearized_lqr(f: Callable, Q, R, u_eq=None,
                 ulin = ulin.expand(x.shape[:-1] + ulin.shape)
             A, B = linearize(f, xlin, ulin)
         with spans.span("lqr.care"):
-            out = care_lqr(A, B, Qc.like(x), Rc.like(x))
+            f64 = torch.float64
+            S, K = care_lqr(A.to(f64), B.to(f64), Qc.like(x, f64),
+                            Rc.like(x, f64))
+            out = S.to(x.dtype), K.to(x.dtype)
         spans.tally("lqr.rows", math.prod(A.shape[:-2]))
         return out
 

@@ -116,6 +116,43 @@ def test_relinearized_lqr_matches_jax(model):
                                atol=1e-5)
 
 
+def test_relinearized_lqr_solves_in_fp64_at_tumbling_quadrotor_nodes():
+    """Three nodes of a quadrotor tree grown on the card that tumble far
+    outside the sample space (rates of 9-92 rad/s, 29-201 m below the
+    start).  There the fp32 sign iteration (the JAX package's precision)
+    misses S by a relative 1.9-7.0 (Frobenius, against scipy's float64
+    CARE), one of them indefinite; the per-node lqr, which solves the CARE
+    in fp64 from fp32 Jacobians, holds it within 1e-5 and positive
+    definite."""
+    x = np.array([
+        [14.376, 12.344, -28.757, -7.897, 16.016, -2.003, 3.255, 5.878,
+         -24.467, 39.9, -76.266, -0.405],
+        [68.852, -46.084, -200.652, 6.286, 1.945, 2.29, 14.808, -8.739,
+         -63.74, 8.544, 91.976, 3.341],
+        [26.469, -19.841, -52.254, -23.276, 3.113, 0.58, 14.048, -8.122,
+         -34.872, -23.565, -64.923, 0.841]], np.float32)
+    Q = np.diag([1.0, 1.0, 1.0, 2.0, 2.0, 1.0] + [0.3] * 3 + [0.1] * 3)
+    R = np.diag([0.02, 2.0, 2.0, 2.0])
+    xt = torch.from_numpy(x)
+    S, _ = quadrotor.make_lqr()(xt, torch.zeros(3, 4))
+    A, B = riccati.linearize(quadrotor.f, xt, torch.zeros(3, 4))
+    S32 = riccati.solve_care(A, B, torch.from_numpy(Q).float(),
+                             torch.from_numpy(R).float())
+    A64, B64 = riccati.linearize(quadrotor.f, xt.double(),
+                                 torch.zeros(3, 4, dtype=torch.float64))
+    for i in range(3):
+        P = scipy.linalg.solve_continuous_are(A64[i].numpy(),
+                                              B64[i].numpy(), Q, R)
+
+        def rel(M):
+            return np.linalg.norm(M.double().numpy() - P) / np.linalg.norm(P)
+        assert rel(S32[i]) > 0.1, (i, rel(S32[i]))
+        assert rel(S[i]) < 1e-5, (i, rel(S[i]))
+        assert np.linalg.eigvalsh(S[i].double().numpy())[0] > 0
+    assert min(np.linalg.eigvalsh(S32[i].double().numpy())[0]
+               for i in range(3)) < 0
+
+
 def test_car_x_map_applies_outside_the_jacobian():
     """At rest the linearization point has |v| = 0.8, and the Jacobian is
     of f itself there: dpx/dv = cos(theta) survives (a clamp inside f would
